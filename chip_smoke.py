@@ -1,0 +1,574 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port on one NVIDIA GPU at the headline deployment.
+
+The deployment is the repo's north-star configuration: BENCH_SCHEMA (the
+kube pod/namespace/group schema of bench.py) with 100,000 pods, 10,000
+users, 1,000 namespaces, 1,000 groups and 10,000,000 relationships,
+rows generated from ``--seed``. Phases:
+
+1. device: the card's name and power limit;
+2. kernel build: nvcc of csrc/bitprop.cu into build/torch_kernels/;
+3. bulk load, graph compile and device build of the headline store;
+4. each CUDA kernel against its plain PyTorch version on the card, at
+   the headline block shape the main path feeds it and at two ragged
+   shapes: byte-equal, with kernel / plain / library times and bounds;
+5. the list filter: ``lookup_resources_mask("pod", "view", "user", u)``
+   for 31 subjects (B=1, push: the bit kernel);
+6. the bulk check: 64 subjects x 1,024 items (pull: the dense kernel);
+7. the same list filters under forced pull: identical masks; then a
+   torch.profiler trace of both paths (device busy time, idle share and
+   the kernels that take the most device time);
+8. random checks and full masks against the host OracleEvaluator.
+
+Launch counts are zeroed just before phase 5 and read just after phase 6:
+both kernels must have run on the main path. Any mismatch or error exits
+non-zero. The last line is the run's JSON verdict.
+
+Usage: python3 chip_smoke.py [--seed N] [--n-rels N]
+(from the repository root; kernels build at first use).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+# the headline deployment's widths (never cut; only --n-rels may be)
+N_PODS, N_USERS, N_NS, N_GROUPS = 100_000, 10_000, 1_000, 1_000
+HEADLINE_RELS = 10_000_000
+N_SUBJECTS = 31  # list-filter subjects timed and checked
+
+BENCH_SCHEMA = """
+use expiration
+
+definition user {}
+definition group {
+  relation member: user
+}
+definition namespace {
+  relation creator: user
+  relation viewer: user | group#member
+  permission admin = creator
+  permission view = viewer + creator
+}
+definition pod {
+  relation namespace: namespace
+  relation creator: user
+  relation viewer: user
+  permission edit = creator
+  permission view = viewer + creator + namespace->view
+}
+"""
+
+# H100 SXM published peaks (NVIDIA data sheet, dense, at 700 W)
+HBM_BYTES_PER_S = 3.35e12
+INT8_OPS_PER_S = 1.979e15
+
+KERNEL_SOURCE = "spicedb_kubeapi_proxy_tpu_torch/csrc/bitprop.cu"
+REPLACES = {
+    "bit_or_matmul": "spicedb_kubeapi_proxy_tpu/ops/bitprop.py:151",
+    "dense_or_matmul": "spicedb_kubeapi_proxy_tpu/ops/bitprop.py:258",
+}
+
+
+class SmokeFailure(Exception):
+    pass
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise SmokeFailure(msg)
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def build_rows(n_pods: int, n_users: int, n_ns: int, n_groups: int,
+               n_rels: int, seed: int) -> dict:
+    """The headline rows, generated as bench.py's build_engine does:
+    ~20 users per group, 2 group viewer grants per namespace, every pod
+    in a namespace, and the rest flat deduplicated pod#viewer@user."""
+    rng = np.random.default_rng(seed)
+    pods = np.char.add("ns/p", np.arange(n_pods).astype(str))
+    users = np.char.add("u", np.arange(n_users).astype(str))
+    groups = np.char.add("g", np.arange(n_groups).astype(str))
+    nss = np.char.add("ns", np.arange(n_ns).astype(str))
+    keys = ["resource_type", "resource_id", "relation",
+            "subject_type", "subject_id", "subject_relation"]
+    cols = {k: [] for k in keys}
+
+    def add(rt, rid, rl, st, sid, srl=None):
+        n = len(rid)
+        cols["resource_type"].append(np.full(n, rt))
+        cols["resource_id"].append(rid)
+        cols["relation"].append(np.full(n, rl))
+        cols["subject_type"].append(np.full(n, st))
+        cols["subject_id"].append(sid)
+        cols["subject_relation"].append(
+            np.full(n, srl if srl is not None else ""))
+
+    gm = min(20 * n_groups, n_rels // 20)
+    add("group", groups[rng.integers(n_groups, size=gm)], "member",
+        "user", users[rng.integers(n_users, size=gm)])
+    nv = 2 * n_ns
+    add("namespace", nss[rng.integers(n_ns, size=nv)], "viewer",
+        "group", groups[rng.integers(n_groups, size=nv)], "member")
+    pod_ns = np.char.add("ns", rng.integers(n_ns, size=n_pods).astype(str))
+    add("pod", pods, "namespace", "namespace", pod_ns)
+    n_flat = n_rels - gm - nv - n_pods
+    pair = rng.integers(0, n_pods * n_users, size=int(n_flat * 1.01),
+                        dtype=np.int64)
+    pair = np.unique(pair)[:n_flat]
+    rng.shuffle(pair)
+    add("pod", pods[pair // n_users], "viewer", "user",
+        users[pair % n_users])
+    return {k: np.concatenate(v) for k, v in cols.items()}
+
+
+def cuda_ms(torch, fn, reps: int) -> float:
+    """Mean device time of ``fn`` over ``reps`` launches (CUDA events),
+    after one warm-up call."""
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bound_ms(n_bytes: float, n_ops: float = 0.0) -> tuple[float, str]:
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / INT8_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def one_hot_frontier(torch, idx_rows, n_src: int, dev):
+    """A block's frontier as the fixpoint feeds it: row b holds its
+    subject's slot and the wildcard slot (object index 1)."""
+    f = torch.zeros((len(idx_rows), n_src), dtype=torch.uint8, device=dev)
+    for b, i in enumerate(idx_rows):
+        f[b, i] = 1
+        f[b, 1] = 1
+    return f
+
+
+def capture_inputs(bitprop, bits, A, run) -> dict:
+    """Run ``run`` (main-path calls) with both kernel wrappers wrapped to
+    keep a copy of the first inputs each gets for the headline block
+    (``bits`` / ``A``): exactly the shapes and frontiers the main path
+    launches. The wrapped calls still launch the kernels."""
+    got = {}
+    bit, dense = bitprop.bit_or_matmul, bitprop.dense_or_matmul
+
+    def bit_spy(a, vb, nb):
+        if a is bits:
+            got.setdefault("bit", (a, vb.clone(), nb))
+        return bit(a, vb, nb)
+
+    def dense_spy(a, f):
+        if a is A:
+            got.setdefault("dense", (a, f.clone()))
+        return dense(a, f)
+
+    # the wrappers count through their module-level names, now the spies
+    bit_spy.launches = dense_spy.launches = 0
+    bitprop.bit_or_matmul, bitprop.dense_or_matmul = bit_spy, dense_spy
+    try:
+        run()
+    finally:
+        bitprop.bit_or_matmul, bitprop.dense_or_matmul = bit, dense
+    check(set(got) == {"bit", "dense"},
+          f"the main path gave the headline block only {sorted(got)}")
+    return got
+
+
+def time_dense(torch, bitprop, A, f, dev, label: str) -> dict:
+    """Times of ``dense_or_matmul`` on (A, f): kernel, plain version and
+    the library yardstick, with the data bound and the bytes the kernel
+    reads (it skips all-zero frontier tiles)."""
+    nb, (nd, ns) = f.shape[0], A.shape
+    ms = cuda_ms(torch, lambda: bitprop.dense_or_matmul(A, f), 20)
+    plain = cuda_ms(torch, lambda: bitprop.dense_or_matmul_plain(A, f), 2)
+    live_cols = int((f != 0).any(dim=0).sum())
+    need = nd * live_cols + f.numel() + nb * nd
+    b_ms, b_by = bound_ms(need, 2.0 * nb * nd * live_cols)
+    # what the kernel reads from HBM: the A tiles (64 src bytes each) that
+    # meet a frontier tile with a bit set; all-zero tiles are skipped
+    tile = 64
+    live_tiles = int(f.view(nb, ns // tile, tile).ne(0).any(dim=2)
+                     .any(dim=0).sum())
+    read = nd * tile * live_tiles + f.numel() + nb * nd
+    # the library yardstick: timed here only, the port never calls it;
+    # torch._int_mm wants more than 16 rows, so zero rows pad it to 32
+    fi8, at = torch.zeros((max(32, nb), ns), dtype=torch.int8,
+                          device=dev), A.t()
+    fi8[:nb] = f
+    library = cuda_ms(torch, lambda: torch._int_mm(fi8, at).gt(0), 20)
+    check(torch.equal(torch._int_mm(fi8, at)[:nb].gt(0).to(torch.uint8),
+                      bitprop.dense_or_matmul(A, f)),
+          "torch._int_mm yardstick disagrees with dense_or_matmul")
+    log(f"  dense_or_matmul {label} [{nd} x {ns}] B={nb}: kernel "
+        f"{ms:.4f} ms, plain {plain:.4f} ms, bound {b_ms:.6f} ms "
+        f"({live_cols} live src columns); reads {live_tiles} of "
+        f"{ns // tile} src tiles, {read} bytes (stream bound "
+        f"{bound_ms(read)[0]:.4f} ms), achieved {read / ms / 1e6:.1f} GB/s; "
+        f"library torch._int_mm>0 {library:.4f} ms (B padded to "
+        f"{fi8.shape[0]})")
+    return dict(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                library_ms=library)
+
+
+def kernel_phase(torch, bitprop, cap, f64, dev):
+    """Phase 4: both kernels against their plain versions on the card, at
+    the inputs the main path gave the headline block (``cap``) and at
+    extra shapes; times at the main path's inputs."""
+    rng = np.random.default_rng(7)
+    rows = {}
+
+    def ragged_bits(nd, ns, nb):
+        dst = torch.from_numpy(rng.integers(nd, size=8 * nd)).to(dev)
+        src = torch.from_numpy(rng.integers(ns, size=8 * nd)).to(dev)
+        a = bitprop.pack_block(dst, src, nd, ns)
+        f = torch.from_numpy(
+            (rng.random((nb, ns)) < 0.05).astype(np.uint8)).to(dev)
+        return a, bitprop.pack_frontier(f, ns), nb
+
+    # -- bit_or_matmul: the list filter's pod#viewer hop, two ragged --
+    err = 0
+    cases = [cap["bit"], ragged_bits(288, 96, 3), ragged_bits(4064, 4000, 8)]
+    for a, vb, nb in cases:
+        got = bitprop.bit_or_matmul(a, vb, nb)
+        want = bitprop.bit_or_matmul_plain(a, vb, nb)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want),
+              f"bit_or_matmul != plain at {tuple(a.shape)} n_b={nb}")
+        err = max(err, int((got.int() - want.int()).abs().max()))
+        log(f"  bit_or_matmul {tuple(a.shape)} n_b={nb}: byte-equal "
+            f"(hits {int(got.sum())})")
+    a, vb, nb = cases[0]
+    n_dst, k = a.shape
+    ms = cuda_ms(torch, lambda: bitprop.bit_or_matmul(a, vb, nb), 50)
+    plain = cuda_ms(torch, lambda: bitprop.bit_or_matmul_plain(a, vb, nb), 5)
+    # data-dependent need: only the packed words holding a frontier bit
+    live_words = int((vb[:nb] != 0).any(dim=0).sum())
+    need = n_dst * live_words * 4 + vb.numel() * 4 + nb * n_dst
+    b_ms, b_by = bound_ms(need)
+    read = a.numel() * 4 + vb.numel() * 4 + nb * n_dst
+    rows["bit_or_matmul"] = dict(
+        ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+        library_ms=None, max_abs_err=err)
+    log(f"  bit_or_matmul main-path input [{n_dst} x {k}] n_b={nb}: kernel "
+        f"{ms:.4f} ms, plain {plain:.4f} ms, bound {b_ms:.6f} ms "
+        f"({live_words} live words); reads the whole dual, {read} bytes "
+        f"(stream bound {bound_ms(read)[0]:.4f} ms), achieved "
+        f"{read / ms / 1e6:.1f} GB/s; library: none")
+
+    # -- dense_or_matmul: the bulk check's pod#viewer hop, B=64 one-hot
+    # on the same block, two ragged --
+    err = 0
+    A, f = cap["dense"]
+    dcases = [(A, f), (A, f64)]
+    for nd, ns, b in ((384, 128, 33), (1000, 4000, 200)):
+        dcases.append((
+            torch.from_numpy((rng.random((nd, ns)) < 0.05).astype(
+                np.int8)).to(dev),
+            torch.from_numpy((rng.random((b, ns)) < 0.02).astype(
+                np.uint8)).to(dev)))
+    for a, fr in dcases:
+        got = bitprop.dense_or_matmul(a, fr)
+        want = bitprop.dense_or_matmul_plain(a, fr)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), f"dense_or_matmul != plain at "
+              f"{tuple(a.shape)} B={fr.shape[0]}")
+        err = max(err, int((got.int() - want.int()).abs().max()))
+        log(f"  dense_or_matmul {tuple(a.shape)} B={fr.shape[0]}: byte-equal "
+            f"(hits {int(got.sum())})")
+    rows["dense_or_matmul"] = dict(
+        time_dense(torch, bitprop, A, f, dev, "main-path input"),
+        max_abs_err=err)
+    # the same block at B=64 (one subject a row), to show how the time
+    # goes with the live src tiles; printed only
+    time_dense(torch, bitprop, A, f64, dev, "one-hot B=64")
+    return rows
+
+
+def trace_phase(torch, label: str, fn, n_calls: int) -> None:
+    """Where the time goes: a torch.profiler trace of ``fn`` (``n_calls``
+    main-path calls, warmed up first). Device busy time is the union of the
+    traced device activity intervals; the idle share is the rest of the
+    wall time of the same window run untraced (the profiler slows the
+    host), each window ending in a synchronize."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    plain_us = (time.perf_counter() - t0) * 1e6
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    spans, per_name = [], {}
+    for ev in prof.events():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        lo, hi = ev.time_range.start, ev.time_range.end
+        spans.append((lo, hi))
+        n, t = per_name.get(ev.name, (0, 0.0))
+        per_name[ev.name] = (n + 1, t + (hi - lo))
+    if not spans:
+        log(f"  trace {label}: device time not measured (the profiler "
+            f"recorded no device activity); wall {wall_us / 1e3:.3f} ms "
+            f"for {n_calls} calls")
+        return
+    busy, end = 0.0, float("-inf")
+    for lo, hi in sorted(spans):
+        if hi > end:
+            busy += hi - max(lo, end)
+            end = hi
+    log(f"  trace {label}: {n_calls} calls, wall {plain_us / 1e3:.3f} ms "
+        f"untraced ({wall_us / 1e3:.3f} ms traced), device busy "
+        f"{busy / 1e3:.3f} ms, idle share {max(0.0, 1 - busy / plain_us):.4f},"
+        f" {len(spans)} device activities")
+    top = sorted(per_name.items(), key=lambda kv: -kv[1][1])[:6]
+    for nm, (n, t) in top:
+        log(f"    {t / 1e3:9.3f} ms  x{n:<5d} {nm[:90]}")
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--n-rels", type=int, default=HEADLINE_RELS,
+                    help="relationship count (the only dimension that may "
+                         "be cut; widths stay at the headline)")
+    args = ap.parse_args(argv)
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
+              "False); this script measures the GPU port only",
+              file=sys.stderr)
+        return 2
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, here)
+    try:
+        import spicedb_kubeapi_proxy_tpu_torch as port
+    except ImportError as ex:
+        print(f"chip_smoke: the port package is missing next to the script "
+              f"({ex}); run it from the repository root", file=sys.stderr)
+        return 2
+    check(os.path.dirname(os.path.dirname(os.path.abspath(port.__file__)))
+          == here, "the port package must come from this checkout")
+    from spicedb_kubeapi_proxy_tpu_torch.engine import CheckItem, Engine
+    from spicedb_kubeapi_proxy_tpu_torch.engine.evaluator import \
+        OracleEvaluator
+    from spicedb_kubeapi_proxy_tpu_torch.models import parse_schema
+    from spicedb_kubeapi_proxy_tpu_torch.ops import bitprop, kernels, \
+        semiring
+
+    # -- phase 1: device --
+    dev = torch.device("cuda", 0)
+    name = torch.cuda.get_device_name(0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()
+    smi_line = smi[0] if smi else "nvidia-smi: no output"
+    log(f"phase 1 device: {name} (count {torch.cuda.device_count()}); "
+        f"torch {torch.__version__} cuda {torch.version.cuda}")
+    log(f"  nvidia-smi: {smi_line}")
+
+    # -- phase 2: kernel build --
+    t0 = time.perf_counter()
+    kernels.build("bitprop")
+    log(f"phase 2 kernel build: {time.perf_counter() - t0:.2f} s "
+        f"(nvcc {kernels.build_seconds.get('bitprop', 0.0):.2f} s)")
+
+    # -- phase 3: store build --
+    if args.n_rels != HEADLINE_RELS:
+        log(f"  n_rels cut: {args.n_rels} of the headline {HEADLINE_RELS}")
+    t0 = time.perf_counter()
+    rows = build_rows(N_PODS, N_USERS, N_NS, N_GROUPS, args.n_rels,
+                      args.seed)
+    total = len(rows["resource_id"])
+    gen_s = time.perf_counter() - t0
+    e = Engine(schema=parse_schema(BENCH_SCHEMA), device=dev)
+    t0 = time.perf_counter()
+    e.bulk_load(rows)
+    load_s = time.perf_counter() - t0
+    del rows
+    t0 = time.perf_counter()
+    cg = e.compiled()
+    compile_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    d = cg._dev()
+    torch.cuda.synchronize()
+    dev_s = time.perf_counter() - t0
+    n_bits = sum(b is not None for b in d["blocks_bits"])
+    log(f"phase 3 store: {total} relationships (gen {gen_s:.2f} s), "
+        f"bulk_load {load_s:.2f} s, compile_graph {compile_s:.2f} s, "
+        f"device build {dev_s:.2f} s")
+    log(f"  M={cg.M} slots, E={cg.n_edges} edges, {len(cg.blocks)} dense "
+        f"blocks ({n_bits} with bit duals), {cg.n_levels} levels, "
+        f"residual {len(cg.res_src)} padded edges")
+    for b, A, bits in zip(cg.blocks, d["blocks"], d["blocks_bits"]):
+        log(f"    block dst@{b.dst_off} [{b.n_dst} x {b.n_src}] level "
+            f"{b.level} edges {len(b.dst_local)}"
+            + (f" bits {tuple(bits.shape)}" if bits is not None else ""))
+    log(f"  device bytes held: graph {cg.device_bytes()}, allocated "
+        f"{torch.cuda.memory_allocated()}")
+
+    # -- phase 4: kernels vs plain, at the main path's own inputs --
+    objs = e._objects_by_name()
+    rng = np.random.default_rng(args.seed + 1)
+    subjects = [f"u{rng.integers(N_USERS)}" for _ in range(N_SUBJECTS)]
+    bulk_users = [f"u{u}" for u in rng.choice(N_USERS, 64, replace=False)]
+    # grouped by subject as bench.py builds them: each 16,384-item chunk
+    # holds 16 subjects, so the bulk check's pull hops run at B=16
+    items = [CheckItem("pod", f"ns/p{rng.integers(N_PODS)}", "view",
+                       "user", u) for u in bulk_users for _ in range(1024)]
+    pv = next(i for i, b in enumerate(cg.blocks)
+              if b.dst_off == cg.offset_of("pod", "viewer"))
+    check(d["blocks_bits"][pv] is not None,
+          "the pod#viewer block has no bit dual")
+    cap = capture_inputs(  # doubles as the main path's warm-up
+        bitprop, d["blocks_bits"][pv], d["blocks"][pv], lambda: (
+            e.lookup_resources_mask("pod", "view", "user", subjects[0]),
+            e.check_bulk(items)))
+    user_idx = objs["user"].id_map()
+    log("phase 4 kernels vs plain on the card:")
+    krows = kernel_phase(torch, bitprop, cap, one_hot_frontier(
+        torch, [user_idx[u] for u in bulk_users], d["blocks"][pv].shape[1],
+        dev), dev)
+    del cap
+
+    # -- phases 5 + 6: the main path, launches counted --
+    torch.cuda.synchronize()
+    bitprop.reset_launch_counts()
+    lat, masks, iters, pushes = [], {}, [], []
+    for u in subjects:
+        t0 = time.perf_counter()
+        fut = e.lookup_resources_mask_async("pod", "view", "user", u)
+        mask, _ = fut.result()
+        lat.append((time.perf_counter() - t0) * 1e3)
+        masks[u] = mask
+        iters.append(fut.iterations())
+        pushes.append(fut._fut.push_steps())
+    p50, p99 = np.percentile(lat, 50), np.percentile(lat, 99)
+    log(f"phase 5 list filter: {len(lat)} subjects, B=1, p50 {p50:.3f} ms, "
+        f"p99 {p99:.3f} ms wall; iterations {sorted(set(iters))}, push "
+        f"steps {sorted(set(pushes))}; visible pods "
+        f"{[int(m.sum()) for m in list(masks.values())[:5]]}...")
+    rates, now = [], time.time()  # one clock for phases 6 and 8
+    for _ in range(5):
+        t0 = time.perf_counter()
+        verdicts = e.check_bulk(items, now=now)
+        rates.append(len(items) / (time.perf_counter() - t0))
+    log(f"phase 6 bulk check: {len(items)} checks (64 subjects x 1024, "
+        f"4 chunks of 16 subjects), p50 {np.median(rates):,.0f} checks/s "
+        f"over 5 trials (min {min(rates):,.0f}, max {max(rates):,.0f}); "
+        f"{sum(verdicts)} allowed")
+    launches = {"bit_or_matmul": bitprop.bit_or_matmul.launches,
+                "dense_or_matmul": bitprop.dense_or_matmul.launches}
+    log(f"  main-path launches: {launches}")
+    for kname, n in launches.items():
+        check(n > 0, f"{kname} was not launched on the main path")
+
+    # -- phase 7: forced pull, same subjects --
+    with semiring.force_mode("pull"):
+        for u in subjects:
+            mask, _ = e.lookup_resources_mask("pod", "view", "user", u)
+            check(np.array_equal(mask, masks[u]),
+                  f"forced-pull mask differs from push for {u}")
+    log(f"phase 7 forced pull: {len(subjects)} masks identical to phase 5")
+
+    # -- phase 7b: where the time goes (device trace of both paths) --
+    trace_phase(torch, "list filter (B=1)", lambda: [
+        e.lookup_resources_mask("pod", "view", "user", u)
+        for u in subjects[:10]], 10)
+    trace_phase(torch, "bulk check (64x1024)", lambda: e.check_bulk(items),
+                1)
+
+    # -- phase 8: the host oracle --
+    t0 = time.perf_counter()
+    oracle = OracleEvaluator(e.schema, e.store.snapshot(), now=now)
+    oracle_s = time.perf_counter() - t0
+    # a sample of phase 6's own verdicts (all of its allowed ones)
+    sample = sorted(set(rng.choice(len(items), 2000, replace=False).tolist())
+                    | {i for i, v in enumerate(verdicts) if v})
+    bad = sum(verdicts[i] != oracle.check(
+        "pod", items[i].resource_id, "view", "user", items[i].subject_id)
+        for i in sample)
+    check(bad == 0, f"{bad} of {len(sample)} phase-6 verdicts disagree "
+          f"with the oracle")
+    pods = objs["pod"]
+    checks = []
+    for u in subjects[:10]:
+        vis = np.flatnonzero(masks[u])
+        for i in vis[:10].tolist():
+            checks.append(CheckItem("pod", pods.string(i), "view", "user", u))
+    while len(checks) < 240:
+        checks.append(CheckItem(
+            "pod", f"ns/p{rng.integers(N_PODS)}", "view", "user",
+            f"u{rng.integers(N_USERS)}"))
+    checks += [CheckItem("namespace", f"ns{rng.integers(N_NS)}", "view",
+                         "user", f"u{rng.integers(N_USERS)}")
+               for _ in range(40)]
+    got = e.check_bulk(checks, now=now)
+    want = [oracle.check(c.resource_type, c.resource_id, c.permission,
+                         c.subject_type, c.subject_id) for c in checks]
+    check(got == want, f"{sum(a != b for a, b in zip(got, want))} of "
+          f"{len(checks)} checks disagree with the oracle")
+    for u in subjects[:2]:
+        ids = {pods.string(i) for i in np.flatnonzero(masks[u])}
+        check(ids == oracle.lookup_resources("pod", "view", "user", u),
+              f"full mask for {u} disagrees with the oracle")
+    log(f"phase 8 oracle: {len(sample)} phase-6 verdicts "
+        f"({sum(verdicts[i] for i in sample)} allowed), {len(checks)} checks "
+        f"({sum(want)} allowed) and 2 full masks exact (oracle build "
+        f"{oracle_s:.1f} s)")
+
+    out = []
+    for kname in ("bit_or_matmul", "dense_or_matmul"):
+        r = krows[kname]
+        out.append({"name": kname, "route": "cuda", "source": KERNEL_SOURCE,
+                    "replaces": REPLACES[kname],
+                    "launches": launches[kname],
+                    "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                    "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                    "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    log("kernels: " + ", ".join(
+        f"{k['name']} launches={k['launches']} matched_plain="
+        f"{k['max_abs_err'] == 0}" for k in out))
+    print(json.dumps({"kernels": out}))
+    print(smi_line)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    try:
+        sys.exit(main())
+    except SmokeFailure as ex:
+        print(f"chip_smoke FAILED: {ex}", file=sys.stderr)
+        sys.exit(1)

@@ -1,0 +1,133 @@
+"""Carry a compiled graph across from plain arrays.
+
+:func:`from_reference_arrays` builds the port's
+:class:`~.ops.reachability.CompiledGraph` from numpy arrays and plain
+Python metadata only, so a graph compiled elsewhere (the JAX package's
+``compile_graph``, flattened by the caller) runs through the port's
+fixpoint unchanged. Permission expressions arrive as nested tuples:
+
+    ("nil",)  ("rel", name)  ("arrow", tupleset, target)
+    ("or", e, ...)  ("and", e, ...)  ("sub", base, subtract)
+
+Input keys: ``M``, ``slot_offset``, ``type_sizes``, ``base_time``; the
+residual — either the padded per-level views ``res_src``/``res_dst``/
+``res_exp``, or the full dst-sorted ``src``/``dst``/``exp_rel`` with
+``res_idx`` — and ``res_level_bounds``, ``range_offs``, ``range_levels``,
+``n_levels``; ``blocks`` (dicts of ``dst_off``, ``n_dst``, ``src_off``,
+``n_src``, ``dst_local``, ``src_local``, ``level``, ``closured``);
+``programs`` (dicts of ``dst_off``, ``size``, ``expr``, ``leaf_off`` as
+(leaf tuple, offset) pairs, ``level``); optional delta overlay
+``delta_src``/``delta_dst``/``delta_exp``/``n_delta`` and ``dead_pairs``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from .device import resolve_device
+from .models.schema import (
+    Arrow,
+    Exclude,
+    Expr,
+    Intersect,
+    Nil,
+    RelationRef,
+    Union,
+)
+from .ops.reachability import (
+    CompiledGraph,
+    _BlockMeta,
+    _next_bucket,
+    _PermProgram,
+)
+
+
+def expr_from_tuple(t) -> Expr:
+    """Nested-tuple expression -> the port's :class:`Expr` tree."""
+    tag = t[0]
+    if tag == "nil":
+        return Nil()
+    if tag == "rel":
+        return RelationRef(t[1])
+    if tag == "arrow":
+        return Arrow(t[1], t[2])
+    if tag == "or":
+        return Union(tuple(expr_from_tuple(o) for o in t[1:]))
+    if tag == "and":
+        return Intersect(tuple(expr_from_tuple(o) for o in t[1:]))
+    if tag == "sub":
+        return Exclude(expr_from_tuple(t[1]), expr_from_tuple(t[2]))
+    raise ValueError(f"unknown expression tag {tag!r}")
+
+
+def _residual(d: dict, M: int) -> tuple:
+    if d.get("res_src") is not None:
+        return (np.asarray(d["res_src"], dtype=np.int32),
+                np.asarray(d["res_dst"], dtype=np.int32),
+                np.asarray(d["res_exp"], dtype=np.float32))
+    res_idx = np.asarray(d["res_idx"], dtype=np.int64)
+    E_pad = _next_bucket(max(len(res_idx), 1))
+    src = np.full(E_pad, M, dtype=np.int32)
+    dst = np.full(E_pad, M, dtype=np.int32)
+    exp = np.full(E_pad, -np.inf, dtype=np.float32)
+    src[:len(res_idx)] = np.asarray(d["src"])[res_idx]
+    dst[:len(res_idx)] = np.asarray(d["dst"])[res_idx]
+    exp[:len(res_idx)] = np.asarray(d["exp_rel"])[res_idx]
+    return src, dst, exp
+
+
+def from_reference_arrays(d: dict, device=None) -> CompiledGraph:
+    """Build a :class:`CompiledGraph` on ``device`` (``cuda`` unless the
+    caller passes ``"cpu"``) from the plain-array form described above."""
+    M = int(d["M"])
+    res_src, res_dst, res_exp = _residual(d, M)
+    bounds = d.get("res_level_bounds")
+    blocks = [
+        _BlockMeta(int(b["dst_off"]), int(b["n_dst"]), int(b["src_off"]),
+                   int(b["n_src"]),
+                   np.asarray(b["dst_local"], dtype=np.int32),
+                   np.asarray(b["src_local"], dtype=np.int32),
+                   int(b.get("level", 0)), bool(b.get("closured", False)))
+        for b in d.get("blocks", ())]
+    programs = []
+    for p in d["programs"]:
+        leaf_off = {expr_from_tuple(leaf): int(off)
+                    for leaf, off in p["leaf_off"]}
+        programs.append(_PermProgram(int(p["dst_off"]), int(p["size"]),
+                                     expr_from_tuple(p["expr"]), leaf_off,
+                                     int(p.get("level", 0))))
+
+    def opt(key, dtype):
+        v = d.get(key)
+        return None if v is None else np.asarray(v, dtype=dtype)
+
+    dead = opt("dead_pairs", np.int64)
+    return CompiledGraph(
+        schema=None,
+        revision=int(d.get("revision", 0)),
+        base_time=float(d["base_time"]),
+        M=M,
+        slot_offset=dict(d.get("slot_offset", {})),
+        type_sizes=dict(d.get("type_sizes", {})),
+        programs=programs,
+        blocks=blocks,
+        res_src=res_src,
+        res_dst=res_dst,
+        res_exp=res_exp,
+        res_level_bounds=None if bounds is None
+        else tuple(int(x) for x in bounds),
+        n_levels=int(d.get("n_levels", 0)),
+        range_levels=opt("range_levels", np.int32),
+        range_offs=opt("range_offs", np.int64),
+        src=opt("src", np.int32),
+        dst=opt("dst", np.int32),
+        exp_rel=opt("exp_rel", np.float32),
+        n_edges=int(d.get("n_edges", 0)),
+        res_idx=opt("res_idx", np.int64),
+        delta_src=opt("delta_src", np.int32),
+        delta_dst=opt("delta_dst", np.int32),
+        delta_exp=opt("delta_exp", np.float32),
+        n_delta=int(d.get("n_delta", 0)),
+        dead_pairs=None if dead is None else dead.reshape(-1, 2),
+        device=resolve_device(device),
+    )

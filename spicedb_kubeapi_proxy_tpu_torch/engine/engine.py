@@ -1,0 +1,405 @@
+"""The query engine: CheckBulkPermissions and LookupResources on the GPU.
+
+Counterpart of the JAX package's ``engine/engine.py``, cut to the serving
+path of this slice: a store, full recompiles on write, chunked bulk
+checks and list-filter masks through the reachability fixpoint
+(ops/reachability.py), and the push/pull crossover feedback. The
+batcher, decision cache, persistence, compaction, mesh, tiering,
+migration and the incremental overlay come with later slices.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from dataclasses import dataclass
+from typing import Optional
+
+import numpy as np
+
+from ..device import resolve_device
+from ..models.bootstrap import DEFAULT_BOOTSTRAP, parse_bootstrap
+from ..models.schema import Schema
+from ..models.tuples import Relationship
+from ..ops import semiring
+from ..ops.reachability import VOID_IDX, CompiledGraph, compile_graph
+from ..utils.metrics import metrics
+from .evaluator import OracleEvaluator
+from .store import Precondition, RelationshipFilter, Store, StoreError, \
+    WriteOp
+
+
+class SchemaViolation(StoreError):
+    pass
+
+
+@dataclass(frozen=True)
+class CheckItem:
+    resource_type: str
+    resource_id: str
+    permission: str
+    subject_type: str
+    subject_id: str
+    subject_relation: Optional[str] = None
+
+
+def mask_to_ids(mask, interner) -> list:
+    """Allowed id strings from a lookup mask (padding indices guarded)."""
+    if mask is None:
+        return []
+    return [interner.string(i) for i in np.flatnonzero(mask).tolist()
+            if i < len(interner)]
+
+
+def mask_pseudo_objects(mask: np.ndarray) -> np.ndarray:
+    """Clear the reserved per-type indices (0 = void, 1 = wildcard '*')."""
+    mask[0] = False
+    mask[1] = False
+    return mask
+
+
+def validate_relationship(schema: Schema, rel: Relationship) -> None:
+    """Schema admission for one relationship tuple (the write path's
+    gate). Caveated tuples are refused until the caveat VM is ported."""
+    if getattr(rel, "caveat", None):
+        raise SchemaViolation(
+            f"relationship carries caveat {rel.caveat!r}: caveats are not "
+            "ported yet")
+    d = schema.definitions.get(rel.resource_type)
+    if d is None:
+        raise SchemaViolation(f"unknown resource type {rel.resource_type!r}")
+    if rel.resource_id == "*":
+        raise SchemaViolation("resource id may not be the wildcard '*'")
+    r = d.relations.get(rel.relation)
+    if r is None:
+        raise SchemaViolation(
+            f"{rel.resource_type} has no relation {rel.relation!r}"
+            + (" (permissions are not writable)"
+               if rel.relation in d.permissions else ""))
+    if schema.definitions.get(rel.subject_type) is None:
+        raise SchemaViolation(f"unknown subject type {rel.subject_type!r}")
+    ok = False
+    expiration_blocked = False
+    for a in r.allowed:
+        if a.type != rel.subject_type:
+            continue
+        if rel.subject_id == "*":
+            if not a.wildcard:
+                continue
+        elif a.wildcard or (a.relation or None) != rel.subject_relation:
+            continue
+        if rel.expiration is not None and not a.expiration:
+            # another entry of the same subject type may allow expiration
+            expiration_blocked = True
+            continue
+        ok = True
+        break
+    if not ok and expiration_blocked:
+        raise SchemaViolation(
+            f"{rel.resource_type}#{rel.relation} does not allow "
+            "expiring relationships")
+    if not ok:
+        raise SchemaViolation(
+            f"subject {rel.subject_type}"
+            + (f"#{rel.subject_relation}" if rel.subject_relation else "")
+            + f" not allowed on {rel.resource_type}#{rel.relation}")
+    if rel.subject_relation and not schema.definitions[
+            rel.subject_type].relation_or_permission(rel.subject_relation):
+        raise SchemaViolation(
+            f"{rel.subject_type} has no relation {rel.subject_relation!r}")
+
+
+class EngineFuture:
+    """A dispatched engine query: ``result()`` post-processes the fixpoint
+    future(s); ``iterations()`` is valid after ``result()``."""
+
+    __slots__ = ("_fut", "_fin", "_iters")
+
+    def __init__(self, fut, fin, iters=None):
+        self._fut = fut
+        self._fin = fin
+        self._iters = iters
+
+    def result(self):
+        return self._fin(None if self._fut is None else self._fut.result())
+
+    def iterations(self) -> int:
+        if self._iters is not None:
+            return self._iters()
+        return 0 if self._fut is None else self._fut.iterations()
+
+
+class Engine:
+    """In-process relationship-graph engine on one device: ``cuda`` by
+    default, the CPU only when ``device="cpu"`` is passed."""
+
+    # bulk checks dispatch in chunks of this many items
+    CHECK_PIPELINE_CHUNK = 16384
+
+    def __init__(self, bootstrap: Optional[str] = None,
+                 schema: Optional[Schema] = None,
+                 validate_writes: bool = True, device=None):
+        self.device = resolve_device(device)
+        if schema is None:
+            b = parse_bootstrap(bootstrap or DEFAULT_BOOTSTRAP)
+            schema, seed = b.schema, b.relationships
+        else:
+            seed = []
+        self.schema = schema
+        self.store = Store()
+        self.validate_writes = validate_writes
+        self._lock = threading.RLock()
+        self._compiled: Optional[CompiledGraph] = None
+        # (offset, size) -> host (q_slots, q_batch) of a mask lookup
+        self._q_host: dict[tuple, tuple] = {}
+        # frontier-occupancy EWMA feeding the push/pull crossover
+        self._occ_ewma: Optional[float] = None
+        if seed:
+            self.write_relationships([WriteOp("touch", r) for r in seed])
+
+    # -- write path ---------------------------------------------------------
+
+    def write_relationships(self, ops: list[WriteOp],
+                            preconditions: list[Precondition] = ()) -> int:
+        """Apply a write; the next query recompiles the graph (the
+        incremental overlay comes with a later slice)."""
+        if self.validate_writes:
+            for op in ops:
+                validate_relationship(self.schema, op.rel)
+        return self.store.write(list(ops), list(preconditions))
+
+    def read_relationships(self, f: RelationshipFilter) -> list:
+        return self.store.read(f)
+
+    def bulk_load(self, rels_cols: dict) -> int:
+        return self.store.bulk_load(rels_cols)
+
+    @property
+    def revision(self) -> int:
+        return self.store.revision
+
+    # -- query path ---------------------------------------------------------
+
+    def _objects_by_name(self) -> dict:
+        with self.store._lock:
+            return {self.store.types.string(tid): it
+                    for tid, it in self.store.objects.items()}
+
+    def compiled(self) -> CompiledGraph:
+        """Fully-consistent snapshot: recompiled when the store moved."""
+        with self._lock:
+            cur = self._compiled
+            if cur is None or cur.revision != self.store.revision:
+                t0 = time.perf_counter()
+                cur = compile_graph(self.schema, self.store.snapshot(),
+                                    device=self.device)
+                self._compiled = cur
+                metrics.counter("engine_graph_compiles_total").inc()
+                metrics.histogram("engine_graph_compile_seconds").observe(
+                    time.perf_counter() - t0)
+                metrics.gauge("engine_csr_nnz").set(cur.n_edges)
+                metrics.gauge("engine_graph_slots").set(cur.M)
+            return cur
+
+    def _backend(self, cg: CompiledGraph) -> CompiledGraph:
+        """The query executor for a compiled graph: the graph itself (one
+        device; the mesh backend comes with a later slice)."""
+        return cg
+
+    def _encode_checks(self, cg, objs, items):
+        """Single-pass check-batch encode with per-(type, permission) and
+        per-type caches inlined; same semantics as ``encode_target`` /
+        ``encode_subject``."""
+        n = len(items)
+        M = cg.M
+        q_slots = np.empty(n, dtype=np.int32)
+        q_batch = np.empty(n, dtype=np.int32)
+        tp_off: dict[tuple, int] = {}
+        ti: dict[str, tuple] = {}
+        subjects: dict[tuple, int] = {}
+        seed_rows: list[tuple[int, int]] = []
+        for i, it in enumerate(items):
+            t = it.resource_type
+            key = (t, it.permission)
+            off = tp_off.get(key)
+            if off is None:
+                o = cg.offset_of(t, it.permission)
+                off = tp_off[key] = -1 if o is None else o
+            if off < 0:
+                q_slots[i] = M
+            else:
+                ent = ti.get(t)
+                if ent is None:
+                    interner = objs.get(t)
+                    ent = ti[t] = (interner.id_map() if interner is not None
+                                   else None, cg.type_sizes.get(t, 0))
+                to_id, size = ent
+                if to_id is None:
+                    q_slots[i] = off + VOID_IDX
+                else:
+                    oi = to_id.get(it.resource_id)
+                    q_slots[i] = off + (
+                        oi if oi is not None and oi < size else VOID_IDX)
+            skey = (it.subject_type, it.subject_id, it.subject_relation)
+            row = subjects.get(skey)
+            if row is None:
+                row = subjects[skey] = len(seed_rows)
+                seed_rows.append(cg.encode_subject(
+                    it.subject_type, it.subject_id, it.subject_relation,
+                    objs))
+            q_batch[i] = row
+        return np.asarray(seed_rows, dtype=np.int32), q_slots, q_batch
+
+    def check(self, item: CheckItem, now: Optional[float] = None) -> bool:
+        return self.check_bulk([item], now=now)[0]
+
+    def check_bulk(self, items: list[CheckItem],
+                   now: Optional[float] = None) -> list[bool]:
+        """CheckBulkPermissions: distinct subjects batch along B; the
+        items dispatch in chunks of ``CHECK_PIPELINE_CHUNK``."""
+        return self.check_bulk_async(items, now=now).result()
+
+    def check_bulk_async(self, items: list[CheckItem],
+                         now: Optional[float] = None) -> EngineFuture:
+        if not items:
+            return EngineFuture(None, lambda _: [])
+        cg = self.compiled()
+        objs = self._objects_by_name()
+        t0 = time.perf_counter()
+        self._apply_crossover(cg)
+        backend = self._backend(cg)
+        n = len(items)
+        chunk = self.CHECK_PIPELINE_CHUNK
+        if now is None:
+            now = time.time()  # one clock for every chunk of the call
+        futs = []
+        for s in range(0, n, chunk):
+            seeds, q_slots, q_batch = self._encode_checks(
+                cg, objs, items[s:s + chunk])
+            futs.append(backend.query_async(seeds, q_slots, q_batch,
+                                            now=now))
+        metrics.counter("engine_checks_total").inc(n)
+
+        def iters():
+            return max(f.iterations() for f in futs)
+
+        def fin(_):
+            out = [bool(x) for f in futs for x in f.result()]
+            metrics.histogram("engine_check_seconds").observe(
+                time.perf_counter() - t0)
+            metrics.histogram("engine_fixpoint_iterations").observe(iters())
+            self._count_semiring_modes(futs)
+            return out
+
+        return EngineFuture(None, fin, iters=iters)
+
+    def lookup_resources(self, resource_type: str, permission: str,
+                         subject_type: str, subject_id: str,
+                         subject_relation: Optional[str] = None,
+                         now: Optional[float] = None) -> list[str]:
+        """LookupResources: ids of ``resource_type`` on which the subject
+        has ``permission``, from one fixpoint."""
+        mask, interner = self.lookup_resources_mask(
+            resource_type, permission, subject_type, subject_id,
+            subject_relation, now=now)
+        return mask_to_ids(mask, interner)
+
+    def lookup_resources_mask(self, resource_type: str, permission: str,
+                              subject_type: str, subject_id: str,
+                              subject_relation: Optional[str] = None,
+                              now: Optional[float] = None):
+        """The list-filter hot path: (bool mask over the type's object
+        index space, per-type interner)."""
+        return self.lookup_resources_mask_async(
+            resource_type, permission, subject_type, subject_id,
+            subject_relation, now=now).result()
+
+    def lookup_resources_mask_async(self, resource_type: str,
+                                    permission: str, subject_type: str,
+                                    subject_id: str,
+                                    subject_relation: Optional[str] = None,
+                                    now: Optional[float] = None
+                                    ) -> EngineFuture:
+        return self._lookup_direct(resource_type, permission, subject_type,
+                                   subject_id, subject_relation, now)
+
+    # -- semiring mode feedback ---------------------------------------------
+
+    def _apply_crossover(self, cg: CompiledGraph) -> None:
+        """Stamp the occupancy-derived push/pull crossover onto the graph
+        about to run."""
+        cg.spmm_crossover = semiring.crossover_from_occupancy(self._occ_ewma)
+        metrics.gauge("engine_semiring_crossover").set(cg.spmm_crossover)
+
+    def _observe_occupancy(self, frac: float) -> None:
+        """Fold one observed final-frontier fill fraction into the EWMA."""
+        e = self._occ_ewma
+        self._occ_ewma = frac if e is None else 0.9 * e + 0.1 * frac
+
+    @staticmethod
+    def _count_semiring_modes(futs) -> None:
+        """Per-mode hop counters off completed futures (the pull share
+        clamps at zero: level applications count as pushes only)."""
+        push = pull = 0
+        for f in futs:
+            p = f.push_steps()
+            push += p
+            pull += max(f.iterations() - p, 0)
+        if push:
+            metrics.counter("engine_semiring_push_steps_total").inc(push)
+        if pull:
+            metrics.counter("engine_semiring_pull_steps_total").inc(pull)
+
+    def _lookup_direct(self, resource_type: str, permission: str,
+                       subject_type: str, subject_id: str,
+                       subject_relation: Optional[str],
+                       now: Optional[float]) -> EngineFuture:
+        cg = self.compiled()
+        objs = self._objects_by_name()
+        off = cg.offset_of(resource_type, permission)
+        n = cg.type_sizes.get(resource_type)
+        interner = objs.get(resource_type)
+        metrics.counter("engine_lookups_total").inc()
+        if off is None or interner is None:
+            return EngineFuture(None, lambda _: (None, None))
+        seeds = np.asarray([cg.encode_subject(
+            subject_type, subject_id, subject_relation, objs)],
+            dtype=np.int32)
+        ent = self._q_host.get((off, n))
+        if ent is None:
+            if len(self._q_host) >= 64:
+                self._q_host.pop(next(iter(self._q_host)), None)
+            ent = self._q_host[(off, n)] = (
+                off + np.arange(n, dtype=np.int32),
+                np.zeros(n, dtype=np.int32))
+        q_slots, q_batch = ent
+        t0 = time.perf_counter()
+        self._apply_crossover(cg)
+        fut = self._backend(cg).query_async(
+            seeds, q_slots, q_batch, now=now,
+            q_cache_key=("lookup", off, n), q_contiguous=True)
+
+        def fin(out):
+            metrics.histogram("engine_lookup_seconds").observe(
+                time.perf_counter() - t0)
+            metrics.histogram("engine_fixpoint_iterations").observe(
+                fut.iterations())
+            m = mask_pseudo_objects(np.array(out, copy=True))
+            # final-frontier occupancy of the queried window feeds the
+            # EWMA behind the push/pull crossover
+            occ = int(m.sum())
+            metrics.histogram(
+                "engine_frontier_occupancy",
+                buckets=(0, 1, 8, 64, 512, 4096, 32768, 262144, 2**21),
+            ).observe(occ)
+            self._observe_occupancy(float(occ) / max(m.size, 1))
+            self._count_semiring_modes((fut,))
+            return m, interner
+
+        return EngineFuture(fut, fin)
+
+    # -- debugging ----------------------------------------------------------
+
+    def oracle(self, now: Optional[float] = None) -> OracleEvaluator:
+        """The plain host evaluator over the current store."""
+        return OracleEvaluator(self.schema, self.store.snapshot(), now=now)

@@ -1,0 +1,497 @@
+"""Mutable relationship store: columnar and revisioned.
+
+The slice of the JAX package's ``engine/store.py`` the port's engine
+needs: :class:`Columns`, :class:`Snapshot`, ``Store.bulk_load``,
+``Store.write`` (CREATE/TOUCH/DELETE with preconditions), ``Store.read``
+and ``Store.next_expiry``. Watch, persistence and replay come with later
+slices.
+
+Layout is columnar int32 (see :class:`Columns`) so that 10M-relationship
+graphs bulk-load and snapshot without per-row Python objects. The row-key
+index the write path needs is hybrid (:class:`StoreIndex`): large chunks
+(bulk loads) get a vectorized sorted hash index, small write chunks land
+in a plain dict; liveness is checked at lookup time so tombstoning a row
+needs no index maintenance.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from dataclasses import dataclass
+from typing import Optional
+
+import numpy as np
+
+from .. import native
+from ..models.tuples import Relationship
+from .interning import Interner
+
+# Operation codes (write ops)
+OP_CREATE = 1
+OP_TOUCH = 2
+OP_DELETE = 3
+
+_OPS = {"create": OP_CREATE, "touch": OP_TOUCH, "delete": OP_DELETE}
+
+NO_EXPIRATION = np.float64(np.inf)
+
+
+class StoreError(Exception):
+    pass
+
+
+class PreconditionFailed(StoreError):
+    """A write's precondition did not hold."""
+
+
+class AlreadyExists(StoreError):
+    """CREATE of an existing relationship."""
+
+
+@dataclass
+class Columns:
+    """Columnar relationship block: parallel int32 arrays + expiration
+    + caveat-instance id (always 0 here: caveats are not ported yet)."""
+
+    rt: np.ndarray  # resource type id      (types interner)
+    rid: np.ndarray  # resource object id   (per-type objects interner)
+    rl: np.ndarray  # relation id           (relations interner)
+    st: np.ndarray  # subject type id
+    sid: np.ndarray  # subject object id
+    srl: np.ndarray  # subject relation id; 0 == none (ELLIPSIS)
+    exp: np.ndarray  # float64 unix seconds; +inf == never expires
+    cav: np.ndarray = None  # int32 caveat-instance id; 0 == none
+
+    def __post_init__(self):
+        if self.cav is None:
+            self.cav = np.zeros(len(self.rt), dtype=np.int32)
+
+    def __len__(self) -> int:
+        return len(self.rt)
+
+    @staticmethod
+    def empty() -> "Columns":
+        z = np.empty(0, dtype=np.int32)
+        return Columns(z, z.copy(), z.copy(), z.copy(), z.copy(), z.copy(),
+                       np.empty(0, dtype=np.float64), z.copy())
+
+    @staticmethod
+    def concat(blocks: list["Columns"]) -> "Columns":
+        if not blocks:
+            return Columns.empty()
+        return Columns(*[
+            np.concatenate([getattr(b, f) for b in blocks])
+            for f in ("rt", "rid", "rl", "st", "sid", "srl", "exp", "cav")
+        ])
+
+    def take(self, idx) -> "Columns":
+        return Columns(self.rt[idx], self.rid[idx], self.rl[idx], self.st[idx],
+                       self.sid[idx], self.srl[idx], self.exp[idx],
+                       self.cav[idx])
+
+
+@dataclass(frozen=True)
+class RelationshipFilter:
+    """SpiceDB-style relationship filter. ``None`` fields match anything."""
+
+    resource_type: Optional[str] = None
+    resource_id: Optional[str] = None
+    relation: Optional[str] = None
+    subject_type: Optional[str] = None
+    subject_id: Optional[str] = None
+    subject_relation: Optional[str] = None
+
+
+@dataclass(frozen=True)
+class Precondition:
+    filter: RelationshipFilter
+    must_exist: bool  # False => must NOT exist
+
+
+@dataclass(frozen=True)
+class WriteOp:
+    op: str  # create | touch | delete
+    rel: Relationship
+
+
+@dataclass
+class Snapshot:
+    """Immutable view handed to the graph compiler."""
+
+    revision: int
+    cols: Columns
+    types: Interner
+    relations: Interner
+    objects: dict[int, Interner]  # type id -> per-type object interner
+
+
+# chunks at or above this many rows get the vectorized sorted index; below
+# it a dict is faster to build and query
+INDEX_SMALL_CHUNK = 4096
+
+_MIX1 = np.uint64(0x9E3779B97F4A7C15)
+_MIX2 = np.uint64(0xBF58476D1CE4E5B9)
+_S29 = np.uint64(29)
+_S32 = np.uint64(32)
+
+
+def _hash_key_cols(rt, rid, rl, st, sid, srl) -> np.ndarray:
+    """Vectorized 64-bit mix of the six key columns (splitmix-style).
+    Collisions are verified against the actual columns at lookup. MUST
+    stay arithmetic-identical to mix_key in native/graphcore.cpp."""
+    with np.errstate(over="ignore"):  # uint64 wraparound is the point
+        h = np.asarray(rt).astype(np.uint64)
+        for c in (rid, rl, st, sid, srl):
+            h = (h ^ np.asarray(c).astype(np.uint64)) * _MIX1
+            h = h ^ (h >> _S29)
+        h = h * _MIX2
+        return h ^ (h >> _S32)
+
+
+class _SortedChunkIndex:
+    """Vectorized index over one big chunk: row-key hashes argsorted once,
+    lookups by binary search with collision verification."""
+
+    __slots__ = ("hashes", "order", "cols")
+
+    def __init__(self, cols: Columns):
+        built = native.index_build(cols.rt, cols.rid, cols.rl,
+                                   cols.st, cols.sid, cols.srl)
+        if built is not None:  # multithreaded C++ hash + radix sort
+            self.hashes, self.order = built
+        else:
+            h = _hash_key_cols(cols.rt, cols.rid, cols.rl,
+                               cols.st, cols.sid, cols.srl)
+            self.order = np.argsort(h)
+            self.hashes = h[self.order]
+        self.cols = cols
+
+    def find(self, key: tuple) -> Optional[int]:
+        h0 = _hash_key_cols(*key)
+        lo = int(np.searchsorted(self.hashes, h0, side="left"))
+        hi = int(np.searchsorted(self.hashes, h0, side="right"))
+        c = self.cols
+        rt, rid, rl, st, sid, srl = key
+        for j in range(lo, hi):
+            ri = int(self.order[j])
+            if (c.rt[ri] == rt and c.rid[ri] == rid and c.rl[ri] == rl
+                    and c.st[ri] == st and c.sid[ri] == sid
+                    and c.srl[ri] == srl):
+                return ri
+        return None
+
+
+class StoreIndex:
+    """Hybrid row-key index. ``get`` returns the (chunk, row) of the LIVE
+    row holding a key, or None — dead rows are filtered at lookup time."""
+
+    def __init__(self):
+        self._dict: dict[tuple, tuple[int, int]] = {}
+        self._sorted: list[tuple[int, _SortedChunkIndex]] = []
+        self._built = 0  # chunks indexed so far
+
+    def sync(self, chunks: list[Columns]) -> None:
+        for ci in range(self._built, len(chunks)):
+            cols = chunks[ci]
+            if len(cols) >= INDEX_SMALL_CHUNK:
+                self._sorted.append((ci, _SortedChunkIndex(cols)))
+            else:
+                arr = np.stack([cols.rt, cols.rid, cols.rl, cols.st,
+                                cols.sid, cols.srl], axis=1)
+                for ri, row in enumerate(arr.tolist()):
+                    self._dict[tuple(row)] = (ci, ri)
+        self._built = len(chunks)
+
+    def get(self, key: tuple, alive: list) -> Optional[tuple[int, int]]:
+        pos = self._dict.get(key)
+        if pos is not None and alive[pos[0]][pos[1]]:
+            return pos
+        for ci, idx in self._sorted:
+            ri = idx.find(key)
+            if ri is not None and alive[ci][ri]:
+                return ci, ri
+        return None
+
+
+class Store:
+    """Thread-safe mutable relationship store."""
+
+    # Per-type object interners reserve index 0 for "void" (unknown ids at
+    # query time) and 1 for the wildcard object '*'.
+    RESERVED_OBJECTS = ("\x00void", "*")
+
+    def __init__(self):
+        self._lock = threading.RLock()
+        self.types = Interner()
+        # relation id 0 reserved for "no subject relation"
+        self.relations = Interner(reserved=("",))
+        self.objects: dict[int, Interner] = {}
+        self._chunks: list[Columns] = []
+        self._alive: list[np.ndarray] = []  # bool per chunk
+        self._index = StoreIndex()
+        self.revision = 0
+        # (revision, sorted unique finite expirations of live rows),
+        # rebuilt lazily at most once per revision; _has_finite_exp is the
+        # monotone fast path for stores that never wrote an expiring tuple
+        self._expiry_bounds: Optional[tuple] = None
+        self._has_finite_exp = False
+
+    # -- interning helpers -------------------------------------------------
+
+    def _obj_interner(self, type_id: int) -> Interner:
+        it = self.objects.get(type_id)
+        if it is None:
+            it = Interner(reserved=self.RESERVED_OBJECTS)
+            self.objects[type_id] = it
+        return it
+
+    def _intern_rel(self, rel: Relationship) -> tuple:
+        rt = self.types.intern(rel.resource_type)
+        st = self.types.intern(rel.subject_type)
+        return (
+            rt,
+            self._obj_interner(rt).intern(rel.resource_id),
+            self.relations.intern(rel.relation),
+            st,
+            self._obj_interner(st).intern(rel.subject_id),
+            self.relations.intern(rel.subject_relation or ""),
+        )
+
+    def _extern_rel(self, key: tuple, exp: float) -> Relationship:
+        rt, rid, rl, st, sid, srl = key
+        return Relationship(
+            self.types.string(rt),
+            self.objects[rt].string(rid),
+            self.relations.string(rl),
+            self.types.string(st),
+            self.objects[st].string(sid),
+            self.relations.string(srl) or None,
+            None if not np.isfinite(exp) else float(exp),
+        )
+
+    def _append_rows(self, cols: Columns) -> None:
+        # the index picks the new chunk up at the next sync (lazy)
+        self._chunks.append(cols)
+        self._alive.append(np.ones(len(cols), dtype=bool))
+
+    # -- filter matching ---------------------------------------------------
+
+    def _filter_mask(self, cols: Columns, f: RelationshipFilter,
+                     now: Optional[float] = None) -> np.ndarray:
+        mask = np.ones(len(cols), dtype=bool)
+
+        def match_str(interner: Interner, col: np.ndarray, value):
+            nonlocal mask
+            if value is None:
+                return
+            i = interner.lookup(value)
+            if i is None:
+                mask &= False
+            else:
+                mask &= col == i
+
+        match_str(self.types, cols.rt, f.resource_type)
+        match_str(self.relations, cols.rl, f.relation)
+        match_str(self.types, cols.st, f.subject_type)
+        # object ids live in per-type interners; resolve per present type
+        for value, tcol, icol in ((f.resource_id, cols.rt, cols.rid),
+                                  (f.subject_id, cols.st, cols.sid)):
+            if value is None:
+                continue
+            ok = np.zeros(len(cols), dtype=bool)
+            for tid in np.unique(tcol[mask]).tolist():
+                oi = self.objects.get(tid)
+                v = oi.lookup(value) if oi else None
+                if v is not None:
+                    ok |= (tcol == tid) & (icol == v)
+            mask &= ok
+        if f.subject_relation is not None:
+            i = self.relations.lookup(f.subject_relation)
+            mask &= (cols.srl == i) if i is not None else False
+        if now is not None:
+            mask &= cols.exp > now
+        return mask
+
+    # -- public API --------------------------------------------------------
+
+    def write(self, ops: list[WriteOp],
+              preconditions: list[Precondition] = ()) -> int:
+        """Apply a write transaction; returns the new revision.
+
+        CREATE errors on an existing live tuple (SpiceDB AlreadyExists);
+        TOUCH upserts (refreshing expiration); DELETE is idempotent.
+        Duplicate updates for the same tuple in one write are rejected.
+        """
+        with self._lock:
+            now = time.time()
+            for pc in preconditions:
+                if self.exists(pc.filter, _now=now) != pc.must_exist:
+                    raise PreconditionFailed(
+                        f"precondition {'exists' if pc.must_exist else 'does not exist'} "
+                        f"failed for {pc.filter}"
+                    )
+            idx = self._index
+            idx.sync(self._chunks)
+
+            # Pass 1 — plan + validate before any mutation so the whole
+            # batch is atomic.
+            seen: set[tuple] = set()
+            plan: list[tuple[int, tuple, float]] = []
+            for wop in ops:
+                code = _OPS[wop.op]
+                if wop.rel.caveat:
+                    raise StoreError("caveats are not ported yet")
+                key = self._intern_rel(wop.rel)
+                exp = wop.rel.expiration if wop.rel.expiration is not None \
+                    else NO_EXPIRATION
+                if key in seen:
+                    raise StoreError(
+                        f"duplicate update for relationship in one write: {wop.rel}"
+                    )
+                seen.add(key)
+                pos = idx.get(key, self._alive)
+                live = pos is not None and bool(
+                    self._chunks[pos[0]].exp[pos[1]] > now
+                )
+                if code == OP_CREATE and live:
+                    raise AlreadyExists(f"relationship already exists: {wop.rel}")
+                if code == OP_DELETE:
+                    if pos is not None:  # tombstone even expired rows
+                        plan.append((OP_DELETE, key, NO_EXPIRATION))
+                    continue
+                plan.append((OP_TOUCH, key, float(exp)))
+
+            if not plan:
+                return self.revision
+
+            # Pass 2 — apply.
+            new_rows: list[tuple[tuple, float]] = []
+            for code, key, exp in plan:
+                pos = idx.get(key, self._alive)
+                if pos is not None:
+                    self._alive[pos[0]][pos[1]] = False
+                if code != OP_DELETE:
+                    new_rows.append((key, exp))
+            if new_rows:
+                keys = np.array([k for k, _ in new_rows], dtype=np.int32)
+                exp_col = np.array([e for _, e in new_rows],
+                                   dtype=np.float64)
+                self._append_rows(Columns(
+                    keys[:, 0].copy(), keys[:, 1].copy(), keys[:, 2].copy(),
+                    keys[:, 3].copy(), keys[:, 4].copy(), keys[:, 5].copy(),
+                    exp_col,
+                ))
+                if not self._has_finite_exp and np.isfinite(exp_col).any():
+                    self._has_finite_exp = True
+            self.revision += 1
+            return self.revision
+
+    def bulk_load(self, rels_cols: dict) -> int:
+        """Fast path for large graph loads: columnar string arrays
+        {resource_type, resource_id, relation, subject_type, subject_id,
+        subject_relation?, expiration?}. Rows are assumed deduplicated."""
+        if rels_cols.get("caveat") is not None and np.any(
+                np.asarray(rels_cols["caveat"], dtype=str) != ""):
+            raise StoreError("caveats are not ported yet")
+        with self._lock:
+            n = len(rels_cols["resource_id"])
+
+            def intern_typed(type_col, id_col):
+                tids = self.types.intern_many(type_col)
+                # fixed-width ndarrays pass through (zero-copy input to the
+                # native hash-unique); lists become object arrays
+                ids = (id_col if isinstance(id_col, np.ndarray)
+                       else np.asarray(id_col, dtype=object))
+                out = np.empty(n, dtype=np.int32)
+                for tid in np.unique(tids).tolist():
+                    sel = tids == tid
+                    out[sel] = self._obj_interner(int(tid)).intern_many(
+                        ids[sel]
+                    )
+                return tids, out
+
+            rt, rid = intern_typed(rels_cols["resource_type"],
+                                   rels_cols["resource_id"])
+            st, sid = intern_typed(rels_cols["subject_type"],
+                                   rels_cols["subject_id"])
+            rl = self.relations.intern_many(rels_cols["relation"])
+            srl_col = rels_cols.get("subject_relation")
+            srl = (self.relations.intern_many(srl_col) if srl_col is not None
+                   else np.zeros(n, dtype=np.int32))
+            exp_col = rels_cols.get("expiration")
+            exp = (np.asarray(exp_col, dtype=np.float64) if exp_col is not None
+                   else np.full(n, NO_EXPIRATION))
+            exp = np.where(np.isnan(exp), NO_EXPIRATION, exp)
+            self._append_rows(Columns(rt, rid, rl, st, sid, srl, exp))
+            if not self._has_finite_exp and np.isfinite(exp).any():
+                self._has_finite_exp = True
+            self.revision += 1
+            return self.revision
+
+    def read(self, f: RelationshipFilter, now: Optional[float] = None
+             ) -> list[Relationship]:
+        """ReadRelationships: live, unexpired tuples matching the filter."""
+        with self._lock:
+            if now is None:
+                now = time.time()
+            out: list[Relationship] = []
+            for cols, alive in zip(self._chunks, self._alive):
+                mask = self._filter_mask(cols, f, now=now) & alive
+                for ri in np.flatnonzero(mask).tolist():
+                    key = (int(cols.rt[ri]), int(cols.rid[ri]), int(cols.rl[ri]),
+                           int(cols.st[ri]), int(cols.sid[ri]), int(cols.srl[ri]))
+                    out.append(self._extern_rel(key, cols.exp[ri]))
+            return out
+
+    def exists(self, f: RelationshipFilter, _now: Optional[float] = None) -> bool:
+        with self._lock:
+            now = _now if _now is not None else time.time()
+            for cols, alive in zip(self._chunks, self._alive):
+                if np.any(self._filter_mask(cols, f, now=now) & alive):
+                    return True
+            return False
+
+    def next_expiry(self, now: float) -> float:
+        """Earliest expiration boundary strictly after ``now`` among live
+        tuples (a result computed at ``now`` stays exact until then);
+        ``+inf`` when no live tuple carries a finite expiration."""
+        with self._lock:
+            if not self._has_finite_exp:
+                return float("inf")
+            ent = self._expiry_bounds
+            if ent is None or ent[0] != self.revision:
+                vals = []
+                for cols, alive in zip(self._chunks, self._alive):
+                    sel = alive & np.isfinite(cols.exp)
+                    if sel.any():
+                        vals.append(cols.exp[sel])
+                arr = (np.unique(np.concatenate(vals)) if vals
+                       else np.empty(0, dtype=np.float64))
+                self._expiry_bounds = ent = (self.revision, arr)
+            arr = ent[1]
+            i = int(np.searchsorted(arr, now, side="right"))
+            return float(arr[i]) if i < len(arr) else float("inf")
+
+    def snapshot(self) -> Snapshot:
+        """Immutable columnar view of all live tuples for the compiler.
+        Expired tuples are retained (with their timestamps) — the device
+        fixpoint masks them against the query-time clock."""
+        with self._lock:
+            blocks = [
+                cols.take(np.flatnonzero(alive))
+                for cols, alive in zip(self._chunks, self._alive)
+                if np.any(alive)
+            ]
+            # interners are monotone (never shrink / renumber), so sharing
+            # them with an immutable snapshot is safe
+            return Snapshot(
+                revision=self.revision,
+                cols=Columns.concat(blocks),
+                types=self.types,
+                relations=self.relations,
+                objects=self.objects,
+            )
+
+    def __len__(self) -> int:
+        return int(sum(int(a.sum()) for a in self._alive))

@@ -1,0 +1,479 @@
+"""Parser + IR for the Zanzibar-style schema DSL.
+
+A copy of the JAX package's ``models/schema.py`` parser and IR (the port
+imports nothing of that package). It produces the typed IR the port's
+graph compiler (ops/reachability.py) consumes. Caveats are not ported
+yet: a ``caveat`` definition or a ``with <caveat>`` grant raises
+:class:`SchemaError` instead of loading a grant that would go unenforced.
+
+Supported surface:
+
+    use expiration
+
+    definition ns/name {
+        relation viewer: user | group#member | user:* | user with expiration
+        permission view = viewer + editor
+        permission edit = (a & b) - c
+        permission via = parent->view
+        permission none = nil
+    }
+
+Operator precedence follows SpiceDB: ``-`` and ``&`` and ``+`` are
+left-associative at the same precedence level; parenthesize to mix safely.
+Arrows bind tighter than binary operators.
+"""
+
+from __future__ import annotations
+
+import re
+from dataclasses import dataclass, field
+from typing import Iterator, Optional
+
+
+class SchemaError(ValueError):
+    """Raised on schema parse or validation failure."""
+
+
+# ---------------------------------------------------------------------------
+# IR
+# ---------------------------------------------------------------------------
+
+
+class Expr:
+    """Base class for permission userset-rewrite expressions."""
+
+    __slots__ = ()
+
+
+@dataclass(frozen=True)
+class RelationRef(Expr):
+    """A reference to a relation or permission on the same definition
+    (SpiceDB _this / computed_userset)."""
+
+    name: str
+
+    def __str__(self) -> str:
+        return self.name
+
+
+@dataclass(frozen=True)
+class Arrow(Expr):
+    """Tupleset-to-userset: ``tupleset->target`` — walk the ``tupleset``
+    relation, then evaluate ``target`` on each subject found."""
+
+    tupleset: str
+    target: str
+
+    def __str__(self) -> str:
+        return f"{self.tupleset}->{self.target}"
+
+
+@dataclass(frozen=True)
+class Union(Expr):
+    operands: tuple[Expr, ...]
+
+    def __str__(self) -> str:
+        return "(" + " + ".join(map(str, self.operands)) + ")"
+
+
+@dataclass(frozen=True)
+class Intersect(Expr):
+    operands: tuple[Expr, ...]
+
+    def __str__(self) -> str:
+        return "(" + " & ".join(map(str, self.operands)) + ")"
+
+
+@dataclass(frozen=True)
+class Exclude(Expr):
+    """``base - subtract``"""
+
+    base: Expr
+    subtract: Expr
+
+    def __str__(self) -> str:
+        return f"({self.base} - {self.subtract})"
+
+
+@dataclass(frozen=True)
+class Nil(Expr):
+    """``nil`` — the empty userset (bootstrap.yaml's ``no_one_at_all``)."""
+
+    def __str__(self) -> str:
+        return "nil"
+
+
+@dataclass(frozen=True)
+class AllowedSubject:
+    """One member of a relation's subject-type union.
+
+    ``relation viewer: user | group#member | user:* | activity with expiration``
+    """
+
+    type: str
+    relation: Optional[str] = None  # userset subjects: group#member
+    wildcard: bool = False  # user:*
+    expiration: bool = False  # `with expiration` trait
+
+    def __str__(self) -> str:
+        s = self.type
+        if self.wildcard:
+            s += ":*"
+        if self.relation:
+            s += f"#{self.relation}"
+        if self.expiration:
+            s += " with expiration"
+        return s
+
+
+@dataclass
+class Relation:
+    name: str
+    allowed: list[AllowedSubject]
+
+
+@dataclass
+class Permission:
+    name: str
+    expr: Expr
+
+
+@dataclass
+class Definition:
+    name: str
+    relations: dict[str, Relation] = field(default_factory=dict)
+    permissions: dict[str, Permission] = field(default_factory=dict)
+
+    def relation_or_permission(self, name: str):
+        return self.relations.get(name) or self.permissions.get(name)
+
+
+@dataclass
+class Schema:
+    definitions: dict[str, Definition] = field(default_factory=dict)
+    use_expiration: bool = False
+
+    def definition(self, name: str) -> Definition:
+        try:
+            return self.definitions[name]
+        except KeyError:
+            raise SchemaError(f"unknown definition {name!r}") from None
+
+
+# ---------------------------------------------------------------------------
+# Tokenizer
+# ---------------------------------------------------------------------------
+
+_TOKEN_RE = re.compile(
+    r"""
+    (?P<ws>\s+|//[^\n]*|/\*.*?\*/)
+  | (?P<str>"(?:[^"\\]|\\.)*"|'(?:[^'\\]|\\.)*')
+  | (?P<num>\d+(?:\.\d+)?)
+  | (?P<ident>[A-Za-z_][A-Za-z0-9_]*(?:/[A-Za-z_][A-Za-z0-9_]*)*)
+  | (?P<op>->|[=!<>]=|&&|\|\||[{}():|+&#*,=<>!./\[\]-])
+    """,
+    re.VERBOSE | re.DOTALL,
+)
+
+KEYWORDS = {"definition", "relation", "permission", "use", "nil", "with", "caveat"}
+
+
+@dataclass
+class _Tok:
+    kind: str  # 'ident' | 'op' | 'eof'
+    value: str
+    pos: int
+    line: int
+
+
+def _tokenize(text: str) -> Iterator[_Tok]:
+    pos = 0
+    line = 1
+    n = len(text)
+    while pos < n:
+        m = _TOKEN_RE.match(text, pos)
+        if not m:
+            raise SchemaError(f"schema: unexpected character {text[pos]!r} at line {line}")
+        pos = m.end()
+        if m.lastgroup == "ws":
+            line += m.group().count("\n")
+            continue
+        yield _Tok(m.lastgroup, m.group(), m.start(), line)
+    yield _Tok("eof", "", pos, line)
+
+
+class _Parser:
+    def __init__(self, text: str):
+        self.text = text
+        self.toks = list(_tokenize(text))
+        self.i = 0
+        # enclosing-scope breadcrumbs for error messages: operators
+        # editing a 500-line schema need "in definition 'pod', relation
+        # 'viewer'", not a bare line number
+        self._ctx_def: Optional[str] = None
+        self._ctx_member: Optional[str] = None
+
+    @property
+    def cur(self) -> _Tok:
+        return self.toks[self.i]
+
+    def _where(self) -> str:
+        if self._ctx_def is None:
+            return ""
+        if self._ctx_member is None:
+            return f" (in definition {self._ctx_def!r})"
+        return (f" (in definition {self._ctx_def!r}, "
+                f"{self._ctx_member})")
+
+    def fail(self, line: int, msg: str) -> "SchemaError":
+        return SchemaError(f"schema line {line}{self._where()}: {msg}")
+
+    def advance(self) -> _Tok:
+        t = self.cur
+        if t.kind != "eof":
+            self.i += 1
+        return t
+
+    def expect(self, value: str) -> _Tok:
+        t = self.cur
+        if t.value != value:
+            raise self.fail(
+                t.line, f"expected {value!r}, got {t.value or 'EOF'!r}")
+        return self.advance()
+
+    def expect_ident(self) -> str:
+        t = self.cur
+        if t.kind != "ident":
+            raise self.fail(
+                t.line, f"expected identifier, got {t.value!r}")
+        if t.value in KEYWORDS:
+            # Keywords are reserved: a relation named `nil` would otherwise
+            # silently parse as the empty userset in permission expressions.
+            raise self.fail(t.line, f"{t.value!r} is a reserved keyword")
+        self.advance()
+        return t.value
+
+    # -- grammar -----------------------------------------------------------
+
+    def parse(self) -> Schema:
+        schema = Schema()
+        while self.cur.kind != "eof":
+            if self.cur.value == "use":
+                self.advance()
+                feature = self.expect_ident()
+                if feature == "expiration":
+                    schema.use_expiration = True
+                # unknown `use` features are tolerated (forward compat)
+            elif self.cur.value == "definition":
+                d = self.parse_definition()
+                if d.name in schema.definitions:
+                    raise SchemaError(f"duplicate definition {d.name!r}")
+                schema.definitions[d.name] = d
+            elif self.cur.value == "caveat":
+                self.parse_caveat()
+            else:
+                raise SchemaError(
+                    f"schema line {self.cur.line}: expected 'definition', got {self.cur.value!r}"
+                )
+        _validate(schema)
+        return schema
+
+    def parse_caveat(self):
+        """``caveat name(...) { ... }`` declarations are refused: the
+        caveat expression VM is not ported yet, and accepting the
+        declaration would let conditional grants load without being
+        enforced."""
+        t = self.cur
+        raise SchemaError(
+            f"schema line {t.line}: caveats are not ported yet "
+            "(caveat definitions are refused by the PyTorch engine)")
+
+    def parse_definition(self) -> Definition:
+        self.expect("definition")
+        name = self.expect_ident()
+        d = Definition(name)
+        self._ctx_def = name
+        self.expect("{")
+        while self.cur.value != "}":
+            if self.cur.value == "relation":
+                r = self.parse_relation()
+                if r.name in d.relations or r.name in d.permissions:
+                    raise SchemaError(
+                        f"definition {name!r}: duplicate "
+                        f"relation/permission {r.name!r}")
+                d.relations[r.name] = r
+            elif self.cur.value == "permission":
+                p = self.parse_permission()
+                if p.name in d.relations or p.name in d.permissions:
+                    raise SchemaError(
+                        f"definition {name!r}: duplicate "
+                        f"relation/permission {p.name!r}")
+                d.permissions[p.name] = p
+            else:
+                raise self.fail(
+                    self.cur.line,
+                    f"expected relation/permission, got {self.cur.value!r}")
+        self.expect("}")
+        self._ctx_def = None
+        return d
+
+    def parse_relation(self) -> Relation:
+        self.expect("relation")
+        name = self.expect_ident()
+        self._ctx_member = f"relation {name!r}"
+        self.expect(":")
+        allowed = [self.parse_allowed_subject()]
+        while self.cur.value == "|":
+            self.advance()
+            allowed.append(self.parse_allowed_subject())
+        self._ctx_member = None
+        return Relation(name, allowed)
+
+    def parse_allowed_subject(self) -> AllowedSubject:
+        typ = self.expect_ident()
+        wildcard = False
+        relation = None
+        expiration = False
+        if self.cur.value == ":":
+            self.advance()
+            self.expect("*")
+            wildcard = True
+        if self.cur.value == "#":
+            self.advance()
+            relation = self.expect_ident()
+        while self.cur.value == "with":
+            self.advance()
+            while True:
+                trait = self.expect_ident()
+                if trait == "expiration":
+                    expiration = True
+                else:
+                    # a caveated subject type (`user with ip_allowlist`)
+                    raise self.fail(
+                        self.cur.line,
+                        f"caveats are not ported yet (trait {trait!r}; "
+                        "only 'expiration' is supported)")
+                # SpiceDB chains traits with `and`:
+                # `user with some_caveat and expiration`
+                if self.cur.value != "and":
+                    break
+                self.advance()
+        return AllowedSubject(typ, relation, wildcard, expiration)
+
+    def parse_permission(self) -> Permission:
+        self.expect("permission")
+        name = self.expect_ident()
+        self._ctx_member = f"permission {name!r}"
+        self.expect("=")
+        expr = self.parse_expr()
+        self._ctx_member = None
+        return Permission(name, expr)
+
+    def parse_expr(self) -> Expr:
+        left = self.parse_term()
+        first_op = None
+        while self.cur.value in ("+", "&", "-"):
+            op = self.advance().value
+            # SpiceDB rejects unparenthesized mixing of different operators;
+            # silently picking an associativity would change grants
+            if first_op is None:
+                first_op = op
+            elif op != first_op:
+                raise self.fail(
+                    self.cur.line,
+                    f"mixing {first_op!r} and {op!r} requires parentheses")
+            right = self.parse_term()
+            if op == "+":
+                if isinstance(left, Union):
+                    left = Union(left.operands + (right,))
+                else:
+                    left = Union((left, right))
+            elif op == "&":
+                if isinstance(left, Intersect):
+                    left = Intersect(left.operands + (right,))
+                else:
+                    left = Intersect((left, right))
+            else:
+                left = Exclude(left, right)
+        return left
+
+    def parse_term(self) -> Expr:
+        if self.cur.value == "(":
+            self.advance()
+            e = self.parse_expr()
+            self.expect(")")
+            return e
+        if self.cur.value == "nil":
+            self.advance()
+            return Nil()
+        name = self.expect_ident()
+        if self.cur.value == "->":
+            self.advance()
+            target = self.expect_ident()
+            return Arrow(name, target)
+        return RelationRef(name)
+
+
+def _walk(expr: Expr) -> Iterator[Expr]:
+    yield expr
+    if isinstance(expr, (Union, Intersect)):
+        for op in expr.operands:
+            yield from _walk(op)
+    elif isinstance(expr, Exclude):
+        yield from _walk(expr.base)
+        yield from _walk(expr.subtract)
+
+
+def _validate(schema: Schema) -> None:
+    for d in schema.definitions.values():
+        for r in d.relations.values():
+            for a in r.allowed:
+                if a.type not in schema.definitions:
+                    raise SchemaError(
+                        f"{d.name}#{r.name}: unknown subject type {a.type!r}"
+                    )
+                if a.relation is not None:
+                    sub = schema.definitions[a.type]
+                    if sub.relation_or_permission(a.relation) is None:
+                        raise SchemaError(
+                            f"{d.name}#{r.name}: unknown subject relation "
+                            f"{a.type}#{a.relation}"
+                        )
+        for p in d.permissions.values():
+            for node in _walk(p.expr):
+                if isinstance(node, RelationRef):
+                    if d.relation_or_permission(node.name) is None:
+                        raise SchemaError(
+                            f"{d.name}#{p.name}: unknown relation {node.name!r}"
+                        )
+                elif isinstance(node, Arrow):
+                    rel = d.relations.get(node.tupleset)
+                    if rel is None:
+                        raise SchemaError(
+                            f"{d.name}#{p.name}: arrow tupleset {node.tupleset!r} "
+                            "must be a relation on the same definition"
+                        )
+                    # SpiceDB rejects arrows over wildcard-able tuplesets —
+                    # a wildcard subject cannot be walked.
+                    if any(a.wildcard for a in rel.allowed):
+                        raise SchemaError(
+                            f"{d.name}#{p.name}: arrow tupleset {node.tupleset!r} "
+                            "allows wildcard subjects and cannot be walked"
+                        )
+                    # target must exist on at least one allowed subject type
+                    ok = any(
+                        schema.definitions[a.type].relation_or_permission(node.target)
+                        for a in rel.allowed
+                        if not a.relation  # arrows walk concrete subjects
+                    )
+                    if not ok:
+                        raise SchemaError(
+                            f"{d.name}#{p.name}: arrow target {node.target!r} not "
+                            f"found on any subject type of {node.tupleset!r}"
+                        )
+
+
+
+def parse_schema(text: str) -> Schema:
+    """Parse schema DSL text into a validated :class:`Schema`."""
+    return _Parser(text).parse()

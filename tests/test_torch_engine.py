@@ -1,0 +1,252 @@
+"""PyTorch port, engine/engine.py: the port Engine (plain kernels on CPU
+tensors) against the JAX Engine (Pallas kernels in interpreter mode) and
+the host OracleEvaluator on the same writes — list-filter masks and bulk
+checks under push, pull and auto, on deploy/bootstrap.yaml (an expiring
+``user:*`` wildcard) and on a schema with recursive groups (closured
+blocks), intersection, exclusion and expired grants — plus the device
+rule (cuda by default, never a quiet CPU fallback), the refusal of
+caveats, and an import guard proving the port never loads JAX or the
+JAX package."""
+
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import pytest
+import torch
+
+from spicedb_kubeapi_proxy_tpu.engine import CheckItem as JCheckItem
+from spicedb_kubeapi_proxy_tpu.engine import Engine as JEngine
+from spicedb_kubeapi_proxy_tpu.engine import WriteOp as JWriteOp
+from spicedb_kubeapi_proxy_tpu.models.tuples import \
+    parse_relationship as jparse_rel
+from spicedb_kubeapi_proxy_tpu.ops import reachability as jreach
+from spicedb_kubeapi_proxy_tpu.ops import semiring as jsemi
+from spicedb_kubeapi_proxy_tpu_torch.engine import CheckItem, Engine, WriteOp
+from spicedb_kubeapi_proxy_tpu_torch.engine.store import \
+    RelationshipFilter
+from spicedb_kubeapi_proxy_tpu_torch.models import SchemaError
+from spicedb_kubeapi_proxy_tpu_torch.models.tuples import parse_relationship
+from spicedb_kubeapi_proxy_tpu_torch.ops import reachability as treach
+from spicedb_kubeapi_proxy_tpu_torch.ops import semiring as tsemi
+from spicedb_kubeapi_proxy_tpu_torch.utils.metrics import metrics
+
+from torch_parity import random_rels
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+NOW = time.time()
+
+with open(os.path.join(REPO, "deploy", "bootstrap.yaml")) as fh:
+    BOOTSTRAP = fh.read()
+
+RICH = """
+schema: |-
+  use expiration
+
+  definition user {}
+  definition group {
+    relation member: user | group#member
+  }
+  definition namespace {
+    relation creator: user
+    relation viewer: user | user with expiration | group#member | user:* with expiration
+    relation banned: user
+    permission admin = creator
+    permission view = (viewer + creator) - banned
+  }
+  definition pod {
+    relation namespace: namespace
+    relation creator: user
+    relation viewer: user
+    relation auditor: user
+    permission edit = creator
+    permission view = viewer + creator + namespace->view
+    permission audit = auditor & namespace->view
+  }
+relationships: ""
+"""
+
+
+def _engines(monkeypatch, bootstrap, rels, dense_min):
+    monkeypatch.setenv("SDBKP_BITPROP", "interpret")
+    monkeypatch.setenv("SDBKP_SEMIRING", "interpret")
+    monkeypatch.setattr(jreach, "DENSE_MIN_EDGES", dense_min)
+    monkeypatch.setattr(treach, "DENSE_MIN_EDGES", dense_min)
+    je = JEngine(bootstrap)
+    je.write_relationships([JWriteOp("touch", jparse_rel(r)) for r in rels])
+    te = Engine(bootstrap, device="cpu")
+    te.write_relationships([WriteOp("touch", parse_relationship(r))
+                            for r in rels])
+    return je, te
+
+
+def _users(n=9):
+    return [f"u{i}" for i in range(n)] + ["nobody"]
+
+
+def _assert_parity(je, te, perms, subject_counts):
+    """Every user's mask on both engines and the oracle, then one bulk
+    check for each count of distinct subjects (B > 8 has no push)."""
+    oracle = te.oracle(now=NOW)
+    users = _users()
+    for rtype, perm in perms:
+        for u in users:
+            jm, _ = je.lookup_resources_mask(rtype, perm, "user", u, now=NOW)
+            tm, interner = te.lookup_resources_mask(rtype, perm, "user", u,
+                                                    now=NOW)
+            np.testing.assert_array_equal(tm, jm, err_msg=f"{rtype}#{perm}@{u}")
+            ids = {interner.string(i) for i in np.flatnonzero(tm)}
+            assert ids == oracle.lookup_resources(rtype, perm, "user", u)
+    for n_subjects in subject_counts:
+        items = []
+        rng = np.random.default_rng(n_subjects)
+        for _ in range(120):
+            rtype, perm = perms[rng.integers(len(perms))]
+            rid = {"pod": "p", "namespace": "ns"}[rtype] + str(
+                rng.integers(14))
+            items.append((rtype, rid, perm, "user",
+                          users[rng.integers(n_subjects)]))
+        want = je.check_bulk([JCheckItem(*it) for it in items], now=NOW)
+        got = te.check_bulk([CheckItem(*it) for it in items], now=NOW)
+        assert got == want
+        assert got == [oracle.check(*it) for it in items]
+        assert any(got) and not all(got)
+
+
+@pytest.mark.parametrize("mode", ["auto", "push", "pull"])
+def test_bootstrap_wildcard_expiring_parity(monkeypatch, mode):
+    rels = random_rels(np.random.default_rng(11), nested=False,
+                       expiring="wildcard", now=NOW)
+    je, te = _engines(monkeypatch, BOOTSTRAP, rels, 8)
+    assert any(b.n_dst for b in te.compiled().blocks)
+    with jsemi.force_mode(mode), tsemi.force_mode(mode):
+        # 10 subjects: B > 8 takes pull; 4: the bit kernel under push
+        _assert_parity(je, te, [("pod", "view"), ("namespace", "view"),
+                                ("pod", "edit")], (4, 10))
+
+
+@pytest.mark.parametrize("dense_min", [2, 1024])
+def test_recursive_groups_intersection_exclusion_parity(monkeypatch,
+                                                       dense_min):
+    rng = np.random.default_rng(7)
+    rels = random_rels(rng, n_groups=5, now=NOW)
+    rels += ["namespace:ns0#banned@user:u3", "pod:p2#auditor@user:u5",
+             "pod:p4#auditor@user:u1", "pod:p5#auditor@user:u2"]
+    je, te = _engines(monkeypatch, RICH, rels, dense_min)
+    blocks = te.compiled().blocks
+    assert any(b.closured for b in blocks) == (dense_min == 2)
+    for mode in ("auto", "pull"):
+        with jsemi.force_mode(mode), tsemi.force_mode(mode):
+            _assert_parity(je, te, [("pod", "view"), ("pod", "audit"),
+                                    ("namespace", "view")], (10,))
+
+
+def test_writes_recompile_and_counters(monkeypatch):
+    rels = random_rels(np.random.default_rng(3), nested=False,
+                       expiring="wildcard", now=NOW)
+    je, te = _engines(monkeypatch, BOOTSTRAP, rels, 8)
+    metrics.reset()
+    before = te.lookup_resources("pod", "view", "user", "u0", now=NOW)
+    cg0 = te.compiled()
+    rel = parse_relationship("pod:p0#viewer@user:u0")
+    op = "delete" if "p0" in before else "touch"
+    te.write_relationships([WriteOp(op, rel)])
+    je.write_relationships([JWriteOp(op, jparse_rel(str(rel)))])
+    after = te.lookup_resources("pod", "view", "user", "u0", now=NOW)
+    assert te.compiled() is not cg0  # a write recompiles in this slice
+    assert ("p0" in after) != ("p0" in before)
+    assert sorted(after) == sorted(
+        je.lookup_resources("pod", "view", "user", "u0", now=NOW))
+    assert metrics.counter("engine_graph_compiles_total").value == 2
+    assert metrics.counter("engine_semiring_push_steps_total").value > 0
+    te.check_bulk([CheckItem("pod", "p1", "view", "user", f"u{i}")
+                   for i in range(9)], now=NOW)
+    assert metrics.counter("engine_semiring_pull_steps_total").value > 0
+    assert [r.resource_id for r in te.read_relationships(
+        RelationshipFilter(resource_type="pod", resource_id="p0",
+                           relation="viewer", subject_id="u0"))] == \
+        (["p0"] if op == "touch" else [])
+
+
+def test_chunked_bulk_check_pipeline(monkeypatch):
+    rels = random_rels(np.random.default_rng(5), nested=False,
+                       expiring="wildcard", now=NOW)
+    _, te = _engines(monkeypatch, BOOTSTRAP, rels, 8)
+    items = [CheckItem("pod", f"p{i % 12}", "view", "user", f"u{i % 9}")
+             for i in range(50)]
+    whole = te.check_bulk(items, now=NOW)
+    te.CHECK_PIPELINE_CHUNK = 7
+    fut = te.check_bulk_async(items, now=NOW)
+    assert fut.result() == whole
+    assert fut.iterations() >= 1
+    assert te.check_bulk([], now=NOW) == []
+    # unknown types, permissions and subjects read the trash slot: False
+    assert te.check_bulk([CheckItem("pod", "p0", "nope", "user", "u0"),
+                          CheckItem("nope", "x", "view", "user", "u0"),
+                          CheckItem("pod", "p0", "view", "nope", "u0")],
+                         now=NOW) == [False, False, False]
+    assert te.lookup_resources_mask("nope", "view", "user", "u0") == \
+        (None, None)
+
+
+def test_device_default_is_cuda(monkeypatch):
+    """No device argument means cuda; without one, construction raises
+    instead of quietly running on the CPU."""
+    assert Engine(device="cpu").device.type == "cpu"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Engine()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Engine(device="cuda")
+    with pytest.raises(ValueError):
+        Engine(device="meta")
+
+
+def test_caveats_are_refused():
+    caveated = BOOTSTRAP.replace(
+        "definition user {}",
+        "caveat on_tuesday(day string) {\n    day == 'tuesday'\n  }\n\n"
+        "  definition user {}")
+    with pytest.raises(SchemaError, match="not ported"):
+        Engine(caveated, device="cpu")
+    with pytest.raises(SchemaError, match="not ported"):
+        Engine(BOOTSTRAP.replace("relation creator: user",
+                                 "relation creator: user with on_tuesday",
+                                 1), device="cpu")
+    e = Engine(BOOTSTRAP, device="cpu")
+    with pytest.raises(Exception, match="not ported"):
+        e.write_relationships([WriteOp("touch", parse_relationship(
+            'pod:p#viewer@user:u[on_tuesday:{"day":"x"}]'))])
+
+
+GUARD = r"""
+import importlib.abc, sys
+class Refuse(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        top = name.split(".")[0]
+        if top in ("jax", "jaxlib") or top == "spicedb_kubeapi_proxy_tpu":
+            raise ImportError("port imported " + name)
+        return None
+sys.meta_path.insert(0, Refuse())
+import pkgutil, importlib
+import spicedb_kubeapi_proxy_tpu_torch as pkg
+for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
+    importlib.import_module(m.name)
+from spicedb_kubeapi_proxy_tpu_torch.engine import Engine, CheckItem
+e = Engine(device="cpu")
+assert e.check_bulk([CheckItem("pod", "x", "view", "user", "u")]) == [False]
+bad = [m for m in sys.modules if m.split(".")[0] in
+       ("jax", "jaxlib", "spicedb_kubeapi_proxy_tpu")]
+assert not bad, bad
+print("ok")
+"""
+
+
+def test_port_never_imports_jax():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", GUARD], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"

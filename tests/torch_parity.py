@@ -1,0 +1,105 @@
+"""Shared helpers for the PyTorch port's parity tests (tests/test_torch_*).
+
+Flattens a JAX ``CompiledGraph`` into the plain-array form that
+``spicedb_kubeapi_proxy_tpu_torch.convert.from_reference_arrays`` takes,
+so both packages run the very same compiled graph.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from spicedb_kubeapi_proxy_tpu.models import schema as jschema
+
+
+def expr_tuple(e):
+    """A JAX-package ``Expr`` as the port's nested-tuple form."""
+    if isinstance(e, jschema.Nil):
+        return ("nil",)
+    if isinstance(e, jschema.RelationRef):
+        return ("rel", e.name)
+    if isinstance(e, jschema.Arrow):
+        return ("arrow", e.tupleset, e.target)
+    if isinstance(e, jschema.Union):
+        return ("or",) + tuple(expr_tuple(o) for o in e.operands)
+    if isinstance(e, jschema.Intersect):
+        return ("and",) + tuple(expr_tuple(o) for o in e.operands)
+    if isinstance(e, jschema.Exclude):
+        return ("sub", expr_tuple(e.base), expr_tuple(e.subtract))
+    raise TypeError(e)
+
+
+def flatten_graph(cg) -> dict:
+    """Plain numpy/Python view of a JAX ``CompiledGraph``."""
+    return {
+        "M": cg.M,
+        "revision": cg.revision,
+        "slot_offset": dict(cg.slot_offset),
+        "type_sizes": dict(cg.type_sizes),
+        "base_time": cg.base_time,
+        "src": np.asarray(cg.src), "dst": np.asarray(cg.dst),
+        "exp_rel": np.asarray(cg.exp_rel), "n_edges": cg.n_edges,
+        "res_idx": np.asarray(cg.res_idx),
+        "res_src": np.asarray(cg.res_src), "res_dst": np.asarray(cg.res_dst),
+        "res_exp": np.asarray(cg.res_exp),
+        "res_level_bounds": cg.res_level_bounds,
+        "range_offs": np.asarray(cg.range_offs),
+        "range_levels": np.asarray(cg.range_levels),
+        "n_levels": cg.n_levels,
+        "blocks": [{"dst_off": b.dst_off, "n_dst": b.n_dst,
+                    "src_off": b.src_off, "n_src": b.n_src,
+                    "dst_local": np.asarray(b.dst_local),
+                    "src_local": np.asarray(b.src_local),
+                    "level": b.level, "closured": b.closured}
+                   for b in cg.blocks],
+        "programs": [{"dst_off": p.dst_off, "size": p.size,
+                      "expr": expr_tuple(p.expr),
+                      "leaf_off": [(expr_tuple(k), v)
+                                   for k, v in p.leaf_off.items()],
+                      "level": p.level}
+                     for p in cg.programs],
+        "delta_src": np.asarray(cg.delta_src),
+        "delta_dst": np.asarray(cg.delta_dst),
+        "delta_exp": np.asarray(cg.delta_exp),
+        "n_delta": cg.n_delta,
+        "dead_pairs": None if cg.dead_pairs is None
+        else np.asarray(cg.dead_pairs),
+    }
+
+
+def random_rels(rng, n_users=9, n_groups=4, n_ns=3, n_pods=12,
+                nested=True, expiring="all", now=None):
+    """Relationship strings over a group/namespace/pod graph: direct and
+    userset grants, nested (cyclic) groups and, given ``now``, an expiring
+    wildcard grant (``expiring="wildcard"``) or also expiring user grants
+    (``"all"``), one hour on either side of ``now``."""
+    rels = set()
+    for _ in range(2 * n_groups):
+        rels.add(f"group:g{rng.integers(n_groups)}#member"
+                 f"@user:u{rng.integers(n_users)}")
+    if nested:
+        for g in range(n_groups):
+            rels.add(f"group:g{g}#member@group:g{(g + 1) % n_groups}#member")
+    for n in range(n_ns):
+        rels.add(f"namespace:ns{n}#viewer@group:g{rng.integers(n_groups)}"
+                 "#member")
+        rels.add(f"namespace:ns{n}#creator@user:u{rng.integers(n_users)}")
+    for p in range(n_pods):
+        rels.add(f"pod:p{p}#namespace@namespace:ns{rng.integers(n_ns)}")
+        for _ in range(2):
+            rels.add(f"pod:p{p}#viewer@user:u{rng.integers(n_users)}")
+    out = sorted(rels)
+    if expiring and now is not None:
+        from datetime import datetime, timezone
+
+        def stamp(t):
+            return datetime.fromtimestamp(t, timezone.utc).strftime(
+                "%Y-%m-%dT%H:%M:%SZ")
+        out.append(f"namespace:ns0#viewer@user:*[expiration:"
+                   f"{stamp(now + 3600)}]")
+        if expiring == "all":
+            out.append(f"namespace:ns1#viewer@user:u1[expiration:"
+                       f"{stamp(now - 3600)}]")
+            out.append(f"namespace:ns2#viewer@user:u2[expiration:"
+                       f"{stamp(now + 3600)}]")
+    return out
