@@ -10,14 +10,20 @@ rows generated from ``--seed``. Phases:
 2. kernel build: nvcc of csrc/bitprop.cu into build/torch_kernels/;
 3. bulk load, graph compile and device build of the headline store;
 4. each CUDA kernel against its plain PyTorch version on the card, at
-   the headline block shape the main path feeds it and at two ragged
-   shapes: byte-equal, with kernel / plain / library times and bounds;
+   the inputs the main path feeds the headline block, at ragged shapes,
+   across a density sweep (live frontier words for the bit kernel, live
+   64-byte src tiles for the dense one) and on mid-size bit duals with
+   each of its paths forced (the small-dual cutoff): byte-equal, with
+   kernel times (eager launches, device time by CUDA-graph replay, host
+   time a call), plain and library times, the data bound and the sector
+   bound;
 5. the list filter: ``lookup_resources_mask("pod", "view", "user", u)``
    for 31 subjects (B=1, push: the bit kernel);
 6. the bulk check: 64 subjects x 1,024 items (pull: the dense kernel);
 7. the same list filters under forced pull: identical masks; then a
-   torch.profiler trace of both paths (device busy time, idle share and
-   the kernels that take the most device time);
+   torch.profiler trace of both paths (device busy time, idle share,
+   each kernel's device time a call, and the kernels that take the most
+   device time);
 8. random checks and full masks against the host OracleEvaluator.
 
 Launch counts are zeroed just before phase 5 and read just after phase 6:
@@ -69,6 +75,8 @@ definition pod {
 # H100 SXM published peaks (NVIDIA data sheet, dense, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1.979e15
+
+SECTOR_BYTES = 32  # the card's memory access grain (one L2 sector)
 
 KERNEL_SOURCE = "spicedb_kubeapi_proxy_tpu_torch/csrc/bitprop.cu"
 REPLACES = {
@@ -133,8 +141,9 @@ def build_rows(n_pods: int, n_users: int, n_ns: int, n_groups: int,
 
 
 def cuda_ms(torch, fn, reps: int) -> float:
-    """Mean device time of ``fn`` over ``reps`` launches (CUDA events),
-    after one warm-up call."""
+    """Mean time of ``fn`` over ``reps`` back-to-back eager calls (CUDA
+    events), after one warm-up call: the device time, or the host's launch
+    time where that is longer."""
     fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -145,6 +154,49 @@ def cuda_ms(torch, fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def host_ms(torch, fn, reps: int) -> float:
+    """Host time of one ``fn`` call: ``reps`` calls enqueued back to back
+    with no synchronize between them (the wrapper's Python, its checks,
+    the output allocation and the launch calls), after one warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t * 1e3 / reps
+
+
+def graph_ms(torch, fn, reps: int = 50) -> float:
+    """Device time of one ``fn`` call: ``reps`` calls captured in a CUDA
+    graph and replayed, so no host launch cost sits between them; the
+    median of five replays. A kernel of a few microseconds is otherwise
+    timed at the host's launch rate."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # warm-up off the capture
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g, capture_error_mode="relaxed"):
+        for _ in range(reps):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    times = []
+    for _ in range(5):
+        start.record()
+        g.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return float(np.median(times))
 
 
 def bound_ms(n_bytes: float, n_ops: float = 0.0) -> tuple[float, str]:
@@ -167,7 +219,9 @@ def capture_inputs(bitprop, bits, A, run) -> dict:
     """Run ``run`` (main-path calls) with both kernel wrappers wrapped to
     keep a copy of the first inputs each gets for the headline block
     (``bits`` / ``A``): exactly the shapes and frontiers the main path
-    launches. The wrapped calls still launch the kernels."""
+    launches. The dense frontier arrives as a row-strided slice of the
+    fixpoint's state; its copy keeps that row stride. The wrapped calls
+    still launch the kernels."""
     got = {}
     bit, dense = bitprop.bit_or_matmul, bitprop.dense_or_matmul
 
@@ -177,8 +231,10 @@ def capture_inputs(bitprop, bits, A, run) -> dict:
         return bit(a, vb, nb)
 
     def dense_spy(a, f):
-        if a is A:
-            got.setdefault("dense", (a, f.clone()))
+        if a is A and "dense" not in got:
+            buf = strided_like(f)
+            buf.copy_(f)
+            got["dense"] = (a, buf)
         return dense(a, f)
 
     # the wrappers count through their module-level names, now the spies
@@ -193,60 +249,260 @@ def capture_inputs(bitprop, bits, A, run) -> dict:
     return got
 
 
-def time_dense(torch, bitprop, A, f, dev, label: str) -> dict:
-    """Times of ``dense_or_matmul`` on (A, f): kernel, plain version and
-    the library yardstick, with the data bound and the bytes the kernel
-    reads (it skips all-zero frontier tiles)."""
+def strided_like(f):
+    """A zeroed [B, n] view with ``f``'s row stride (a slice of a wider
+    buffer, as the fixpoint's state slice is)."""
+    buf = f.new_zeros((f.shape[0], max(f.stride(0), f.shape[1])))
+    return buf[:, :f.shape[1]]
+
+
+def bit_frontier(torch, k: int, n_live: int, dev, rng):
+    """A packed B=1 frontier [8, k] with ``n_live`` live words: word 0
+    (the wildcard's slot 1) and the rest at random; the last live word
+    also holds bit 31, a negative int32."""
+    vals = np.zeros(k, dtype=np.int64)
+    if n_live:
+        words = np.concatenate([[0], rng.choice(np.arange(1, k), n_live - 1,
+                                                replace=False)])
+        vals[words] = np.int64(1) << rng.integers(0, 31, size=n_live)
+        vals[0] |= 2
+        vals[words[-1]] |= np.int64(1) << 31
+    v = torch.zeros((8, k), dtype=torch.int32)
+    v[0] = torch.from_numpy((vals - ((vals >> 31) << 32)).astype(np.int32))
+    return v.to(dev)
+
+
+def bit_sector_bound(vb, nb: int, n_dst: int) -> tuple[float, int]:
+    """What the card must read for one bit hop with the reference's
+    row-major dual: the 32-byte sectors of each row that hold a live word
+    (8 words a sector), the packed frontier once and the output once."""
+    live = (vb[:nb] != 0).any(dim=0).nonzero().flatten()
+    sectors = int((live // 8).unique().numel())
+    return bound_ms(n_dst * 32 * sectors + vb.numel() * 4 + nb * n_dst)[0], \
+        sectors
+
+
+def time_bit(torch, bitprop, a, vb, nb: int, label: str,
+             plain_reps: int = 5) -> dict:
+    """Times of ``bit_or_matmul`` on (a, vb, nb) after a byte-equality
+    check against its plain version, with the data bound (live words) and
+    the sector bound. ``ms`` is the mean over eager launches (CUDA events),
+    ``device_ms`` the CUDA-graph replay, ``host_ms`` the host's time a
+    call."""
+    n_dst, k = a.shape
+    got = bitprop.bit_or_matmul(a, vb, nb)
+    want = bitprop.bit_or_matmul_plain(a, vb, nb)
+    torch.cuda.synchronize()
+    check(torch.equal(got, want),
+          f"bit_or_matmul != plain at {tuple(a.shape)} n_b={nb} ({label})")
+
+    def fn():
+        return bitprop.bit_or_matmul(a, vb, nb)
+
+    eager = cuda_ms(torch, fn, 50)
+    device = graph_ms(torch, fn)
+    host = host_ms(torch, fn, 50)
+    plain = cuda_ms(torch, lambda: bitprop.bit_or_matmul_plain(a, vb, nb),
+                    plain_reps)
+    live_words = int((vb[:nb] != 0).any(dim=0).sum())
+    b_ms, b_by = bound_ms(n_dst * live_words * 4 + vb.numel() * 4
+                          + nb * n_dst)
+    s_ms, sectors = bit_sector_bound(vb, nb, n_dst)
+    log(f"  bit_or_matmul {label} [{n_dst} x {k}] n_b={nb}: byte-equal, "
+        f"{live_words} live words ({sectors} sectors a row): kernel "
+        f"{eager:.4f} ms eager (device {device:.4f} ms by graph replay, "
+        f"host {host:.4f} ms a call), plain {plain:.4f} ms, bound "
+        f"{b_ms:.6f} ms, sector bound {s_ms:.6f} ms, whole-dual stream "
+        f"{bound_ms(a.numel() * 4)[0]:.4f} ms")
+    return dict(ms=eager, device_ms=device, host_ms=host, plain_ms=plain,
+                bound_ms=b_ms, bound_by=b_by, sector_bound_ms=s_ms,
+                live=live_words)
+
+
+def dense_frontier(torch, n_src: int, n_tiles: int, batch: int, dev, rng):
+    """A [batch, n_src] frontier whose rows share no columns: ``n_tiles``
+    64-byte src tiles at random, tile i given to row i % batch, with one
+    set byte in each of its two 32-byte halves."""
+    f = np.zeros((batch, n_src), dtype=np.uint8)
+    tiles = rng.choice(n_src // 64, n_tiles, replace=False)
+    for i, t in enumerate(tiles.tolist()):
+        f[i % batch, t * 64 + rng.integers(32)] = 1
+        f[i % batch, t * 64 + 32 + rng.integers(32)] = 1
+    return torch.from_numpy(f).to(dev)
+
+
+def time_dense(torch, bitprop, A, f, dev, label: str,
+               plain_reps: int = 2) -> dict:
+    """Times of ``dense_or_matmul`` on (A, f) after a byte-equality check
+    against its plain version and the library yardstick: kernel, plain
+    version and library, with the data bound (live src columns) and the
+    sector bound (live 32-byte columns, which is what the kernel reads).
+    ``ms`` and ``library_ms`` are means over eager launches (CUDA events),
+    ``device_ms`` and ``library_device_ms`` CUDA-graph replays, ``host_ms``
+    the host's time a call."""
     nb, (nd, ns) = f.shape[0], A.shape
-    ms = cuda_ms(torch, lambda: bitprop.dense_or_matmul(A, f), 20)
-    plain = cuda_ms(torch, lambda: bitprop.dense_or_matmul_plain(A, f), 2)
-    live_cols = int((f != 0).any(dim=0).sum())
-    need = nd * live_cols + f.numel() + nb * nd
+    got = bitprop.dense_or_matmul(A, f)
+    want = bitprop.dense_or_matmul_plain(A, f)
+    torch.cuda.synchronize()
+    check(torch.equal(got, want), f"dense_or_matmul != plain at "
+          f"{tuple(A.shape)} B={nb} ({label})")
+
+    def fn():
+        return bitprop.dense_or_matmul(A, f)
+
+    eager = cuda_ms(torch, fn, 20)
+    device = graph_ms(torch, fn, 20)
+    host = host_ms(torch, fn, 20)
+    plain = cuda_ms(torch, lambda: bitprop.dense_or_matmul_plain(A, f),
+                    plain_reps)
+    nzc = (f != 0).any(dim=0)
+    live_cols = int(nzc.sum())
+    need = nd * live_cols + f.shape[0] * ns + nb * nd
     b_ms, b_by = bound_ms(need, 2.0 * nb * nd * live_cols)
-    # what the kernel reads from HBM: the A tiles (64 src bytes each) that
-    # meet a frontier tile with a bit set; all-zero tiles are skipped
-    tile = 64
-    live_tiles = int(f.view(nb, ns // tile, tile).ne(0).any(dim=2)
-                     .any(dim=0).sum())
-    read = nd * tile * live_tiles + f.numel() + nb * nd
+    grain = SECTOR_BYTES
+    pad = (-ns) % grain
+    live32 = int(torch.nn.functional.pad(nzc, (0, pad)).view(-1, grain)
+                 .any(dim=1).sum())
+    sector = nd * grain * live32 + f.shape[0] * ns + nb * nd
+    s_ms = bound_ms(sector, 2.0 * nb * nd * live32 * grain)[0]
     # the library yardstick: timed here only, the port never calls it;
     # torch._int_mm wants more than 16 rows, so zero rows pad it to 32
     fi8, at = torch.zeros((max(32, nb), ns), dtype=torch.int8,
                           device=dev), A.t()
     fi8[:nb] = f
-    library = cuda_ms(torch, lambda: torch._int_mm(fi8, at).gt(0), 20)
+
+    def lib_fn():
+        return torch._int_mm(fi8, at).gt(0)
+
+    library = cuda_ms(torch, lib_fn, 20)
+    library_dev = graph_ms(torch, lib_fn, 20)
     check(torch.equal(torch._int_mm(fi8, at)[:nb].gt(0).to(torch.uint8),
-                      bitprop.dense_or_matmul(A, f)),
-          "torch._int_mm yardstick disagrees with dense_or_matmul")
-    log(f"  dense_or_matmul {label} [{nd} x {ns}] B={nb}: kernel "
-        f"{ms:.4f} ms, plain {plain:.4f} ms, bound {b_ms:.6f} ms "
-        f"({live_cols} live src columns); reads {live_tiles} of "
-        f"{ns // tile} src tiles, {read} bytes (stream bound "
-        f"{bound_ms(read)[0]:.4f} ms), achieved {read / ms / 1e6:.1f} GB/s; "
-        f"library torch._int_mm>0 {library:.4f} ms (B padded to "
-        f"{fi8.shape[0]})")
-    return dict(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
-                library_ms=library)
+                      got), "torch._int_mm yardstick disagrees with "
+          f"dense_or_matmul ({label})")
+    log(f"  dense_or_matmul {label} [{nd} x {ns}] B={nb}: byte-equal, "
+        f"{live_cols} live src columns, {live32} of {-(-ns // grain)} live "
+        f"32-byte columns: kernel {eager:.4f} ms eager (device "
+        f"{device:.4f} ms by graph replay, host {host:.4f} ms a call), "
+        f"plain {plain:.4f} ms, bound {b_ms:.6f} ms, sector bound "
+        f"{s_ms:.4f} ms ({sector} B, achieved {sector / device / 1e6:.1f} "
+        f"GB/s on device time); library torch._int_mm>0 {library:.4f} ms "
+        f"eager, {library_dev:.4f} ms device (B padded to {fi8.shape[0]})")
+    return dict(ms=eager, device_ms=device, host_ms=host, plain_ms=plain,
+                bound_ms=b_ms, bound_by=b_by, sector_bound_ms=s_ms,
+                library_ms=library, library_device_ms=library_dev,
+                live=live32)
 
 
-def kernel_phase(torch, bitprop, cap, f64, dev):
+# density sweeps: live packed words (bit, B=1) and live 64-byte src
+# tiles (dense, B=16 rows sharing no column)
+BIT_SWEEP = (0, 1, 2, 16, 32, 64, 512)
+DENSE_SWEEP = (0, 1, 16, 64, 256)
+
+
+def sweep(torch, bitprop, bits, A, dev, seed: int) -> list[dict]:
+    """Both kernels across frontier densities on the headline blocks
+    (``bits`` [n_dst, K] int32, ``A`` [n_dst, n_src] int8): each case
+    byte-equal to the plain version, timed, with its sector bound."""
+    rng = np.random.default_rng(seed)
+    out = []
+    k = bits.shape[1]
+    for n_live in BIT_SWEEP:
+        n_live = min(n_live, k)
+        r = time_bit(torch, bitprop, bits, bit_frontier(
+            torch, k, n_live, dev, rng), 1, f"sweep {n_live} live words",
+            plain_reps=2)
+        out.append(dict(r, kernel="bit_or_matmul", case=f"{n_live} words"))
+    n_src = A.shape[1]
+    for n_tiles in DENSE_SWEEP:
+        n_tiles = min(n_tiles, n_src // 64)
+        r = time_dense(torch, bitprop, A, dense_frontier(
+            torch, n_src, n_tiles, 16, dev, rng), dev,
+            f"sweep {n_tiles} live 64-byte tiles", plain_reps=1)
+        out.append(dict(r, kernel="dense_or_matmul",
+                        case=f"{n_tiles} tiles"))
+    return out
+
+
+# mid-size bit duals: the headline's row width (16,384 src, K=512 words,
+# 2 KiB a row) and edge density (75 a row over 10,000 users) at 1,024 to
+# 32,768 rows (2 to 64 MiB), where the small-dual cutoff falls
+MID_ROWS = (1024, 2048, 4096, 8192, 16384, 32768)
+
+
+def mid_duals(torch, bitprop, dev, rng) -> list:
+    """(rows, a, vb, nb, n_live) for each mid-size dual with a B=1
+    frontier of 2 live words (the list filter's) and of K / 16."""
+    out = []
+    n_src = 16_384
+    for rows in MID_ROWS:
+        dst = torch.from_numpy(rng.integers(rows, size=75 * rows)).to(dev)
+        src = torch.from_numpy(rng.integers(10_000, size=75 * rows)).to(dev)
+        a = bitprop.pack_block(dst, src, rows, n_src)
+        k = a.shape[1]
+        for n_live in (2, k // 16):
+            out.append((rows, a, bit_frontier(torch, k, n_live, dev, rng), 1,
+                        n_live))
+    return out
+
+
+def bit_cutoff(torch, bitprop, kernels, dev, seed: int) -> list[dict]:
+    """The bit kernel's small-dual cutoff: on each mid-size dual, its
+    device time (graph replay) with the path forced, by calling the C
+    entry point with ``max_live`` -1 (stream whole rows) and with the
+    shared list's capacity (sparse), each byte-equal to the plain
+    version; beside what ``bit_sparse_max_live`` picks."""
+    lib = bitprop._lib()
+    out = []
+    for rows, a, vb, nb, n_live in mid_duals(
+            torch, bitprop, dev, np.random.default_rng(seed)):
+        k = a.shape[1]
+        want = bitprop.bit_or_matmul_plain(a, vb, nb)
+        times = {}
+        for path, max_live in (("stream", -1),
+                               ("sparse", bitprop.BIT_SPARSE_CAP)):
+            got = torch.empty((nb, rows), dtype=torch.uint8, device=dev)
+
+            def fn(got=got, max_live=max_live):
+                kernels.check(lib.bitprop_bit_or_matmul(
+                    a.data_ptr(), vb.data_ptr(), got.data_ptr(), rows, k, nb,
+                    max_live, bitprop._stream(dev)), "bit_or_matmul launch")
+
+            fn()
+            torch.cuda.synchronize()
+            check(torch.equal(got, want), f"bit_or_matmul ({path} path "
+                  f"forced) != plain at [{rows} x {k}], {n_live} live words")
+            times[path] = graph_ms(torch, fn)
+        picks = ("sparse" if n_live <= bitprop.bit_sparse_max_live(rows, k)
+                 else "stream")
+        log(f"  bit cutoff [{rows} x {k}] ({rows * k * 4 / 2 ** 20:.0f} MiB), "
+            f"{n_live} live words: stream {times['stream']:.5f} ms, sparse "
+            f"{times['sparse']:.5f} ms device; the rule picks {picks}")
+        out.append(dict(rows=rows, k=k, live=n_live, picks=picks, **times))
+    return out
+
+
+def ragged_bits(torch, bitprop, rng, dev, nd: int, ns: int, nb: int):
+    """A random bit dual [nd, K] and a 5%-density packed frontier."""
+    dst = torch.from_numpy(rng.integers(nd, size=8 * nd)).to(dev)
+    src = torch.from_numpy(rng.integers(ns, size=8 * nd)).to(dev)
+    a = bitprop.pack_block(dst, src, nd, ns)
+    f = torch.from_numpy(
+        (rng.random((nb, ns)) < 0.05).astype(np.uint8)).to(dev)
+    return a, bitprop.pack_frontier(f, ns), nb
+
+
+def kernel_phase(torch, bitprop, kernels, cap, f64, dev):
     """Phase 4: both kernels against their plain versions on the card, at
-    the inputs the main path gave the headline block (``cap``) and at
-    extra shapes; times at the main path's inputs."""
+    the inputs the main path gave the headline block (``cap``), at extra
+    shapes, across a density sweep and on mid-size bit duals with each
+    path forced; times at every one of them."""
     rng = np.random.default_rng(7)
     rows = {}
 
-    def ragged_bits(nd, ns, nb):
-        dst = torch.from_numpy(rng.integers(nd, size=8 * nd)).to(dev)
-        src = torch.from_numpy(rng.integers(ns, size=8 * nd)).to(dev)
-        a = bitprop.pack_block(dst, src, nd, ns)
-        f = torch.from_numpy(
-            (rng.random((nb, ns)) < 0.05).astype(np.uint8)).to(dev)
-        return a, bitprop.pack_frontier(f, ns), nb
-
     # -- bit_or_matmul: the list filter's pod#viewer hop, two ragged --
     err = 0
-    cases = [cap["bit"], ragged_bits(288, 96, 3), ragged_bits(4064, 4000, 8)]
+    cases = [cap["bit"], ragged_bits(torch, bitprop, rng, dev, 288, 96, 3),
+             ragged_bits(torch, bitprop, rng, dev, 4064, 4000, 8)]
     for a, vb, nb in cases:
         got = bitprop.bit_or_matmul(a, vb, nb)
         want = bitprop.bit_or_matmul_plain(a, vb, nb)
@@ -257,29 +513,20 @@ def kernel_phase(torch, bitprop, cap, f64, dev):
         log(f"  bit_or_matmul {tuple(a.shape)} n_b={nb}: byte-equal "
             f"(hits {int(got.sum())})")
     a, vb, nb = cases[0]
-    n_dst, k = a.shape
-    ms = cuda_ms(torch, lambda: bitprop.bit_or_matmul(a, vb, nb), 50)
-    plain = cuda_ms(torch, lambda: bitprop.bit_or_matmul_plain(a, vb, nb), 5)
-    # data-dependent need: only the packed words holding a frontier bit
-    live_words = int((vb[:nb] != 0).any(dim=0).sum())
-    need = n_dst * live_words * 4 + vb.numel() * 4 + nb * n_dst
-    b_ms, b_by = bound_ms(need)
-    read = a.numel() * 4 + vb.numel() * 4 + nb * n_dst
     rows["bit_or_matmul"] = dict(
-        ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+        time_bit(torch, bitprop, a, vb, nb, "main-path input"),
         library_ms=None, max_abs_err=err)
-    log(f"  bit_or_matmul main-path input [{n_dst} x {k}] n_b={nb}: kernel "
-        f"{ms:.4f} ms, plain {plain:.4f} ms, bound {b_ms:.6f} ms "
-        f"({live_words} live words); reads the whole dual, {read} bytes "
-        f"(stream bound {bound_ms(read)[0]:.4f} ms), achieved "
-        f"{read / ms / 1e6:.1f} GB/s; library: none")
+    time_bit(torch, bitprop, *cases[2], "ragged 5% density")
 
-    # -- dense_or_matmul: the bulk check's pod#viewer hop, B=64 one-hot
-    # on the same block, two ragged --
+    # -- dense_or_matmul: the bulk check's pod#viewer hop (a strided
+    # slice, as launched), B=64 one-hot on the same block, two ragged --
     err = 0
     A, f = cap["dense"]
+    check(torch.equal(bitprop.dense_or_matmul(A, f),
+                      bitprop.dense_or_matmul(A, f.contiguous())),
+          "dense_or_matmul differs on a strided frontier and its copy")
     dcases = [(A, f), (A, f64)]
-    for nd, ns, b in ((384, 128, 33), (1000, 4000, 200)):
+    for nd, ns, b in ((384, 128, 33), (1000, 4000, 200), (1000, 4016, 16)):
         dcases.append((
             torch.from_numpy((rng.random((nd, ns)) < 0.05).astype(
                 np.int8)).to(dev),
@@ -295,20 +542,27 @@ def kernel_phase(torch, bitprop, cap, f64, dev):
         log(f"  dense_or_matmul {tuple(a.shape)} B={fr.shape[0]}: byte-equal "
             f"(hits {int(got.sum())})")
     rows["dense_or_matmul"] = dict(
-        time_dense(torch, bitprop, A, f, dev, "main-path input"),
+        time_dense(torch, bitprop, A, f, dev,
+                   f"main-path input (row stride {f.stride(0)})"),
         max_abs_err=err)
-    # the same block at B=64 (one subject a row), to show how the time
-    # goes with the live src tiles; printed only
+    # the same block at B=64 (one subject a row); printed only
     time_dense(torch, bitprop, A, f64, dev, "one-hot B=64")
+
+    log("  density sweep (headline blocks):")
+    sweep(torch, bitprop, cap["bit"][0], A, dev, 11)
+    log("  small-dual cutoff (mid-size bit duals, each path forced):")
+    bit_cutoff(torch, bitprop, kernels, dev, 13)
     return rows
 
 
-def trace_phase(torch, label: str, fn, n_calls: int) -> None:
+def trace_phase(torch, label: str, fn, n_calls: int,
+                kernels: dict) -> None:
     """Where the time goes: a torch.profiler trace of ``fn`` (``n_calls``
     main-path calls, warmed up first). Device busy time is the union of the
     traced device activity intervals; the idle share is the rest of the
     wall time of the same window run untraced (the profiler slows the
-    host), each window ending in a synchronize."""
+    host), each window ending in a synchronize. ``kernels`` maps a label
+    to name fragments whose device time is reported per call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -342,10 +596,17 @@ def trace_phase(torch, label: str, fn, n_calls: int) -> None:
         if hi > end:
             busy += hi - max(lo, end)
             end = hi
+    idle = max(0.0, 1 - busy / plain_us)
     log(f"  trace {label}: {n_calls} calls, wall {plain_us / 1e3:.3f} ms "
         f"untraced ({wall_us / 1e3:.3f} ms traced), device busy "
-        f"{busy / 1e3:.3f} ms, idle share {max(0.0, 1 - busy / plain_us):.4f},"
-        f" {len(spans)} device activities")
+        f"{busy / 1e3:.3f} ms, idle share {idle:.4f}, {len(spans)} device "
+        f"activities")
+    for what, frags in kernels.items():
+        hit = [(n, t) for nm, (n, t) in per_name.items()
+               if any(fr in nm for fr in frags)]
+        n, t = sum(h[0] for h in hit), sum(h[1] for h in hit)
+        log(f"    {what}: {t / 1e3 / n_calls:.4f} ms device time a call "
+            f"({n} activities over {n_calls} calls)")
     top = sorted(per_name.items(), key=lambda kv: -kv[1][1])[:6]
     for nm, (n, t) in top:
         log(f"    {t / 1e3:9.3f} ms  x{n:<5d} {nm[:90]}")
@@ -455,7 +716,7 @@ def main(argv=None) -> int:
             e.check_bulk(items)))
     user_idx = objs["user"].id_map()
     log("phase 4 kernels vs plain on the card:")
-    krows = kernel_phase(torch, bitprop, cap, one_hot_frontier(
+    krows = kernel_phase(torch, bitprop, kernels, cap, one_hot_frontier(
         torch, [user_idx[u] for u in bulk_users], d["blocks"][pv].shape[1],
         dev), dev)
     del cap
@@ -503,9 +764,13 @@ def main(argv=None) -> int:
     # -- phase 7b: where the time goes (device trace of both paths) --
     trace_phase(torch, "list filter (B=1)", lambda: [
         e.lookup_resources_mask("pod", "view", "user", u)
-        for u in subjects[:10]], 10)
+        for u in subjects[:10]], 10,
+        {"bit_or_matmul_kernel": ("bit_or_matmul_kernel",),
+         "its small-dual stream kernel": ("bit_or_matmul_stream_kernel",)})
     trace_phase(torch, "bulk check (64x1024)", lambda: e.check_bulk(items),
-                1)
+                1, {
+                    "dense_or_matmul_kernel": ("dense_or_matmul_kernel",),
+                    "its pre-pass": ("dense_live_tiles_kernel",)})
 
     # -- phase 8: the host oracle --
     t0 = time.perf_counter()
@@ -554,7 +819,10 @@ def main(argv=None) -> int:
                     "launches": launches[kname],
                     "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                    "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+                    "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+                    "device_ms": r["device_ms"], "host_ms": r["host_ms"],
+                    "library_device_ms": r.get("library_device_ms"),
+                    "sector_bound_ms": r["sector_bound_ms"]})
     log("kernels: " + ", ".join(
         f"{k['name']} launches={k['launches']} matched_plain="
         f"{k['max_abs_err'] == 0}" for k in out))

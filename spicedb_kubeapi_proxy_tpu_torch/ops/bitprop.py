@@ -137,14 +137,39 @@ def pack_frontier(frontier: torch.Tensor, n_src: int) -> torch.Tensor:
     return out
 
 
+# The bit kernel's block-uniform path choice, decided here and only here:
+# a block takes the sparse path (only the live words of each row are
+# loaded) when at most this many frontier words are live: K / 16, so the
+# live words touch at most half of a row's K / 8 32-byte sectors, and no
+# more than the kernel's shared live-word list holds (kBitSparseCap in
+# csrc/bitprop.cu, which refuses a larger count). A dual under
+# BIT_SPARSE_MIN_BYTES always streams: there the whole stream costs about
+# what the live-word compaction and scattered reads do, and at K / 16 live
+# words the sparse path loses (PERF.md: by 26-29% on 4-8 MiB duals), while
+# from 16 MiB on it wins at every live count up to the limit. PERF.md's
+# density sweep and mid-size dual readings justify both numbers.
+BIT_SPARSE_DIV = 16
+BIT_SPARSE_CAP = 64
+BIT_SPARSE_MIN_BYTES = 1 << 24
+# the dense kernel's live-column grain: one k32 step of the int8 MMA
+DENSE_TILE_BYTES = 32
+
+
+def bit_sparse_max_live(n_dst: int, k: int) -> int:
+    """Most live frontier words for which the bit kernel reads only them
+    on an [n_dst, k] dual; -1 when it always streams whole rows."""
+    if n_dst * k * 4 < BIT_SPARSE_MIN_BYTES:
+        return -1
+    return min(BIT_SPARSE_CAP, k // BIT_SPARSE_DIV)
+
+
 def _bind(lib) -> None:
-    p = ctypes.c_void_p
+    p, i64 = ctypes.c_void_p, ctypes.c_int64
     lib.bitprop_bit_or_matmul.restype = ctypes.c_int
-    lib.bitprop_bit_or_matmul.argtypes = [p, p, p, ctypes.c_int64,
-                                          ctypes.c_int64, ctypes.c_int, p]
+    lib.bitprop_bit_or_matmul.argtypes = [p, p, p, i64, i64, ctypes.c_int,
+                                          ctypes.c_int, p]
     lib.bitprop_dense_or_matmul.restype = ctypes.c_int
-    lib.bitprop_dense_or_matmul.argtypes = [p, p, p, ctypes.c_int64,
-                                            ctypes.c_int64, ctypes.c_int64,
+    lib.bitprop_dense_or_matmul.argtypes = [p, p, i64, p, p, i64, i64, i64,
                                             p]
 
 
@@ -157,13 +182,22 @@ def _stream(dev: torch.device) -> int:
 
 
 def _require(t: torch.Tensor, name: str, dtype, ndim: int,
-             dev: torch.device) -> None:
+             dev: torch.device, rows: bool = False) -> None:
+    """Type, device and layout checks before a launch. ``rows=True``
+    accepts a row-strided 2-d view (unit column stride, a row stride that
+    is a multiple of 16 bytes), as the dense kernel's frontier may be."""
     if t.dtype != dtype or t.dim() != ndim:
         raise ValueError(f"{name}: expected {ndim}-d {dtype}, got "
                          f"{t.dim()}-d {t.dtype}")
     if t.device != dev:
         raise ValueError(f"{name} is on {t.device}, expected {dev}")
-    if not t.is_contiguous():
+    if rows:  # a single row's stride is never used
+        if t.shape[1] > 1 and t.stride(1) != 1:
+            raise ValueError(f"{name} must have unit column stride")
+        if t.shape[0] > 1 and (t.stride(0) * t.element_size()) % 16:
+            raise ValueError(f"{name}'s row stride {t.stride(0)} is not a "
+                             f"multiple of 16 bytes")
+    elif not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
     if t.data_ptr() % 16:
         raise ValueError(f"{name} must be 16-byte aligned (the kernels "
@@ -199,7 +233,7 @@ def bit_or_matmul(a_bits: torch.Tensor, v_bits: torch.Tensor,
     out = torch.empty((n_b, n_dst), dtype=torch.uint8, device=dev)
     err = _lib().bitprop_bit_or_matmul(
         a_bits.data_ptr(), v_bits.data_ptr(), out.data_ptr(), n_dst, k, n_b,
-        _stream(dev))
+        bit_sparse_max_live(n_dst, k), _stream(dev))
     kernels.check(err, "bit_or_matmul launch")
     bit_or_matmul.launches += 1
     return out
@@ -213,9 +247,10 @@ _PLAIN_ROWS_BYTES = 1 << 30
 
 def dense_or_matmul_plain(A: torch.Tensor,
                           frontier: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version of :func:`dense_or_matmul`. A float32 product
-    is exact here: every term is 0 or 1, so a sum is > 0 exactly when a
-    term is, whatever the rounding of the accumulation."""
+    """Plain PyTorch version of :func:`dense_or_matmul` (the frontier may
+    be a strided view). A float32 product is exact here: every term is 0
+    or 1, so a sum is > 0 exactly when a term is, whatever the rounding of
+    the accumulation."""
     n_dst, n_src = A.shape
     f = frontier.to(torch.float32)
     out = torch.empty((frontier.shape[0], n_dst), dtype=torch.uint8,
@@ -229,21 +264,30 @@ def dense_or_matmul_plain(A: torch.Tensor,
 
 def dense_or_matmul(A: torch.Tensor, frontier: torch.Tensor) -> torch.Tensor:
     """Masked boolean-semiring block hop: ``A`` [n_dst, n_src] int8,
-    ``frontier`` [B, n_src] uint8 -> reached [B, n_dst] uint8. Any B."""
+    ``frontier`` [B, n_src] uint8 -> reached [B, n_dst] uint8. Any B. The
+    frontier may be a row-strided view (the fixpoint passes its slice of
+    the state); on the card its row stride must be a multiple of 16
+    bytes."""
     if A.device.type != "cuda":
         return dense_or_matmul_plain(A, frontier)
     dev = A.device
     _require(A, "A", torch.int8, 2, dev)
-    _require(frontier, "frontier", torch.uint8, 2, dev)
+    _require(frontier, "frontier", torch.uint8, 2, dev, rows=True)
     n_dst, n_src = A.shape
     batch = frontier.shape[0]
     if n_src % 16 or frontier.shape[1] != n_src:
         raise ValueError(f"n_src={n_src} must be a multiple of 16 and match "
                          f"the frontier's {frontier.shape[1]}")
     out = torch.empty((batch, n_dst), dtype=torch.uint8, device=dev)
+    # per call, never shared: the live count and column list the kernel's
+    # pre-pass writes on this stream
+    scratch = torch.empty(1 + -(-n_src // DENSE_TILE_BYTES),
+                          dtype=torch.int32, device=dev)
     err = _lib().bitprop_dense_or_matmul(
-        A.data_ptr(), frontier.data_ptr(), out.data_ptr(), n_dst, n_src,
-        batch, _stream(dev))
+        A.data_ptr(), frontier.data_ptr(),
+        frontier.stride(0) if batch > 1 else n_src,
+        out.data_ptr(), scratch.data_ptr(), n_dst, n_src, batch,
+        _stream(dev))
     kernels.check(err, "dense_or_matmul launch")
     dense_or_matmul.launches += 1
     return out

@@ -134,7 +134,8 @@ def propagate(block_meta, blocks, blocks_bits, src, dst, act,
             vb = bitprop.pack_frontier(f, bm.n_src)
             contrib = bitprop.bit_or_matmul(Ab, vb, B)
         else:
-            # pull, or a block without a bit dual inside a push pass
-            contrib = bitprop.dense_or_matmul(A, f.contiguous())
+            # pull, or a block without a bit dual inside a push pass; the
+            # kernel reads the strided slice of the state, no copy
+            contrib = bitprop.dense_or_matmul(A, f)
         prop[:, bm.dst_off:bm.dst_off + bm.n_dst] |= contrib
     return prop, int(push)

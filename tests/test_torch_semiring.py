@@ -115,6 +115,53 @@ def test_propagate_matches_reference_every_hop(graphs, B):
     assert hop >= 1
 
 
+@pytest.mark.parametrize("B", [1, 9])
+def test_propagate_passes_frontier_without_copy(graphs, monkeypatch, B):
+    """Every dense hop gets its block's slice of the state as a strided
+    view of the same storage (no copy), and the hop still equals the JAX
+    reference under push, pull and auto."""
+    e, cg, d, tcg, td = graphs
+    meta, tmeta = cg.run_meta(), tcg.run_meta()
+    Mp = (cg.M // jreach.LANE + 1) * jreach.LANE
+    rng = np.random.default_rng(B)
+    V = (rng.random((B, Mp)) < 0.2).astype(np.uint8)
+    act = jsemi.edge_activation(d["exp"], np.float32(0.0), d["cav"], None)
+    dact = jsemi.edge_activation(d["dexp"], np.float32(0.0), d["dcav"],
+                                 None)
+    tact = tsemi.edge_activation(td["exp"], np.float32(0.0))
+    tdact = tsemi.edge_activation(td["dexp"], np.float32(0.0))
+    Vt = torch.from_numpy(V)
+    seen = []
+    dense = tsemi.bitprop.dense_or_matmul
+
+    def spy(A, f):
+        seen.append(f)
+        return dense(A, f)
+
+    monkeypatch.setattr(tsemi.bitprop, "dense_or_matmul", spy)
+    offs = {bm.src_off for bm in tmeta.blocks}
+    for mode in ("push", "pull", "auto"):
+        seen.clear()
+        want, jpush = jax.jit(lambda Vf, mode=mode: jsemi.propagate(
+            meta.blocks, d["blocks"], d["blocks_bits"], d["src"], d["dst"],
+            act, d["dsrc"], d["ddst"], dact, Vf,
+            jsemi.frontier_occupancy(Vf), jnp.float32(1.0), level=None,
+            mode=mode))(jnp.asarray(V))
+        got, tpush = tsemi.propagate(
+            tmeta.blocks, td["blocks"], td["blocks_bits"], td["src"],
+            td["dst"], tact, td["dsrc"], td["ddst"], tdact, Vt, True,
+            level=None, mode=mode)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+        assert tpush == int(jpush)
+        if mode == "pull" or B > 8:
+            assert seen, "the pull hop launched no dense block"
+        for f in seen:
+            assert f.untyped_storage().data_ptr() == \
+                Vt.untyped_storage().data_ptr()
+            assert f.stride(0) == Mp
+            assert (f.data_ptr() - Vt.data_ptr()) in offs
+
+
 def test_propagate_level_filter_and_no_blocks(graphs):
     """A level with no selected block reports is_push 0 in every mode."""
     e, cg, d, tcg, td = graphs
