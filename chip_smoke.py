@@ -24,13 +24,35 @@ rows generated from ``--seed``. Phases:
    torch.profiler trace of both paths (device busy time, idle share,
    each kernel's device time a call, and the kernels that take the most
    device time);
-8. random checks and full masks against the host OracleEvaluator.
+8. random checks and full masks against the host OracleEvaluator;
+9. the write path: (a) the first write after the bulk load and the list
+   after it; (b) one warm write->read pair, then ``--writes`` pairs, each
+   a write folded into the delta overlay (new pod#viewer grants,
+   re-touches of base grants with an expiration, deletes of base
+   pod#viewer, namespace#viewer and group#member edges) and a list
+   filter: write and read-after-write p50/p99, the per-write split
+   (journal, overlay append, dispatch), zero recompiles, one incremental
+   update a write; (c) every touched subject's mask under auto (push) and
+   forced pull, byte-equal to each other and to a columnar host reference
+   (itself held against OracleEvaluator on a few subjects), and a 64 x
+   1,024 bulk check over the touched pods; (d) one compaction fold
+   (enable_compaction + compact) with the masks unchanged across the
+   swap; (e) an overlay grant that expires 2 s ahead, visible before and
+   gone after, with no write in between; (f) three write->read pairs
+   with the overlay off (a recompile each, the path before the overlay),
+   for comparison in the same run; (g) mixed traffic, one thread each: a
+   lister and a 64 x 1,024 bulk checker, then the same with a writer
+   every 10 ms as well (the proxy's dual-write load), list and write
+   p50/p99 beside 9b's single-thread numbers, zero recompiles, and the
+   writer's grants exact afterwards.
 
-Launch counts are zeroed just before phase 5 and read just after phase 6:
-both kernels must have run on the main path. Any mismatch or error exits
-non-zero. The last line is the run's JSON verdict.
+Launch counts are zeroed just before phase 5 and read just after phase 6
+(the kernels JSON's ``launches``), and again around phases 9b-9c
+(``write_path_launches``): both kernels must have run on both paths. Any
+mismatch or error exits non-zero. The last line is the run's JSON
+verdict.
 
-Usage: python3 chip_smoke.py [--seed N] [--n-rels N]
+Usage: python3 chip_smoke.py [--seed N] [--n-rels N] [--writes N]
 (from the repository root; kernels build at first use).
 """
 
@@ -41,6 +63,7 @@ import json
 import os
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -50,6 +73,9 @@ N_PODS, N_USERS, N_NS, N_GROUPS = 100_000, 10_000, 1_000, 1_000
 HEADLINE_RELS = 10_000_000
 N_SUBJECTS = 31  # list-filter subjects timed and checked
 
+# bench.py's BENCH_SCHEMA, with pod#viewer also admitting expiring grants
+# (phase 9 writes some); the trait gates write admission only, so the
+# compiled graph of the headline rows is the same
 BENCH_SCHEMA = """
 use expiration
 
@@ -66,7 +92,7 @@ definition namespace {
 definition pod {
   relation namespace: namespace
   relation creator: user
-  relation viewer: user
+  relation viewer: user | user with expiration
   permission edit = creator
   permission view = viewer + creator + namespace->view
 }
@@ -102,7 +128,11 @@ def build_rows(n_pods: int, n_users: int, n_ns: int, n_groups: int,
                n_rels: int, seed: int) -> dict:
     """The headline rows, generated as bench.py's build_engine does:
     ~20 users per group, 2 group viewer grants per namespace, every pod
-    in a namespace, and the rest flat deduplicated pod#viewer@user."""
+    in a namespace, and the rest flat pod#viewer@user. Unlike
+    build_engine, every kind is deduplicated (the first draw of a pair
+    kept), as Store.bulk_load requires: a duplicated row outlives the
+    delete of its tuple in the store, while the compiled graph drops the
+    edge."""
     rng = np.random.default_rng(seed)
     pods = np.char.add("ns/p", np.arange(n_pods).astype(str))
     users = np.char.add("u", np.arange(n_users).astype(str))
@@ -122,12 +152,19 @@ def build_rows(n_pods: int, n_users: int, n_ns: int, n_groups: int,
         cols["subject_relation"].append(
             np.full(n, srl if srl is not None else ""))
 
+    def first_draws(a, b, n_b):
+        keep = np.sort(np.unique(a * n_b + b, return_index=True)[1])
+        return a[keep], b[keep]
+
     gm = min(20 * n_groups, n_rels // 20)
-    add("group", groups[rng.integers(n_groups, size=gm)], "member",
-        "user", users[rng.integers(n_users, size=gm)])
+    g, u = first_draws(rng.integers(n_groups, size=gm),
+                       rng.integers(n_users, size=gm), n_users)
+    add("group", groups[g], "member", "user", users[u])
     nv = 2 * n_ns
-    add("namespace", nss[rng.integers(n_ns, size=nv)], "viewer",
-        "group", groups[rng.integers(n_groups, size=nv)], "member")
+    n, g = first_draws(rng.integers(n_ns, size=nv),
+                       rng.integers(n_groups, size=nv), n_groups)
+    add("namespace", nss[n], "viewer", "group", groups[g], "member")
+    gm, nv = len(u), len(n)
     pod_ns = np.char.add("ns", rng.integers(n_ns, size=n_pods).astype(str))
     add("pod", pods, "namespace", "namespace", pod_ns)
     n_flat = n_rels - gm - nv - n_pods
@@ -612,13 +649,469 @@ def trace_phase(torch, label: str, fn, n_calls: int,
         log(f"    {t / 1e3:9.3f} ms  x{n:<5d} {nm[:90]}")
 
 
+def base_samples(rows: dict, n_pods: int, n_ns: int, n_groups: int,
+                 n_rels: int, seed: int) -> dict:
+    """Existing edges of the generated rows for phase 9 to re-touch and
+    delete, by build_rows' layout (group#member rows, then
+    namespace#viewer@group#member, then pod#namespace, then the flat
+    pod#viewer@user rows): distinct pairs of each kind."""
+    rng = np.random.default_rng(seed + 9)
+    # the deduplicated group#member and namespace#viewer row counts
+    head = rows["resource_type"][:min(20 * n_groups, n_rels // 20)
+                                 + 2 * n_ns]
+    gm = int((head == "group").sum())
+    nv = int((head == "namespace").sum())
+    pv0 = gm + nv + n_pods
+
+    def pick(lo, hi, k):
+        idx = lo + rng.choice(hi - lo, size=k, replace=False)
+        return [(str(rows["resource_id"][i]), str(rows["subject_id"][i]))
+                for i in idx.tolist()]
+
+    return {"pod_viewer": pick(pv0, len(rows["resource_id"]), 64),
+            "group_member": pick(0, gm, 8),
+            "ns_viewer": list(dict.fromkeys(pick(gm, gm + nv, 8)))}
+
+
+def view_masks(store, users, now: float, n: int) -> dict:
+    """pod#view of BENCH_SCHEMA for each user, computed plainly with numpy
+    over the store's live rows (viewer + creator + namespace->view, a
+    namespace's view being its viewer users, the members of its viewer
+    groups and its creator): {user: bool mask over pod object indices,
+    ``n`` wide}. The phase-9 reference; it is held against
+    OracleEvaluator on a few subjects."""
+    snap = store.snapshot()
+    c = snap.cols
+    T, R = snap.types.lookup, snap.relations.lookup
+    t_user, t_group, t_ns, t_pod = (T(x) for x in
+                                    ("user", "group", "namespace", "pod"))
+    live = c.exp > now
+
+    def rows(rt, rl, st, srl=""):
+        rl_id, srl_id = R(rl), R(srl)
+        if None in (rt, rl_id, st, srl_id):
+            return np.empty(0, np.int32), np.empty(0, np.int32)
+        m = np.flatnonzero(live & (c.rt == rt) & (c.rl == rl_id)
+                           & (c.st == st) & (c.srl == srl_id))
+        return c.rid[m], c.sid[m]
+
+    pv, pc, pn = (rows(t_pod, "viewer", t_user), rows(t_pod, "creator",
+                                                      t_user),
+                  rows(t_pod, "namespace", t_ns))
+    nvu, nvg, nc = (rows(t_ns, "viewer", t_user),
+                    rows(t_ns, "viewer", t_group, "member"),
+                    rows(t_ns, "creator", t_user))
+    gm = rows(t_group, "member", t_user)
+    uid = snap.objects[t_user].id_map()
+    out = {}
+    for u in users:
+        ui = uid[u]
+
+        def mine(r):  # the user's own rows (and wildcard ones, index 1)
+            return r[0][(r[1] == ui) | (r[1] == 1)]
+
+        groups = mine(gm)
+        ns_vis = np.concatenate([mine(nvu), mine(nc),
+                                 nvg[0][np.isin(nvg[1], groups)]])
+        pods = np.concatenate([mine(pv), mine(pc),
+                               pn[0][np.isin(pn[1], ns_vis)]])
+        mask = np.zeros(n, dtype=bool)
+        mask[pods] = True
+        mask[:2] = False  # void and wildcard are not objects
+        out[u] = mask
+    return out
+
+
+def oracle_ids(store, schema, OracleEvaluator, Snapshot, users,
+               now: float) -> dict:
+    """OracleEvaluator's pod#view ids for each user, each over the rows
+    that can reach that user: every row whose subject is not a user, and
+    the user's own (and wildcard) rows. Rows of other users never match
+    a user subject, so the answer is the full oracle's, at a fraction of
+    its build time."""
+    snap = store.snapshot()
+    c = snap.cols
+    t_user = snap.types.lookup("user")
+    uid = snap.objects[t_user].id_map()
+    out = {}
+    for u in users:
+        keep = np.flatnonzero((c.st != t_user) | (c.sid == uid[u])
+                              | (c.sid == 1))
+        sub = Snapshot(snap.revision, c.take(keep), snap.types,
+                       snap.relations, snap.objects)
+        out[u] = OracleEvaluator(schema, sub, now=now).lookup_resources(
+            "pod", "view", "user", u)
+    return out
+
+
+def pct(xs, q: float) -> float:
+    return float(np.percentile(xs, q))
+
+
+def write_phase(torch, e, samples: dict, subjects: list, n_writes: int,
+                seed: int, stall_s: float) -> dict:
+    """Phase 9: the write path at the headline deployment (see the module
+    docstring). ``stall_s`` is what a write cost before the overlay: phase
+    3's compile and device build. Returns the launches of both kernels
+    over 9b-9c."""
+    from spicedb_kubeapi_proxy_tpu_torch.engine.evaluator import \
+        OracleEvaluator
+    from spicedb_kubeapi_proxy_tpu_torch.engine.store import \
+        RelationshipFilter, Snapshot, WriteOp
+    from spicedb_kubeapi_proxy_tpu_torch.models.tuples import Relationship
+    from spicedb_kubeapi_proxy_tpu_torch.engine import CheckItem
+    from spicedb_kubeapi_proxy_tpu_torch.ops import bitprop, semiring
+    from spicedb_kubeapi_proxy_tpu_torch.utils.features import features
+    from spicedb_kubeapi_proxy_tpu_torch.utils.metrics import metrics
+
+    rng = np.random.default_rng(seed + 90)
+
+    def counter(name, **kw):
+        return metrics.counter(name, **kw).value
+
+    def hist_total(name):
+        return metrics.histogram(name).total
+
+    def pv_rel(pod, user, exp=None):
+        return Relationship("pod", pod, "viewer", "user", user, None, exp)
+
+    def rand_pv():
+        return pv_rel(f"ns/p{rng.integers(N_PODS)}",
+                      f"u{rng.integers(N_USERS)}")
+
+    def list_mask(u, now=None):
+        return e.lookup_resources_mask("pod", "view", "user", u, now=now)[0]
+
+    # -- 9a: the first write after the bulk load --
+    c0, i0 = counter("engine_graph_compiles_total"), counter(
+        "engine_graph_incremental_updates_total")
+    unl0 = counter("engine_graph_incremental_fallback_total",
+                   reason="unlogged")
+    rel = rand_pv()
+    t0 = time.perf_counter()
+    e.write_relationships([WriteOp("touch", rel)])
+    first_w = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    m = list_mask(rel.subject_id)
+    first_r = (time.perf_counter() - t0) * 1e3
+    pods = e._objects_by_name()["pod"]
+    check(bool(m[pods.lookup(rel.resource_id)]),
+          "9a: the first write's grant is not visible")
+    dc = counter("engine_graph_compiles_total") - c0
+    di = counter("engine_graph_incremental_updates_total") - i0
+    du = counter("engine_graph_incremental_fallback_total",
+                 reason="unlogged") - unl0
+    log(f"phase 9a first write after the bulk load: write {first_w:.3f} ms "
+        f"(store index build included), list after it {first_r:.3f} ms; "
+        f"recompiles {dc:.0f}, incremental updates {di:.0f}, unlogged "
+        f"fallbacks {du:.0f}")
+    # the compile followed the load (phase 3), so the load's revision is
+    # the compiled one and the write folds into the overlay, as in the
+    # reference; `unlogged` fires only for a graph compiled before a load
+    check(dc == 0 and di == 1 and du == 0,
+          "9a: the first write after load+compile must fold incrementally")
+
+    # -- 9b: one warm pair, then n_writes write->read pairs --
+    e.write_relationships([WriteOp("touch", rand_pv())])
+    list_mask(subjects[0])
+    pv_base = list(samples["pod_viewer"])
+    rng.shuffle(pv_base)
+    n_ret, n_del = 12, 12
+    plan = [("retouch", p) for p in pv_base[:n_ret]]
+    plan += [("delete", p) for p in pv_base[n_ret:n_ret + n_del]]
+    plan += [("delete-gm", g) for g in samples["group_member"][:3]]
+    plan += [("delete-nv", v) for v in samples["ns_viewer"][:3]]
+    plan += [("touch", None)] * max(0, n_writes - len(plan))
+    order = rng.permutation(len(plan))
+    plan = [plan[i] for i in order]
+    touched_users, touched_pods, touched_groups = set(), set(), set()
+    w_ms, r_ms, j_ms, o_ms, p_ms = [], [], [], [], []
+    c0, i0 = counter("engine_graph_compiles_total"), counter(
+        "engine_graph_incremental_updates_total")
+    torch.cuda.synchronize()
+    bitprop.reset_launch_counts()
+    for k, (kind, arg) in enumerate(plan):
+        if kind == "touch":
+            op = WriteOp("touch", rand_pv())
+        elif kind == "retouch":
+            op = WriteOp("touch", pv_rel(*arg, exp=time.time() + 600))
+        elif kind == "delete":
+            op = WriteOp("delete", pv_rel(*arg))
+        elif kind == "delete-gm":
+            op = WriteOp("delete", Relationship("group", arg[0], "member",
+                                                "user", arg[1]))
+            touched_groups.add(arg[0])
+        else:
+            op = WriteOp("delete", Relationship(
+                "namespace", arg[0], "viewer", "group", arg[1], "member"))
+            touched_groups.add(arg[1])
+        r = op.rel
+        u = r.subject_id if r.subject_type == "user" else \
+            subjects[k % len(subjects)]
+        if r.resource_type == "pod":
+            touched_pods.add(r.resource_id)
+        if r.subject_type == "user":
+            touched_users.add(r.subject_id)
+        jt = hist_total("store_write_seconds")
+        ot = hist_total("engine_graph_incremental_seconds")
+        pt = hist_total("engine_overlay_patch_seconds")
+        t0 = time.perf_counter()
+        e.write_relationships([op])
+        w_ms.append((time.perf_counter() - t0) * 1e3)
+        j_ms.append((hist_total("store_write_seconds") - jt) * 1e3)
+        o_ms.append((hist_total("engine_graph_incremental_seconds") - ot)
+                    * 1e3)
+        p_ms.append((hist_total("engine_overlay_patch_seconds") - pt) * 1e3)
+        t0 = time.perf_counter()
+        list_mask(u)
+        r_ms.append((time.perf_counter() - t0) * 1e3)
+    dc = counter("engine_graph_compiles_total") - c0
+    di = counter("engine_graph_incremental_updates_total") - i0
+    cg = e.compiled()
+    kinds = {k: sum(1 for kk, _ in plan if kk == k) for k in
+             ("touch", "retouch", "delete", "delete-gm", "delete-nv")}
+    log(f"phase 9b write->read: {len(plan)} pairs {kinds}; write p50 "
+        f"{pct(w_ms, 50):.3f} ms p99 {pct(w_ms, 99):.3f} ms, "
+        f"read-after-write p50 {pct(r_ms, 50):.3f} ms p99 "
+        f"{pct(r_ms, 99):.3f} ms")
+    log(f"  per-write split p50 (p99): journal {pct(j_ms, 50):.3f} "
+        f"({pct(j_ms, 99):.3f}) ms, overlay append: host commit "
+        f"{pct(o_ms, 50):.3f} ({pct(o_ms, 99):.3f}) ms + device patch "
+        f"{pct(p_ms, 50):.3f} ({pct(p_ms, 99):.3f}) ms, dispatch "
+        f"{pct(r_ms, 50):.3f} ({pct(r_ms, 99):.3f}) ms")
+    log(f"  recompiles {dc:.0f}, incremental updates {di:.0f}; n_delta "
+        f"{cg.n_delta}, n_dead {cg.n_dead} (capacity {cg.delta_cap}); "
+        f"a write's stall before the overlay: compile_graph + device build "
+        f"{stall_s:.2f} s (phase 3)")
+    check(dc == 0, f"9b: {dc:.0f} recompiles during write churn")
+    check(di == len(plan), f"9b: {di:.0f} incremental updates for "
+          f"{len(plan)} writes")
+
+    # -- 9c: correctness at full scale --
+    snap_users = e._objects_by_name()["user"]
+    members = set()
+    if touched_groups:
+        for g in touched_groups:  # every member of a touched group
+            members |= {r.subject_id for r in e.read_relationships(
+                RelationshipFilter(resource_type="group", resource_id=g,
+                                   relation="member"))}
+    check_users = sorted(touched_users | members
+                         | {f"u{i}" for i in rng.choice(N_USERS, 10,
+                                                        replace=False)})
+    check_users = [u for u in check_users if snap_users.lookup(u) is not None]
+    now = time.time()
+    n = cg.type_sizes["pod"]
+    t0 = time.perf_counter()
+    want = view_masks(e.store, check_users, now, n)
+    ref_s = time.perf_counter() - t0
+    auto, pull = {}, {}
+    for u in check_users:
+        auto[u] = list_mask(u, now=now)
+    with semiring.force_mode("pull"):
+        for u in check_users:
+            pull[u] = list_mask(u, now=now)
+    for u in check_users:
+        check(np.array_equal(auto[u], pull[u]),
+              f"9c: push and pull masks differ for {u}")
+        check(np.array_equal(auto[u], want[u]),
+              f"9c: the mask for {u} disagrees with the host reference "
+              f"({int(auto[u].sum())} vs {int(want[u].sum())} pods)")
+    anchor = sorted(set(check_users[:: max(1, len(check_users) // 5)][:5])
+                    | ({sorted(members)[0]} if members else set()))
+    t0 = time.perf_counter()
+    oids = oracle_ids(e.store, e.schema, OracleEvaluator, Snapshot, anchor,
+                      now)
+    oracle_s = time.perf_counter() - t0
+    for u in anchor:
+        ids = {pods.string(i) for i in np.flatnonzero(want[u])}
+        check(ids == oids[u], f"9c: the host reference disagrees with "
+              f"OracleEvaluator for {u}")
+    bulk_users = (sorted(touched_users) + [f"u{i}" for i in range(64)])[:64]
+    bulk_users = list(dict.fromkeys(bulk_users))
+    while len(bulk_users) < 64:
+        bulk_users.append(f"u{rng.integers(N_USERS)}")
+        bulk_users = list(dict.fromkeys(bulk_users))
+    tp = sorted(touched_pods)
+    items = [CheckItem("pod", tp[rng.integers(len(tp))] if j % 2 else
+                       f"ns/p{rng.integers(N_PODS)}", "view", "user", u)
+             for u in bulk_users for j in range(1024)]
+    bmask = view_masks(e.store, bulk_users, now, n)
+    verdicts = e.check_bulk(items, now=now)
+    expect = [bool(bmask[it.subject_id][pods.lookup(it.resource_id)])
+              for it in items]
+    check(verdicts == expect, f"9c: {sum(a != b for a, b in zip(verdicts, expect))}"
+          f" of {len(items)} bulk verdicts disagree with the reference")
+    launches = {"bit_or_matmul": bitprop.bit_or_matmul.launches,
+                "dense_or_matmul": bitprop.dense_or_matmul.launches}
+    log(f"phase 9c correctness: {len(check_users)} subjects' masks "
+        f"(auto and forced pull) byte-equal to each other and to the host "
+        f"reference ({ref_s:.1f} s), which matched OracleEvaluator on "
+        f"{len(anchor)} subjects ({oracle_s:.1f} s); bulk check "
+        f"{len(items)} items ({sum(verdicts)} allowed) exact")
+    log(f"  launches over 9b-9c: {launches}")
+    for kname, cnt in launches.items():
+        check(cnt > 0, f"{kname} was not launched on the write path")
+
+    # -- 9d: one compaction fold --
+    comp = e.enable_compaction()
+    occ0 = e.compiled().n_delta
+    t0 = time.perf_counter()
+    check(comp.compact(), "9d: the compaction fold did not publish")
+    fold_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    after = {u: list_mask(u, now=now) for u in check_users}
+    rebuild_s = time.perf_counter() - t0
+    e.close_compaction()
+    for u in check_users:
+        check(np.array_equal(after[u], auto[u]),
+              f"9d: the mask for {u} changed across the compaction swap")
+    check(e.compiled().n_delta == 0 and e.compiled().n_dead == 0,
+          "9d: the fold left overlay occupancy")
+    log(f"phase 9d compaction: fold {fold_s:.2f} s (compile_graph of the "
+        f"churned store), occupancy {occ0} -> 0, first lists after the "
+        f"swap {rebuild_s:.2f} s for {len(check_users)} subjects (device "
+        f"build included); masks unchanged")
+
+    # -- 9e: an overlay grant that expires --
+    u = subjects[0]
+    m0 = list_mask(u)
+    hidden = np.flatnonzero(~m0[2:len(pods)]) + 2
+    p = int(hidden[rng.integers(len(hidden))])
+    exp_at = time.time() + 2.0
+    e.write_relationships([WriteOp("touch", pv_rel(pods.string(p), u,
+                                                   exp=exp_at))])
+    m1 = list_mask(u)
+    check(time.time() < exp_at and bool(m1[p]),
+          "9e: the expiring grant is not visible before its expiry")
+    rev = e.revision
+    time.sleep(max(0.0, exp_at + 0.05 - time.time()))
+    m2 = list_mask(u)
+    check(e.revision == rev and not m2[p] and np.array_equal(m2, m0),
+          "9e: the expired grant is still visible")
+    log(f"phase 9e expiry: pod {pods.string(p)} visible to {u} before its "
+        f"2 s expiry and gone after it, with no write in between")
+
+    # -- 9f: the same write->read pairs on the recompile path --
+    c0 = counter("engine_graph_compiles_total")
+    fw, fr = [], []
+    features.set("IncrementalGraphUpdates", False)
+    try:
+        for _ in range(3):
+            op = WriteOp("touch", rand_pv())
+            t0 = time.perf_counter()
+            e.write_relationships([op])
+            fw.append((time.perf_counter() - t0) * 1e3)
+            t0 = time.perf_counter()
+            check(bool(list_mask(op.rel.subject_id)[
+                pods.lookup(op.rel.resource_id)]), "9f: a grant is missing")
+            fr.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        features.reset()
+    dc = counter("engine_graph_compiles_total") - c0
+    check(dc == 3, f"9f: {dc:.0f} recompiles for 3 writes with the overlay "
+          "off")
+    log(f"phase 9f overlay off (IncrementalGraphUpdates=false, the path "
+        f"before this slice): 3 write->read pairs, write p50 "
+        f"{pct(fw, 50):.3f} ms, read-after-write p50 {pct(fr, 50):.3f} ms "
+        f"(max {max(fr):.3f}): one recompile and device build each")
+
+    # -- 9g: mixed traffic, one thread each --
+    mixed_items = [CheckItem("pod", f"ns/p{rng.integers(N_PODS)}", "view",
+                             "user", u) for u in bulk_users
+                   for _ in range(1024)]
+    list_mask(subjects[0])  # the device build after 9f's last recompile
+
+    def mixed(with_writer: bool, n_bulk: int = 8):
+        stop = threading.Event()
+        lists, writes, bulks, wrote, errors = [], [], [], [], []
+        wrng = np.random.default_rng(seed + 97)
+
+        def guard(fn):
+            def run():
+                try:
+                    fn()
+                except BaseException as ex:  # reported after the join
+                    errors.append(ex)
+                    stop.set()
+            return run
+
+        def lister():
+            k = 0
+            while not stop.is_set():
+                t0 = time.perf_counter()
+                list_mask(subjects[k % len(subjects)])
+                lists.append((time.perf_counter() - t0) * 1e3)
+                k += 1
+
+        def bulker():
+            for _ in range(n_bulk):
+                t0 = time.perf_counter()
+                e.check_bulk(mixed_items)
+                bulks.append((time.perf_counter() - t0) * 1e3)
+            stop.set()
+
+        def writer():
+            while not stop.is_set():
+                rel = pv_rel(f"ns/p{wrng.integers(N_PODS)}",
+                             f"u{wrng.integers(N_USERS)}")
+                t0 = time.perf_counter()
+                e.write_relationships([WriteOp("touch", rel)])
+                writes.append((time.perf_counter() - t0) * 1e3)
+                wrote.append(rel)
+                stop.wait(0.01)
+
+        fns = (lister, bulker) + ((writer,) if with_writer else ())
+        threads = [threading.Thread(target=guard(f)) for f in fns]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        check(not any(t.is_alive() for t in threads),
+              "9g: a traffic thread did not finish")
+        check(not errors, f"9g: a traffic thread raised {errors[:1]!r}")
+        return lists, writes, bulks, wrote
+
+    c0, i0 = counter("engine_graph_compiles_total"), counter(
+        "engine_graph_incremental_updates_total")
+    base_l, _, base_b, _ = mixed(False)
+    mix_l, mix_w, mix_b, wrote = mixed(True)
+    dc = counter("engine_graph_compiles_total") - c0
+    di = counter("engine_graph_incremental_updates_total") - i0
+    check(dc == 0, f"9g: {dc:.0f} recompiles under mixed traffic")
+    check(di == len(wrote), f"9g: {di:.0f} incremental updates for "
+          f"{len(wrote)} writes")
+    now = time.time()
+    users = sorted({r.subject_id for r in wrote})[:16]
+    want = view_masks(e.store, users, now, e.compiled().type_sizes["pod"])
+    for u in users:
+        check(np.array_equal(list_mask(u, now=now), want[u]),
+              f"9g: the mask for {u} disagrees with the host reference "
+              "after mixed traffic")
+    log(f"phase 9g mixed traffic, one thread each: lists beside a bulk "
+        f"checker p50 {pct(base_l, 50):.3f} ms p99 {pct(base_l, 99):.3f} ms "
+        f"({len(base_l)} lists, bulk checks p50 {pct(base_b, 50):.1f} ms); "
+        f"with a writer every 10 ms too: lists p50 {pct(mix_l, 50):.3f} ms "
+        f"p99 {pct(mix_l, 99):.3f} ms max {max(mix_l):.3f} ms "
+        f"({len(mix_l)} lists), writes p50 {pct(mix_w, 50):.3f} ms p99 "
+        f"{pct(mix_w, 99):.3f} ms ({len(mix_w)} writes), bulk checks p50 "
+        f"{pct(mix_b, 50):.1f} ms")
+    log(f"  recompiles {dc:.0f}, incremental updates {di:.0f}; "
+        f"{len(users)} of the writer's subjects exact against the host "
+        "reference")
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--n-rels", type=int, default=HEADLINE_RELS,
                     help="relationship count (the only dimension that may "
                          "be cut; widths stay at the headline)")
+    ap.add_argument("--writes", type=int, default=120,
+                    help="phase 9b write->read pairs (at least 50)")
     args = ap.parse_args(argv)
+    if args.writes < 50:
+        ap.error("--writes must be at least 50")
 
     import torch
 
@@ -674,6 +1167,8 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     e.bulk_load(rows)
     load_s = time.perf_counter() - t0
+    samples = base_samples(rows, N_PODS, N_NS, N_GROUPS, args.n_rels,
+                           args.seed)
     del rows
     t0 = time.perf_counter()
     cg = e.compiled()
@@ -810,6 +1305,13 @@ def main(argv=None) -> int:
         f"({sum(verdicts[i] for i in sample)} allowed), {len(checks)} checks "
         f"({sum(want)} allowed) and 2 full masks exact (oracle build "
         f"{oracle_s:.1f} s)")
+    del oracle
+
+    # -- phase 9: the write path --
+    t0 = time.perf_counter()
+    write_launches = write_phase(torch, e, samples, subjects, args.writes,
+                                 args.seed, compile_s + dev_s)
+    log(f"phase 9 took {time.perf_counter() - t0:.1f} s")
 
     out = []
     for kname in ("bit_or_matmul", "dense_or_matmul"):
@@ -817,6 +1319,7 @@ def main(argv=None) -> int:
         out.append({"name": kname, "route": "cuda", "source": KERNEL_SOURCE,
                     "replaces": REPLACES[kname],
                     "launches": launches[kname],
+                    "write_path_launches": write_launches[kname],
                     "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                     "bound_by": r["bound_by"], "library_ms": r["library_ms"],

@@ -14,13 +14,25 @@ residual — either the padded per-level views ``res_src``/``res_dst``/
 ``res_exp``, or the full dst-sorted ``src``/``dst``/``exp_rel`` with
 ``res_idx`` — and ``res_level_bounds``, ``range_offs``, ``range_levels``,
 ``n_levels``; ``blocks`` (dicts of ``dst_off``, ``n_dst``, ``src_off``,
-``n_src``, ``dst_local``, ``src_local``, ``level``, ``closured``);
+``n_src``, ``dst_local``, ``src_local``, ``level``, ``closured``, and
+for a closured block its base edges ``base_dst_local``/``base_src_local``);
 ``programs`` (dicts of ``dst_off``, ``size``, ``expr``, ``leaf_off`` as
 (leaf tuple, offset) pairs, ``level``); optional delta overlay
-``delta_src``/``delta_dst``/``delta_exp``/``n_delta`` and ``dead_pairs``.
+``delta_src``/``delta_dst``/``delta_exp``/``delta_cav``/``n_delta`` and
+``dead_pairs``.
+
+A graph carried with its writer state as well can take incremental
+updates in the port: ``delta_cap``, the dead ledger ``dead_buf`` with
+``n_dead``, and the lookup tables ``self_off``, ``rel_off``,
+``relperm_off`` and ``arrow_maps`` (tuples of resource type id, tupleset
+relation id, term slot offset and the per-subject-type target offsets).
+The overlay's slot index and the ledger's pair set are rebuilt from
+them.
 """
 
 from __future__ import annotations
+
+import threading
 
 import numpy as np
 
@@ -62,9 +74,9 @@ def expr_from_tuple(t) -> Expr:
 
 def _residual(d: dict, M: int) -> tuple:
     if d.get("res_src") is not None:
-        return (np.asarray(d["res_src"], dtype=np.int32),
-                np.asarray(d["res_dst"], dtype=np.int32),
-                np.asarray(d["res_exp"], dtype=np.float32))
+        return (np.array(d["res_src"], dtype=np.int32),
+                np.array(d["res_dst"], dtype=np.int32),
+                np.array(d["res_exp"], dtype=np.float32))
     res_idx = np.asarray(d["res_idx"], dtype=np.int64)
     E_pad = _next_bucket(max(len(res_idx), 1))
     src = np.full(E_pad, M, dtype=np.int32)
@@ -82,12 +94,21 @@ def from_reference_arrays(d: dict, device=None) -> CompiledGraph:
     M = int(d["M"])
     res_src, res_dst, res_exp = _residual(d, M)
     bounds = d.get("res_level_bounds")
+
+    def opt(key, dtype, src=d):
+        # a copy: the port mutates its overlay and residual in place, and
+        # must not write into the caller's arrays
+        v = src.get(key)
+        return None if v is None else np.array(v, dtype=dtype)
+
     blocks = [
         _BlockMeta(int(b["dst_off"]), int(b["n_dst"]), int(b["src_off"]),
                    int(b["n_src"]),
                    np.asarray(b["dst_local"], dtype=np.int32),
                    np.asarray(b["src_local"], dtype=np.int32),
-                   int(b.get("level", 0)), bool(b.get("closured", False)))
+                   int(b.get("level", 0)), bool(b.get("closured", False)),
+                   opt("base_dst_local", np.int32, b),
+                   opt("base_src_local", np.int32, b))
         for b in d.get("blocks", ())]
     programs = []
     for p in d["programs"]:
@@ -97,11 +118,32 @@ def from_reference_arrays(d: dict, device=None) -> CompiledGraph:
                                      expr_from_tuple(p["expr"]), leaf_off,
                                      int(p.get("level", 0))))
 
-    def opt(key, dtype):
-        v = d.get(key)
-        return None if v is None else np.asarray(v, dtype=dtype)
-
     dead = opt("dead_pairs", np.int64)
+    writer = {}
+    if d.get("dead_buf") is not None and d.get("self_off") is not None:
+        n_delta, n_dead = int(d.get("n_delta", 0)), int(d.get("n_dead", 0))
+        dsrc, ddst = opt("delta_src", np.int32), opt("delta_dst", np.int32)
+        dead_buf = np.array(d["dead_buf"], dtype=np.int64).reshape(-1, 2)
+        writer = dict(
+            delta_cap=int(d.get("delta_cap", len(dsrc))),
+            delta_pos={(int(s), int(t)): i for i, (s, t) in enumerate(
+                zip(dsrc[:n_delta].tolist(), ddst[:n_delta].tolist()))},
+            dead_buf=dead_buf,
+            dead_set={(int(s), int(t))
+                      for s, t in dead_buf[:n_dead].tolist()},
+            n_dead=n_dead,
+            host_lock=threading.Lock(),
+            block_codes={},
+            block_index={(b.dst_off, b.src_off): i
+                         for i, b in enumerate(blocks)},
+            self_off=opt("self_off", np.int64),
+            rel_off=opt("rel_off", np.int64),
+            relperm_off=opt("relperm_off", np.int64),
+            arrow_maps=[(int(a), int(r), int(o),
+                         np.asarray(t, dtype=np.int64))
+                        for a, r, o, t in d.get("arrow_maps", ())])
+        if dead is None:
+            dead = dead_buf[:n_dead]
     return CompiledGraph(
         schema=None,
         revision=int(d.get("revision", 0)),
@@ -127,7 +169,9 @@ def from_reference_arrays(d: dict, device=None) -> CompiledGraph:
         delta_src=opt("delta_src", np.int32),
         delta_dst=opt("delta_dst", np.int32),
         delta_exp=opt("delta_exp", np.float32),
+        delta_cav=opt("delta_cav", np.int32),
         n_delta=int(d.get("n_delta", 0)),
         dead_pairs=None if dead is None else dead.reshape(-1, 2),
         device=resolve_device(device),
+        **writer,
     )

@@ -1,0 +1,227 @@
+"""Background compaction of the delta overlay into a fresh compiled base.
+
+Counterpart of the JAX package's ``engine/compaction.py``, without its
+tier-placement branch (tiering comes with a later slice). The write path
+appends into a fixed-capacity overlay (ops/reachability.py
+``incremental_update``): O(write) per mutation, but occupancy only grows,
+and a full overlay would mean a synchronous full recompile on the next
+fully-consistent read. The **compactor** thread folds the accumulated
+tail into a fresh compiled base (``compile_graph`` off the write path;
+the old base keeps serving), replays whatever landed during the fold,
+and swaps the engine's graph at a recorded revision. The swap preserves
+the revision: compaction is semantically a no-op.
+
+Overflow becomes **back-pressure** instead of a stall: when the overlay
+cannot absorb a write, :class:`OverlayBackpressure` sheds it before any
+store mutation with a bounded ``Retry-After`` sized from recent fold
+times. ``notify`` is cheap and called on every overlay advance; crossing
+``threshold`` (a fraction of the overlay slots or dead-ledger rows) wakes
+the worker.
+"""
+
+from __future__ import annotations
+
+import logging
+import threading
+import time
+from collections import deque
+
+from ..utils.metrics import metrics
+
+log = logging.getLogger("sdbkp.torch.engine.compaction")
+
+DEFAULT_COMPACT_THRESHOLD = 0.75
+
+# Retry-After bounds for overlay-full sheds: never below the fold's
+# scheduling granularity, never an unbounded "come back whenever"
+MIN_RETRY_AFTER = 0.05
+MAX_RETRY_AFTER = 5.0
+
+# conservative slot-space edges one write record can expand to (direct +
+# userset + arrow terms): the headroom margin the shed check reserves
+EDGES_PER_RECORD = 4
+
+
+def validate_overlay_config(
+        delta_capacity: int,
+        compact_threshold: float = DEFAULT_COMPACT_THRESHOLD) -> None:
+    """Bounds of the delta-capacity / compact-threshold settings (the
+    engine's constructor checks its ``delta_capacity`` here); raises
+    ``ValueError`` with a setting-named message."""
+    if delta_capacity < 64:
+        raise ValueError("delta-capacity must be >= 64 (the overlay "
+                         "floor)")
+    if not 0.0 <= compact_threshold <= 1.0:
+        raise ValueError("compact-threshold must be in [0, 1] "
+                         "(fraction of overlay capacity; 0 disables "
+                         "background compaction)")
+
+
+class AdmissionRejected(RuntimeError):
+    """Load shed: the request was refused before any engine dispatch or
+    side effect, so retrying is always safe. The port's copy of the JAX
+    package's ``admission.AdmissionRejected`` (with its
+    ``DependencyUnavailable`` base folded in): ``dependency``,
+    ``retry_after`` (seconds, >= 0), ``op_class`` and ``reason``."""
+
+    def __init__(self, op_class: str, reason: str,
+                 retry_after: float = 1.0, dependency: str = "admission"):
+        super().__init__(f"{op_class}: {reason}")
+        self.dependency = dependency
+        self.retry_after = retry_after
+        self.op_class = op_class
+        self.reason = reason
+
+
+class OverlayBackpressure(AdmissionRejected):
+    """The delta overlay cannot absorb the write and a compaction is in
+    flight: shed before any store mutation, with a bounded Retry-After.
+    Retrying is always safe — nothing was applied."""
+
+    def __init__(self, retry_after: float, occupancy: int, capacity: int,
+                 what: str = "overlay slots"):
+        super().__init__(
+            "write",
+            f"delta {what} full ({occupancy}/{capacity}); "
+            "compaction in progress — retry after the fold",
+            retry_after=retry_after,
+            dependency="engine-compaction")
+        self.occupancy = occupancy
+        self.capacity = capacity
+        self.what = what
+
+
+class Compactor:
+    """Threshold-triggered background overlay folds + write back-pressure.
+
+    Owned by an :class:`~.engine.Engine` (``enable_compaction``). Once
+    enabled, the worker is the only caller of ``compile_graph`` in steady
+    state: the serving path's fallback recompile stays for correctness
+    (layout growth, stratification inversions), but headroom sheds writes
+    before the overlay can overflow."""
+
+    def __init__(self, engine, threshold: float = DEFAULT_COMPACT_THRESHOLD):
+        if not 0.0 < threshold <= 1.0:
+            raise ValueError(
+                f"compact threshold must be in (0, 1], got {threshold}")
+        self.engine = engine
+        self.threshold = float(threshold)
+        self._cond = threading.Condition()
+        self._pending = False
+        self._closed = False
+        # recent fold wall times, feeding the Retry-After estimate
+        self._durations: deque = deque(maxlen=8)
+        self._thread = threading.Thread(target=self._run, daemon=True,
+                                        name="engine-compactor")
+        self._thread.start()
+
+    # -- triggers ------------------------------------------------------------
+
+    def notify(self, cg) -> None:
+        """Cheap occupancy check, called with every advanced graph."""
+        if cg is None or cg.delta_pos is None or not cg.delta_cap:
+            return
+        if (cg.n_delta >= self.threshold * cg.delta_cap
+                or cg.n_dead >= self.threshold * len(cg.dead_buf)):
+            self.request()
+
+    def request(self) -> None:
+        """Ask for an async fold (idempotent while one is queued)."""
+        with self._cond:
+            if self._closed:
+                return
+            self._pending = True
+            self._cond.notify()
+
+    def retry_after(self) -> float:
+        """Bounded shed hint: the median recent fold time — how long a
+        polite writer should wait for overlay headroom to reappear."""
+        if self._durations:
+            d = sorted(self._durations)[len(self._durations) // 2]
+        else:
+            d = 0.2  # no fold observed yet: a compile-sized guess
+        return min(max(d, MIN_RETRY_AFTER), MAX_RETRY_AFTER)
+
+    def check_headroom(self, cg, n_records: int) -> None:
+        """Write-path back-pressure: raise :class:`OverlayBackpressure`
+        when the current overlay cannot absorb ``n_records`` more write
+        records (conservatively ``EDGES_PER_RECORD`` slots each), and kick
+        the worker once occupancy crosses the threshold. Called before the
+        store mutation, so a shed write leaves no trace."""
+        if cg is None or cg.delta_pos is None or not cg.delta_cap:
+            return
+        need = EDGES_PER_RECORD * max(int(n_records), 1)
+        slots_full = cg.n_delta + need > cg.delta_cap
+        ledger_full = cg.n_dead + need > len(cg.dead_buf)
+        if (slots_full or ledger_full
+                or cg.n_delta + need > self.threshold * cg.delta_cap):
+            self.request()
+        if slots_full or ledger_full:
+            metrics.counter("engine_overlay_backpressure_total").inc()
+            # name the binding resource: delete-heavy churn exhausts the
+            # dead ledger while slot occupancy stays low
+            if slots_full:
+                raise OverlayBackpressure(self.retry_after(),
+                                          cg.n_delta, cg.delta_cap)
+            raise OverlayBackpressure(self.retry_after(),
+                                      cg.n_dead, len(cg.dead_buf),
+                                      what="dead-ledger rows")
+
+    # -- worker --------------------------------------------------------------
+
+    def _run(self) -> None:
+        while True:
+            with self._cond:
+                while not self._pending and not self._closed:
+                    self._cond.wait()
+                if self._closed and not self._pending:
+                    return
+                self._pending = False
+            try:
+                self.compact()
+            except Exception:
+                log.exception("compaction failed (will retry on next "
+                              "threshold crossing)")
+
+    def compact(self) -> bool:
+        """One synchronous fold: compile a fresh base off the write path
+        (the current graph keeps serving), replay the records that landed
+        during the compile, and swap. Returns True when the swap
+        published. Also the direct entry point for tests and drains."""
+        e = self.engine
+        t0 = time.perf_counter()
+        fresh = e._compile_fresh()
+        with e._lock:
+            cur = e._head  # writes still applying their patches included
+            if cur is not None and cur.revision > fresh.revision:
+                # writes landed during the fold: bring the fresh base
+                # current with one small incremental replay
+                fresh = e._replay_onto(fresh)
+            if fresh is None or (cur is not None
+                                 and cur.revision > fresh.revision):
+                # could not catch up (a bulk load or trimmed history raced
+                # the fold): go again from a newer snapshot
+                self.request()
+                return False
+            e._head = fresh
+            e._publish(fresh)
+        dur = time.perf_counter() - t0
+        self._durations.append(dur)
+        metrics.counter("engine_compactions_total").inc()
+        metrics.histogram("engine_compaction_seconds").observe(dur)
+        metrics.gauge("engine_delta_occupancy").set(fresh.n_delta)
+        log.info("compacted overlay into base at revision %d in %.3fs",
+                 fresh.revision, dur)
+        return True
+
+    def close(self, drain: bool = False) -> None:
+        """Stop the worker; ``drain=True`` folds one last time first."""
+        if drain:
+            try:
+                self.compact()
+            except Exception:
+                log.exception("final compaction failed")
+        with self._cond:
+            self._closed = True
+            self._cond.notify()
+        self._thread.join(timeout=60.0)

@@ -1,11 +1,14 @@
 """The query engine: CheckBulkPermissions and LookupResources on the GPU.
 
-Counterpart of the JAX package's ``engine/engine.py``, cut to the serving
-path of this slice: a store, full recompiles on write, chunked bulk
-checks and list-filter masks through the reachability fixpoint
+Counterpart of the JAX package's ``engine/engine.py``, cut to the slices
+ported so far: a store with its watch log, the write path (each write
+folded into the compiled graph's delta overlay in O(write), with a full
+recompile only when the overlay cannot express it, and the optional
+background compactor of engine/compaction.py), chunked bulk checks and
+list-filter masks through the reachability fixpoint
 (ops/reachability.py), and the push/pull crossover feedback. The
-batcher, decision cache, persistence, compaction, mesh, tiering,
-migration and the incremental overlay come with later slices.
+batcher, decision cache, persistence, mesh, tiering and migration come
+with later slices.
 """
 
 from __future__ import annotations
@@ -22,15 +25,38 @@ from ..models.bootstrap import DEFAULT_BOOTSTRAP, parse_bootstrap
 from ..models.schema import Schema
 from ..models.tuples import Relationship
 from ..ops import semiring
-from ..ops.reachability import VOID_IDX, CompiledGraph, compile_graph
+from ..ops.reachability import (
+    DELTA_CAPACITY,
+    MAX_DELTA_RECORDS,
+    VOID_IDX,
+    CompiledGraph,
+    _fallback,
+    compile_graph,
+    incremental_update,
+)
+from ..utils.features import features
 from ..utils.metrics import metrics
+from .compaction import Compactor, validate_overlay_config
 from .evaluator import OracleEvaluator
-from .store import Precondition, RelationshipFilter, Store, StoreError, \
-    WriteOp
+from .store import (
+    OP_DELETE,
+    Precondition,
+    RelationshipFilter,
+    Store,
+    StoreError,
+    WriteOp,
+)
 
 
 class SchemaViolation(StoreError):
     pass
+
+
+@dataclass(frozen=True)
+class WatchEvent:
+    revision: int
+    operation: str  # "touch" | "delete"
+    relationship: Relationship
 
 
 @dataclass(frozen=True)
@@ -138,8 +164,10 @@ class Engine:
 
     def __init__(self, bootstrap: Optional[str] = None,
                  schema: Optional[Schema] = None,
-                 validate_writes: bool = True, device=None):
+                 validate_writes: bool = True, device=None,
+                 delta_capacity: int = DELTA_CAPACITY):
         self.device = resolve_device(device)
+        validate_overlay_config(delta_capacity)
         if schema is None:
             b = parse_bootstrap(bootstrap or DEFAULT_BOOTSTRAP)
             schema, seed = b.schema, b.relationships
@@ -149,7 +177,21 @@ class Engine:
         self.store = Store()
         self.validate_writes = validate_writes
         self._lock = threading.RLock()
+        # the newest view published to readers (its device state applied)
+        # and the newest committed on the host, whose device patches may
+        # still be queued: the revisions between the two are writes whose
+        # callers have not returned yet
         self._compiled: Optional[CompiledGraph] = None
+        self._head: Optional[CompiledGraph] = None
+        # delta-overlay slots of every graph this engine compiles, and the
+        # optional background compactor that folds the overlay into a
+        # fresh base off the write path
+        self._delta_capacity = int(delta_capacity)
+        self._compactor = None
+        # (base revision, store revision) pair the incremental path
+        # declined at write time: the read path must not retry (and
+        # re-count) the identical suffix; any further write resets it
+        self._incremental_declined: Optional[tuple] = None
         # (offset, size) -> host (q_slots, q_batch) of a mask lookup
         self._q_host: dict[tuple, tuple] = {}
         # frontier-occupancy EWMA feeding the push/pull crossover
@@ -157,16 +199,105 @@ class Engine:
         if seed:
             self.write_relationships([WriteOp("touch", r) for r in seed])
 
+    def enable_compaction(self, threshold: float = 0.75):
+        """Start the background overlay compactor (engine/compaction.py):
+        a worker thread folds the delta tail into a fresh compiled base
+        off the write path and swaps it in at a recorded revision, and a
+        write the overlay cannot absorb sheds with a bounded Retry-After
+        (:class:`~.compaction.OverlayBackpressure`) instead of forcing a
+        synchronous recompile onto the next read. ``threshold`` is the
+        occupancy fraction that wakes the worker."""
+        with self._lock:
+            if self._compactor is not None:
+                raise RuntimeError("compaction is already enabled")
+            self._compactor = Compactor(self, threshold)
+        return self._compactor
+
+    def close_compaction(self, drain: bool = False) -> None:
+        """Stop the compactor (``drain=True`` folds once more first);
+        writes stop shedding and overlay overflow reverts to the
+        synchronous-recompile fallback."""
+        with self._lock:
+            c, self._compactor = self._compactor, None
+        if c is not None:
+            c.close(drain=drain)
+
+    @property
+    def compactor(self):
+        return self._compactor
+
     # -- write path ---------------------------------------------------------
 
     def write_relationships(self, ops: list[WriteOp],
                             preconditions: list[Precondition] = ()) -> int:
-        """Apply a write; the next query recompiles the graph (the
-        incremental overlay comes with a later slice)."""
+        """Apply a write and fold it into the compiled graph's overlay."""
         if self.validate_writes:
             for op in ops:
                 validate_relationship(self.schema, op.rel)
-        return self.store.write(list(ops), list(preconditions))
+        self._write_headroom(len(ops))
+        with self._lock:
+            rev = self.store.write(list(ops), list(preconditions))
+            cg = self._advance_incremental()
+        self._apply_and_publish(cg)
+        return rev
+
+    def delete_relationships(self, f: RelationshipFilter,
+                             preconditions: list[Precondition] = ()) -> int:
+        """DeleteRelationships by filter; returns the count deleted."""
+        # the filter's cardinality is unknown before the scan: charge one
+        # record's headroom (a huge filter delete that overflows still
+        # falls back to a counted recompile, it is just not shed first)
+        self._write_headroom(1)
+        with self._lock:
+            n = self.store.delete_by_filter(f, list(preconditions))
+            cg = self._advance_incremental()
+        self._apply_and_publish(cg)
+        return n
+
+    def _write_headroom(self, n_records: int) -> None:
+        """Back-pressure before any store mutation: with the compactor on
+        and an overlay that cannot absorb the write, shed it
+        (:class:`~.compaction.OverlayBackpressure`) rather than let the
+        next read pay a synchronous recompile."""
+        c = self._compactor
+        if c is not None:
+            c.check_headroom(self._head, n_records)
+
+    def _advance_incremental(self) -> Optional[CompiledGraph]:
+        """Commit the write just applied to the store into the compiled
+        graph's overlay on the host (an O(write) append; the caller holds
+        the engine lock, so no read folds it first). Never compiles: a
+        decline is counted, remembered, and left to the read path's
+        recompile or the compactor. Returns the view to publish once its
+        device patch is applied, or None."""
+        head = self._head
+        if head is None:
+            return None
+        if head.revision == self.store.revision:
+            return head
+        inc = self._advance(head)
+        if inc is None:
+            self._incremental_declined = (head.revision,
+                                          self.store.revision)
+            if self._compactor is not None:
+                self._compactor.request()
+        return inc
+
+    def _apply_and_publish(self, cg: Optional[CompiledGraph]) -> None:
+        """The device half of a write, outside the engine lock: apply the
+        queued patches (this waits for the queries on the device state to
+        leave, and reads go on meanwhile against the published view),
+        then publish. The write returns only after this, so a read that
+        starts after it sees the write."""
+        if cg is None:
+            return
+        cg.resident.flush(cg.patch_seq)
+        with self._lock:
+            # a recompile or a compaction fold may have published a newer
+            # base meanwhile, which holds this write already
+            cur = self._compiled
+            if cur is None or cg.revision > cur.revision:
+                self._publish(cg)
 
     def read_relationships(self, f: RelationshipFilter) -> list:
         return self.store.read(f)
@@ -178,6 +309,20 @@ class Engine:
     def revision(self) -> int:
         return self.store.revision
 
+    # -- watch --------------------------------------------------------------
+
+    def watch_since(self, revision: int) -> list[WatchEvent]:
+        return [WatchEvent(r.revision,
+                           "delete" if r.op == OP_DELETE else "touch", r.rel)
+                for r in self.store.watch_since(revision)]
+
+    def wait_events(self, revision: int, timeout: float) -> list[WatchEvent]:
+        """Block until events past ``revision`` land (or ``timeout`` —
+        then ``[]``): the push-latency form of :meth:`watch_since`."""
+        return [WatchEvent(r.revision,
+                           "delete" if r.op == OP_DELETE else "touch", r.rel)
+                for r in self.store.wait_since(revision, timeout)]
+
     # -- query path ---------------------------------------------------------
 
     def _objects_by_name(self) -> dict:
@@ -185,21 +330,121 @@ class Engine:
             return {self.store.types.string(tid): it
                     for tid, it in self.store.objects.items()}
 
+    def _publish_graph_gauges(self, cg: CompiledGraph) -> None:
+        metrics.gauge("engine_csr_nnz").set(cg.n_edges)
+        metrics.gauge("engine_graph_slots").set(cg.M)
+        metrics.gauge("engine_delta_occupancy").set(cg.n_delta)
+
     def compiled(self) -> CompiledGraph:
-        """Fully-consistent snapshot: recompiled when the store moved."""
+        """Fully-consistent snapshot: every acknowledged write is in it.
+        The revisions past the published view that the host has committed
+        belong to writes still applying their device patches (not
+        acknowledged), so the published view stands. Any other stale
+        revision (a bulk load, a declined write) is brought current by an
+        O(delta) incremental update or, when that declines, a full
+        recompile."""
         with self._lock:
-            cur = self._compiled
-            if cur is None or cur.revision != self.store.revision:
-                t0 = time.perf_counter()
-                cur = compile_graph(self.schema, self.store.snapshot(),
-                                    device=self.device)
-                self._compiled = cur
-                metrics.counter("engine_graph_compiles_total").inc()
-                metrics.histogram("engine_graph_compile_seconds").observe(
-                    time.perf_counter() - t0)
-                metrics.gauge("engine_csr_nnz").set(cur.n_edges)
-                metrics.gauge("engine_graph_slots").set(cur.M)
-            return cur
+            cur, head = self._compiled, self._head
+            rev = self.store.revision
+            if cur is not None and head.revision == rev:
+                return cur
+            if cur is not None and (head.revision, rev) \
+                    != self._incremental_declined:
+                inc = self._advance(head)
+                if inc is not None:
+                    # no writer applies this patch: apply it here
+                    inc.resident.flush(inc.patch_seq)
+                    self._publish(inc)
+                    return inc
+            fresh = self._compile_fresh()
+            self._head = fresh
+            self._publish(fresh)
+            return fresh
+
+    def _compile_fresh(self) -> CompiledGraph:
+        """One full compile from the current store snapshot: the serving
+        path's fallback (under the engine lock) and the compactor's fold
+        (off the lock: the old base keeps serving)."""
+        t0 = time.perf_counter()
+        cg = compile_graph(self.schema, self.store.snapshot(),
+                           device=self.device,
+                           delta_capacity=self._delta_capacity)
+        metrics.counter("engine_graph_compiles_total").inc()
+        metrics.histogram("engine_graph_compile_seconds").observe(
+            time.perf_counter() - t0)
+        return cg
+
+    def _advance(self, head: CompiledGraph) -> Optional[CompiledGraph]:
+        """Bring the host-committed ``head`` current by one incremental
+        update, its device patch queued, and make it the new head (caller
+        holds the engine lock). None when the update declines: the write
+        side remembers the decline, the read side recompiles."""
+        inc = self._try_incremental(head)
+        if inc is not None:
+            self._head = inc
+        return inc
+
+    def _publish(self, cg: CompiledGraph) -> None:
+        """Serve ``cg`` to readers (its device state applied; caller holds
+        the engine lock)."""
+        self._compiled = cg
+        self._publish_graph_gauges(cg)
+        c = self._compactor
+        if c is not None:
+            c.notify(cg)
+
+    def _replay_onto(self, fresh: CompiledGraph
+                     ) -> Optional[CompiledGraph]:
+        """Bring a freshly compiled base current with the watch records
+        that landed after its snapshot (the compactor's catch-up, under
+        the engine lock). ``fresh`` itself when nothing landed, None when
+        the suffix cannot be replayed (trimmed history, a bulk load,
+        overflow): the caller folds again from a newer snapshot."""
+        st = self.store
+        with st._lock:
+            if fresh.revision < st.unlogged_revision:
+                return None
+            try:
+                records = st.watch_since(fresh.revision)
+            except StoreError:
+                return None
+            rev = st.revision
+        if not records:
+            return fresh
+        if len(records) > MAX_DELTA_RECORDS:
+            return None
+        delta = [(r.op == OP_DELETE, r.rel) for r in records]
+        return incremental_update(fresh, delta, rev, st)
+
+    def _try_incremental(self, cur: CompiledGraph
+                         ) -> Optional[CompiledGraph]:
+        if not features.enabled("IncrementalGraphUpdates"):
+            return None
+        st = self.store
+        with st._lock:
+            if cur.revision < st.unlogged_revision:
+                # bulk-loaded changes are not in the watch log
+                _fallback("unlogged")
+                return None
+            try:
+                records = st.watch_since(cur.revision)
+            except StoreError:
+                _fallback("history-trimmed")
+                return None
+            rev = st.revision
+        if len(records) > MAX_DELTA_RECORDS:
+            _fallback("overflow")
+            return None
+        t0 = time.perf_counter()
+        delta = [(r.op == OP_DELETE, r.rel) for r in records]
+        # the device patch is left queued: the writer applies it outside
+        # the engine lock (_apply_and_publish)
+        new = incremental_update(cur, delta, rev, st, sync_device=False)
+        if new is not None:
+            metrics.counter("engine_graph_incremental_updates_total").inc()
+            metrics.histogram("engine_graph_incremental_seconds").observe(
+                time.perf_counter() - t0)
+        return new
 
     def _backend(self, cg: CompiledGraph) -> CompiledGraph:
         """The query executor for a compiled graph: the graph itself (one
@@ -273,11 +518,15 @@ class Engine:
         if now is None:
             now = time.time()  # one clock for every chunk of the call
         futs = []
-        for s in range(0, n, chunk):
-            seeds, q_slots, q_batch = self._encode_checks(
-                cg, objs, items[s:s + chunk])
-            futs.append(backend.query_async(seeds, q_slots, q_batch,
-                                            now=now))
+        cg._dev()  # built before the shared side is taken
+        # every chunk runs against one device state: a write waits for the
+        # whole call, so one bulk check never spans two revisions
+        with cg.resident.lock.shared():
+            for s in range(0, n, chunk):
+                seeds, q_slots, q_batch = self._encode_checks(
+                    cg, objs, items[s:s + chunk])
+                futs.append(backend.query_async(seeds, q_slots, q_batch,
+                                                now=now))
         metrics.counter("engine_checks_total").inc(n)
 
         def iters():

@@ -2,9 +2,10 @@
 
 The slice of the JAX package's ``engine/store.py`` the port's engine
 needs: :class:`Columns`, :class:`Snapshot`, ``Store.bulk_load``,
-``Store.write`` (CREATE/TOUCH/DELETE with preconditions), ``Store.read``
-and ``Store.next_expiry``. Watch, persistence and replay come with later
-slices.
+``Store.write`` (CREATE/TOUCH/DELETE with preconditions),
+``Store.delete_by_filter``, ``Store.read``, ``Store.next_expiry`` and the
+watch log (``watch_since`` / ``wait_since``) that the incremental graph
+update replays. Persistence and replication come with later slices.
 
 Layout is columnar int32 (see :class:`Columns`) so that 10M-relationship
 graphs bulk-load and snapshot without per-row Python objects. The row-key
@@ -16,6 +17,7 @@ needs no index maintenance.
 
 from __future__ import annotations
 
+import bisect
 import threading
 import time
 from dataclasses import dataclass
@@ -25,6 +27,7 @@ import numpy as np
 
 from .. import native
 from ..models.tuples import Relationship
+from ..utils.metrics import metrics
 from .interning import Interner
 
 # Operation codes (write ops)
@@ -112,6 +115,13 @@ class Precondition:
 @dataclass(frozen=True)
 class WriteOp:
     op: str  # create | touch | delete
+    rel: Relationship
+
+
+@dataclass(frozen=True)
+class WatchRecord:
+    revision: int
+    op: int  # OP_TOUCH (covers create) | OP_DELETE
     rel: Relationship
 
 
@@ -230,7 +240,19 @@ class Store:
         self._chunks: list[Columns] = []
         self._alive: list[np.ndarray] = []  # bool per chunk
         self._index = StoreIndex()
+        # revision-advance signal: wait_since() blocks on this instead of
+        # polling
+        self._watch_cond = threading.Condition(self._lock)
         self.revision = 0
+        # highest revision whose changes are NOT in the watch log
+        # (bulk_load): incremental graph updates can only start from
+        # revisions at or after this point
+        self.unlogged_revision = 0
+        self._watch_log: list[WatchRecord] = []
+        # history retention: beyond the cap the oldest half is dropped and
+        # watchers that far behind get a StoreError (re-list + re-watch)
+        self.watch_retention = 1_000_000
+        self._watch_oldest_rev = 0
         # (revision, sorted unique finite expirations of live rows),
         # rebuilt lazily at most once per revision; _has_finite_exp is the
         # monotone fast path for stores that never wrote an expiring tuple
@@ -322,7 +344,9 @@ class Store:
         CREATE errors on an existing live tuple (SpiceDB AlreadyExists);
         TOUCH upserts (refreshing expiration); DELETE is idempotent.
         Duplicate updates for the same tuple in one write are rejected.
+        Every applied change lands in the watch log at the new revision.
         """
+        t0 = time.perf_counter()
         with self._lock:
             now = time.time()
             for pc in preconditions:
@@ -366,13 +390,19 @@ class Store:
                 return self.revision
 
             # Pass 2 — apply.
+            rev = self.revision + 1
             new_rows: list[tuple[tuple, float]] = []
             for code, key, exp in plan:
                 pos = idx.get(key, self._alive)
                 if pos is not None:
                     self._alive[pos[0]][pos[1]] = False
-                if code != OP_DELETE:
-                    new_rows.append((key, exp))
+                if code == OP_DELETE:
+                    self._watch_log.append(WatchRecord(
+                        rev, OP_DELETE, self._extern_rel(key, NO_EXPIRATION)))
+                    continue
+                new_rows.append((key, exp))
+                self._watch_log.append(WatchRecord(
+                    rev, OP_TOUCH, self._extern_rel(key, exp)))
             if new_rows:
                 keys = np.array([k for k, _ in new_rows], dtype=np.int32)
                 exp_col = np.array([e for _, e in new_rows],
@@ -384,13 +414,23 @@ class Store:
                 ))
                 if not self._has_finite_exp and np.isfinite(exp_col).any():
                     self._has_finite_exp = True
-            self.revision += 1
-            return self.revision
+            self._trim_watch_log()
+            self.revision = rev
+            self._watch_cond.notify_all()
+            # the store's share of one applied write (the "journal" stage
+            # of the per-write split; the overlay append and the read's
+            # dispatch are timed by their own layers)
+            metrics.histogram("store_write_seconds").observe(
+                time.perf_counter() - t0)
+            return rev
 
     def bulk_load(self, rels_cols: dict) -> int:
         """Fast path for large graph loads: columnar string arrays
         {resource_type, resource_id, relation, subject_type, subject_id,
-        subject_relation?, expiration?}. Rows are assumed deduplicated."""
+        subject_relation?, expiration?}. Rows are assumed deduplicated.
+        Not logged to watch: ``unlogged_revision`` moves to the new
+        revision, so no compiled graph older than the load is advanced
+        incrementally across it."""
         if rels_cols.get("caveat") is not None and np.any(
                 np.asarray(rels_cols["caveat"], dtype=str) != ""):
             raise StoreError("caveats are not ported yet")
@@ -427,6 +467,8 @@ class Store:
             if not self._has_finite_exp and np.isfinite(exp).any():
                 self._has_finite_exp = True
             self.revision += 1
+            self.unlogged_revision = self.revision
+            self._watch_cond.notify_all()
             return self.revision
 
     def read(self, f: RelationshipFilter, now: Optional[float] = None
@@ -452,6 +494,41 @@ class Store:
                     return True
             return False
 
+    def delete_by_filter(self, f: RelationshipFilter,
+                         preconditions: list[Precondition] = ()) -> int:
+        """DeleteRelationships: delete all matching tuples; returns count.
+        Preconditions are checked under the same lock acquisition as the
+        delete so they cannot be invalidated in between."""
+        with self._lock:
+            now = time.time()
+            for pc in preconditions:
+                if self.exists(pc.filter, _now=now) != pc.must_exist:
+                    raise PreconditionFailed(
+                        f"precondition "
+                        f"{'exists' if pc.must_exist else 'does not exist'} "
+                        f"failed for {pc.filter}")
+            count = 0
+            rev = self.revision + 1
+            for cols, alive in zip(self._chunks, self._alive):
+                rows = np.flatnonzero(self._filter_mask(cols, f, now=now)
+                                      & alive)
+                if len(rows) == 0:
+                    continue
+                alive[rows] = False
+                count += len(rows)
+                for ri in rows.tolist():
+                    key = (int(cols.rt[ri]), int(cols.rid[ri]),
+                           int(cols.rl[ri]), int(cols.st[ri]),
+                           int(cols.sid[ri]), int(cols.srl[ri]))
+                    # the index needs no touch-up: lookups check aliveness
+                    self._watch_log.append(WatchRecord(
+                        rev, OP_DELETE, self._extern_rel(key, NO_EXPIRATION)))
+            if count:
+                self._trim_watch_log()
+                self.revision = rev
+                self._watch_cond.notify_all()
+            return count
+
     def next_expiry(self, now: float) -> float:
         """Earliest expiration boundary strictly after ``now`` among live
         tuples (a result computed at ``now`` stays exact until then);
@@ -472,6 +549,52 @@ class Store:
             arr = ent[1]
             i = int(np.searchsorted(arr, now, side="right"))
             return float(arr[i]) if i < len(arr) else float("inf")
+
+    def _trim_watch_log(self) -> None:
+        # caller holds the lock
+        if len(self._watch_log) > self.watch_retention:
+            drop = len(self._watch_log) // 2
+            self._watch_oldest_rev = self._watch_log[drop - 1].revision
+            del self._watch_log[:drop]
+
+    def wake_waiters(self) -> None:
+        """Release every thread parked in :meth:`wait_since` (they return
+        ``[]``), so a shutdown never waits out a timeout."""
+        with self._watch_cond:
+            self._watch_cond.notify_all()
+
+    def wait_since(self, revision: int, timeout: float) -> list[WatchRecord]:
+        """Block until events past ``revision`` exist (or ``timeout``
+        elapses — then ``[]``), and return them."""
+        with self._watch_cond:
+            if revision > self.revision:
+                # a revision from the future: raise now (watch_since) rather
+                # than park until the numbers happen to overlap
+                return self.watch_since(revision)
+            if self.revision <= revision:
+                self._watch_cond.wait(timeout)
+            if self.revision <= revision:
+                return []
+            return self.watch_since(revision)
+
+    def watch_since(self, revision: int) -> list[WatchRecord]:
+        """Watch records with revision > ``revision``, in revision order.
+        Raises StoreError when the history before ``revision`` has been
+        trimmed, or when ``revision`` is ahead of the store (a superseded
+        lineage: waiting for the numbers to catch up would skip every
+        event in the overlap)."""
+        with self._lock:
+            if revision > self.revision:
+                raise StoreError(
+                    f"watch revision {revision} is ahead of the store "
+                    f"(revision {self.revision}); re-list and re-watch")
+            if revision < self._watch_oldest_rev:
+                raise StoreError(
+                    f"watch history before revision {self._watch_oldest_rev} "
+                    "has been trimmed; re-list and re-watch")
+            i = bisect.bisect_right(self._watch_log, revision,
+                                    key=lambda r: r.revision)
+            return self._watch_log[i:]
 
     def snapshot(self) -> Snapshot:
         """Immutable columnar view of all live tuples for the compiler.

@@ -10,17 +10,32 @@ the permission programs (union, intersection, exclusion, nil) over
 row-aligned slot ranges. Only the cyclic core iterates; each acyclic
 level is applied once (see :func:`_stratify`).
 
-The host half (:func:`compile_graph` and the encoders) is a copy of the
-reference's numpy code; the device half replaces ``jit`` and
-``lax.while_loop`` with eager PyTorch and a Python loop that syncs once
-per iteration (see :func:`_run`). Tiering and incremental updates come
-with later slices: a write recompiles.
+The host half (:func:`compile_graph`, the encoders and the planning half
+of :func:`incremental_update`) is a copy of the reference's numpy code;
+the device half replaces ``jit`` and ``lax.while_loop`` with eager
+PyTorch and a Python loop that syncs once per iteration (see
+:func:`_run`).
+
+Writes are folded in O(write) by :func:`incremental_update`: new edges
+take slots of a fixed-capacity delta overlay, killed base edges are
+cleared where they live (residual expiration, dense-block cell, bit-dual
+word) and a closured block that loses a base edge is re-closed. The
+reference publishes every revision as new immutable device arrays; the
+port patches ONE device state per compiled base in place instead (cloning
+a multi-GiB block per write is not O(write)), shared by every incremental
+descendant and guarded by a reader/writer lock (:class:`_Resident`): a
+query holds the shared side while its fixpoint enqueues, a patch the
+exclusive side, so a query sees one revision's state whole — the newest,
+which the fully-consistent read contract allows ("at least as fresh").
+Tiering comes with a later slice.
 """
 
 from __future__ import annotations
 
+import threading
 import time
-from dataclasses import dataclass, field
+from contextlib import contextmanager, nullcontext
+from dataclasses import dataclass, field, replace
 from typing import Optional
 
 import numpy as np
@@ -29,6 +44,7 @@ import torch
 from . import bitprop, semiring
 from .. import native
 from ..device import resolve_device
+from ..utils.metrics import metrics
 from ..models.schema import (
     Arrow,
     Exclude,
@@ -45,9 +61,11 @@ VOID_IDX = 0  # reserved per-type object index for unknown ids
 WILDCARD_IDX = 1  # reserved per-type object index for '*'
 
 DEFAULT_MAX_ITERS = 128
-# capacity of the (empty, in this slice) fixed-size delta overlay the
-# hop still runs, exactly as the reference does
+# the fixed-capacity delta overlay: writes append edges into it instead of
+# recompiling; a full overlay is a counted fallback (or, with a compactor,
+# write back-pressure: engine/compaction.py), never a growth event
 DELTA_CAPACITY = 4096
+MAX_DELTA_RECORDS = 8192
 
 # every slot range is padded to a multiple of LANE (row-aligned ranges)
 LANE = 128
@@ -61,6 +79,135 @@ DENSE_MAX_CELLS = 3 << 30
 
 # self-pair closures larger than this stay plain iterated-core blocks
 CLOSURE_MAX_PAIRS = 1 << 24
+
+
+def _fallback(reason: str) -> None:
+    """Count one declined incremental update (the caller recompiles or
+    leaves it to the compactor). Reasons, as the reference names them:
+    ``overflow`` (overlay/dead-ledger capacity or the per-batch record
+    cap), ``stratification-inversion`` (a first-ever dependency
+    direction), ``closured-expiry`` (an expiration attached to a closured
+    block pair), ``caveat`` (a conditional grant: caveats are not ported
+    yet, so there is no instance table to hold it), ``history-trimmed`` /
+    ``unlogged`` (store side, engine.py), ``layout`` (a tuple the frozen
+    slot layout cannot express) and ``unstratified`` (a hand-built graph
+    without overlay state)."""
+    metrics.counter("engine_graph_incremental_fallback_total",
+                    reason=reason).inc()
+
+
+class _RWLock:
+    """Reader/writer lock with a bounded writer wait. While a writer
+    waits, a new reader still enters as long as a reader that entered
+    before any writer waited is inside (a query that overlaps a write not
+    yet acknowledged may read the state before it); once those have all
+    left, new readers queue behind the writer. So the list filters that
+    arrive while a write waits out a long bulk check run beside that
+    check, and the write waits at most for the readers it found plus the
+    ones that entered beside them. The shared side is re-entrant per
+    thread (a bulk check holds it across its chunks, each of which takes
+    it again); a thread holding it must not ask for the exclusive side."""
+
+    def __init__(self):
+        self._cond = threading.Condition(threading.Lock())
+        self._readers = 0
+        self._early = 0  # readers inside that entered with no writer waiting
+        self._writer = False
+        self._waiting = 0
+        self._held = threading.local()
+
+    @contextmanager
+    def shared(self):
+        depth = getattr(self._held, "depth", 0)
+        early = False
+        if not depth:
+            with self._cond:
+                while self._writer or (self._waiting and not self._early):
+                    self._cond.wait()
+                self._readers += 1
+                early = not self._waiting
+                self._early += early
+        self._held.depth = depth + 1
+        try:
+            yield
+        finally:
+            self._held.depth = depth
+            if not depth:
+                with self._cond:
+                    self._readers -= 1
+                    self._early -= early
+                    if not self._readers:
+                        self._cond.notify_all()
+
+    @contextmanager
+    def exclusive(self):
+        with self._cond:
+            self._waiting += 1
+            while self._writer or self._readers:
+                self._cond.wait()
+            self._waiting -= 1
+            self._writer = True
+        try:
+            yield
+        finally:
+            with self._cond:
+                self._writer = False
+                self._cond.notify_all()
+
+
+class _Resident:
+    """The device state of one compiled base, shared by every incremental
+    descendant of it: ``tensors`` (built on the first query, then patched
+    in place), ``blocks`` (the newest host block metadata, which a
+    re-close replaces), ``lock``, and the device patches of host commits
+    not yet applied (``pending``, in commit order; ``applied`` is the
+    number of the last one applied). Queries run under ``lock.shared()``;
+    builds and patches under ``lock.exclusive()``. Queries and patches
+    enqueue on the device's current stream, so a patch also runs after
+    every hop enqueued before it."""
+
+    __slots__ = ("tensors", "blocks", "lock", "pending", "committed",
+                 "applied", "_plock")
+
+    def __init__(self, blocks: list):
+        self.tensors: dict = {}
+        self.blocks = blocks
+        self.lock = _RWLock()
+        self.pending: list = []
+        self.committed = 0
+        self.applied = 0
+        self._plock = threading.Lock()
+
+    def queue(self, patch) -> int:
+        """Queue one commit's device patch (a callable on the tensors);
+        returns its commit number. Called under the graph's host_lock, so
+        commit order is queue order."""
+        with self._plock:
+            self.committed += 1
+            self.pending.append((self.committed, patch))
+            return self.committed
+
+    def flush(self, upto: int) -> None:
+        """Apply every queued patch, in commit order, unless commit
+        ``upto`` is on the device already. Patches reapplied on tensors
+        built after their commit are harmless: the whole queue runs in
+        order under one exclusive hold, so it ends at the newest commit
+        and no query sees the states between. Without tensors the queue is
+        dropped: the first query builds from the newest host state."""
+        if self.applied >= upto:
+            return
+        with self.lock.exclusive():
+            with self._plock:
+                batch, self.pending = self.pending, []
+            for seq, patch in batch:
+                if self.tensors:
+                    t0 = time.perf_counter()
+                    patch(self.tensors)
+                    # host time to enqueue the patch (its copies to the
+                    # device are synchronous)
+                    metrics.histogram("engine_overlay_patch_seconds"
+                                      ).observe(time.perf_counter() - t0)
+                self.applied = seq
 
 
 class ConvergenceError(RuntimeError):
@@ -92,10 +239,34 @@ class _BlockMeta:
     src_local: Optional[np.ndarray]
     level: int = 0
     closured: bool = False
+    # a closured block's BASE edges: an incremental delete re-closes the
+    # block from them (:meth:`reclosed`), since closure cells are derived
+    # and cannot be cleared one by one
+    base_dst_local: Optional[np.ndarray] = None
+    base_src_local: Optional[np.ndarray] = None
 
     def slim(self) -> "_BlockMeta":
         return _BlockMeta(self.dst_off, self.n_dst, self.src_off,
                           self.n_src, None, None, self.level, self.closured)
+
+    def reclosed(self, remove: set) -> Optional["_BlockMeta"]:
+        """A new closured block with ``remove`` (local (dst, src) pairs)
+        deleted from the base edges and the closure recomputed, O(block);
+        None when the closure overflows (the caller recompiles)."""
+        keep = np.fromiter(
+            ((int(d), int(s)) not in remove
+             for d, s in zip(self.base_dst_local.tolist(),
+                             self.base_src_local.tolist())),
+            dtype=bool, count=len(self.base_dst_local))
+        nb_dst = self.base_dst_local[keep]
+        nb_src = self.base_src_local[keep]
+        coo = _closure_pairs(nb_dst, nb_src, self.n_dst)
+        if coo is None:
+            return None
+        dl, sl = coo
+        return _BlockMeta(self.dst_off, self.n_dst, self.src_off,
+                          self.n_src, dl, sl, self.level, True,
+                          nb_dst, nb_src)
 
 
 @dataclass
@@ -203,7 +374,8 @@ class RunMeta:
 @dataclass
 class CompiledGraph:
     """A compilation of (schema, snapshot): host arrays plus, built on
-    first query, the device tensors on ``device``."""
+    first query, the device tensors on ``device`` (held by ``resident``,
+    which every incremental descendant shares)."""
 
     schema: Optional[Schema]
     revision: int
@@ -227,18 +399,45 @@ class CompiledGraph:
     exp_rel: Optional[np.ndarray] = None
     n_edges: int = 0
     res_idx: Optional[np.ndarray] = None
-    # fixed-capacity delta overlay (trash-padded; empty in this slice) and
-    # the ledger of base (src, dst) pairs it killed
+    # fixed-capacity delta overlay (trash-padded, append order) and the
+    # ledger of base (src, dst) pairs killed since the compile. The host
+    # arrays are SHARED by every incremental descendant of one compiled
+    # base and mutated in place under ``host_lock``; per-revision views
+    # differ in their watermarks (n_delta / n_dead) only
     delta_src: Optional[np.ndarray] = None
     delta_dst: Optional[np.ndarray] = None
     delta_exp: Optional[np.ndarray] = None
+    # caveat row per slot, 0 = unconditional (filled by the caveat slice)
+    delta_cav: Optional[np.ndarray] = None
     n_delta: int = 0
-    dead_pairs: Optional[np.ndarray] = None
+    dead_pairs: Optional[np.ndarray] = None  # int64 [n_dead, 2] view
+    n_dead: int = 0
+    delta_cap: int = 0  # static overlay capacity (0 = hand-built)
+    # shared writer state, read and written only under the engine's lock
+    # (plan) and host_lock (commit)
+    delta_pos: Optional[dict] = None  # (src, dst) -> overlay slot
+    dead_set: Optional[set] = None  # (src, dst) pairs killed in the base
+    dead_buf: Optional[np.ndarray] = None  # int64 [cap, 2] append buffer
+    host_lock: Optional[object] = None
+    block_codes: Optional[dict] = None  # block idx -> (id(meta), codes)
+    # compile-time lookup tables the incremental path reads
+    block_index: dict = field(default_factory=dict)  # (dst_off, src_off)->i
+    self_off: Optional[np.ndarray] = None  # [n_types+1]
+    rel_off: Optional[np.ndarray] = None  # [n_types+1, n_rels+1]
+    relperm_off: Optional[np.ndarray] = None
+    # (resource tid, tupleset rel id, term slot offset, tgt_off[n_types+1])
+    arrow_maps: list = field(default_factory=list)
     # push while the per-hop occupancy is <= this (engine EWMA feedback)
     spmm_crossover: float = 1.0
     device: torch.device = field(
         default_factory=lambda: resolve_device(None))
-    _device: dict = field(default_factory=dict)
+    resident: Optional[_Resident] = None
+    # the resident commit this view's device patch is queued as (0: none)
+    patch_seq: int = 0
+
+    def __post_init__(self):
+        if self.resident is None:
+            self.resident = _Resident(self.blocks)
 
     # -- host-side encoding ------------------------------------------------
 
@@ -317,39 +516,57 @@ class CompiledGraph:
     # -- device state ------------------------------------------------------
 
     def _dev(self) -> dict:
-        if not self._device:
-            self._device = self._dev_build()
-        return self._device
+        """The shared device tensors, built on first use from the newest
+        host state (under the exclusive side of the resident lock)."""
+        res = self.resident
+        if not res.tensors:
+            with res.lock.exclusive():
+                if not res.tensors:
+                    res.tensors = self._dev_build()
+        return res.tensors
 
     def _dev_build(self) -> dict:
+        """A fresh device state from the newest host state: residual,
+        overlay, and every block minus the dead ledger's cells. Also what
+        a patched state must equal (tests)."""
         dev = self.device
 
         def up(a, dtype):
+            # a copy also on the CPU: host commits write the host arrays
+            # while queries run, and must not reach the device state
             return torch.as_tensor(np.ascontiguousarray(a)).to(
-                device=dev, dtype=dtype)
+                device=dev, dtype=dtype, copy=True)
 
-        d = {"src": up(self.res_src, torch.int64),
-             "dst": up(self.res_dst, torch.int64),
-             "exp": up(self.res_exp, torch.float32)}
-        dsrc, ddst, dexp = self._delta_host()
-        d["dsrc"] = up(dsrc, torch.int64)
-        d["ddst"] = up(ddst, torch.int64)
-        d["dexp"] = up(dexp, torch.float32)
-        blocks, bits = [], []
-        for b in self.blocks:
-            dl, sl = self._live_cells(b)
-            dl_t, sl_t = up(dl, torch.int64), up(sl, torch.int64)
-            A = torch.zeros((b.n_dst, b.n_src), dtype=torch.int8, device=dev)
-            A.index_put_((dl_t, sl_t),
-                         torch.ones(1, dtype=torch.int8, device=dev))
-            blocks.append(A)
-            # bit-packed dual for the small-batch push path
-            bits.append(bitprop.pack_block(dl_t, sl_t, b.n_dst, b.n_src)
-                        if bitprop.eligible(b.n_dst, b.n_src) else None)
-            del dl_t, sl_t
+        with self.host_lock or nullcontext():
+            d = {"src": up(self.res_src, torch.int64),
+                 "dst": up(self.res_dst, torch.int64),
+                 "exp": up(self.res_exp, torch.float32)}
+            dsrc, ddst, dexp = self._delta_host()
+            d["dsrc"] = up(dsrc, torch.int64)
+            d["ddst"] = up(ddst, torch.int64)
+            d["dexp"] = up(dexp, torch.float32)
+            blocks, bits = [], []
+            for bm in self.resident.blocks:
+                A, Ab = self._block_tensors(bm)
+                blocks.append(A)
+                bits.append(Ab)
         d["blocks"] = tuple(blocks)
         d["blocks_bits"] = tuple(bits)
         return d
+
+    def _block_tensors(self, bm: _BlockMeta):
+        """(int8 block, bit-packed dual or None) of one block's live
+        cells on the device."""
+        dev = self.device
+        dl, sl = self._live_cells(bm)
+        dl_t = torch.as_tensor(dl).to(dev)
+        sl_t = torch.as_tensor(sl).to(dev)
+        A = torch.zeros((bm.n_dst, bm.n_src), dtype=torch.int8, device=dev)
+        A.index_put_((dl_t, sl_t), torch.ones(1, dtype=torch.int8, device=dev))
+        # bit-packed dual for the small-batch push path
+        Ab = (bitprop.pack_block(dl_t, sl_t, bm.n_dst, bm.n_src)
+              if bitprop.eligible(bm.n_dst, bm.n_src) else None)
+        return A, Ab
 
     def _live_cells(self, bm: _BlockMeta) -> tuple[np.ndarray, np.ndarray]:
         """The block's local (dst, src) cells minus :meth:`_dead_cells` —
@@ -362,12 +579,21 @@ class CompiledGraph:
             dl, sl = dl[keep], sl[keep]
         return dl, sl
 
+    def _ledger(self) -> Optional[np.ndarray]:
+        """Killed base (src, dst) pairs the device state reflects: the
+        shared ledger's rows up to its newest commit (one device state
+        serves every descendant), else this view's ``dead_pairs``."""
+        if self.dead_buf is not None and self.dead_set is not None:
+            return self.dead_buf[:len(self.dead_set)]
+        return self.dead_pairs
+
     def _dead_cells(self, bm: _BlockMeta) -> tuple[np.ndarray, np.ndarray]:
-        """Local (dst, src) coordinates of dead_pairs inside a block."""
-        if self.dead_pairs is None or not len(self.dead_pairs):
+        """Local (dst, src) coordinates of ledger pairs inside a block."""
+        dead = self._ledger()
+        if dead is None or not len(dead):
             z = np.empty(0, dtype=np.int64)
             return z, z
-        s, t = self.dead_pairs[:, 0], self.dead_pairs[:, 1]
+        s, t = dead[:, 0], dead[:, 1]
         m = ((t >= bm.dst_off) & (t < bm.dst_off + bm.n_dst)
              & (s >= bm.src_off) & (s < bm.src_off + bm.n_src))
         return t[m] - bm.dst_off, s[m] - bm.src_off
@@ -406,8 +632,10 @@ class CompiledGraph:
         the time this returns the device work is enqueued up to its last
         hop; only the final readback (a synchronous ``.cpu()`` in
         :meth:`QueryFuture.result`) is deferred. Overlapping readbacks on
-        a side stream is left to a later change."""
-        d = self._dev()
+        a side stream is left to a later change. The fixpoint runs under
+        the shared side of the resident lock, against the newest device
+        state of this graph's base (at least as fresh as this view)."""
+        self._dev()
         dev = self.device
         B = seed_slots.shape[0]
         Q = len(q_slots)
@@ -423,31 +651,40 @@ class CompiledGraph:
                       and not np.any(q_batch != q_batch[0])
                       and np.array_equal(
                           q_slots, q_slots[0] + np.arange(Q, dtype=np.int64)))
-        contig_len = 0
-        if contig and Q and int(q_slots[0]) + Q <= Mp_state:
-            qs, qb, contig_len = int(q_slots[0]), int(q_batch[0]), Q
-        else:
-            cached = d.get(("q", q_cache_key)) if q_cache_key else None
-            if cached is not None:
-                qs, qb = cached
-            else:
-                qs = torch.as_tensor(np.asarray(q_slots, dtype=np.int64)
-                                     ).to(dev)
-                qb = torch.as_tensor(np.asarray(q_batch, dtype=np.int64)
-                                     ).to(dev)
-                if q_cache_key:
-                    q_keys = [k for k in d if isinstance(k, tuple)
-                              and k and k[0] == "q"]
-                    if len(q_keys) >= 32:
-                        d.pop(q_keys[0], None)
-                    d[("q", q_cache_key)] = (qs, qb)
         now_abs = time.time() if now is None else now
         now_rel = np.float32(now_abs - self.base_time)
-        out, converged, iters, n_push = _run(
-            self.run_meta(), d, torch.as_tensor(seeds).to(dev), qs, qb,
-            now_rel, np.float32(self.spmm_crossover), max_iters=max_iters,
-            q_contig_len=contig_len)
+        res = self.resident
+        with res.lock.shared():
+            d = res.tensors
+            qs, qb, contig_len = self._q_tensors(
+                d, q_slots, q_batch, q_cache_key,
+                bool(contig and Q and int(q_slots[0]) + Q <= Mp_state))
+            out, converged, iters, n_push = _run(
+                self.run_meta(), d, torch.as_tensor(seeds).to(dev), qs, qb,
+                now_rel, np.float32(self.spmm_crossover),
+                max_iters=max_iters, q_contig_len=contig_len)
         return QueryFuture(out, converged, iters, Q, max_iters, n_push)
+
+    def _q_tensors(self, d: dict, q_slots, q_batch, q_cache_key,
+                   contig: bool):
+        """(q_slots, q_batch, contiguous length): a contiguous one-row
+        window as (start, row, Q), else device index tensors (cached per
+        ``q_cache_key`` in the device state)."""
+        if contig:
+            return int(q_slots[0]), int(q_batch[0]), len(q_slots)
+        cached = d.get(("q", q_cache_key)) if q_cache_key else None
+        if cached is not None:
+            return cached[0], cached[1], 0
+        dev = self.device
+        qs = torch.as_tensor(np.asarray(q_slots, dtype=np.int64)).to(dev)
+        qb = torch.as_tensor(np.asarray(q_batch, dtype=np.int64)).to(dev)
+        if q_cache_key:
+            q_keys = [k for k in list(d) if isinstance(k, tuple)
+                      and k and k[0] == "q"]
+            if len(q_keys) >= 32:
+                d.pop(q_keys[0], None)
+            d[("q", q_cache_key)] = (qs, qb)
+        return qs, qb, 0
 
     def query(self, seed_slots: np.ndarray, q_slots: np.ndarray,
               q_batch: np.ndarray, now: Optional[float] = None,
@@ -704,10 +941,12 @@ def _collect_arrows(e, out: list) -> list:
     return out
 
 
-def compile_graph(schema: Schema, snapshot, device=None) -> CompiledGraph:
+def compile_graph(schema: Schema, snapshot, device=None,
+                  delta_capacity: int = DELTA_CAPACITY) -> CompiledGraph:
     """Compile a store snapshot into slot-space form: vectorized numpy
     over the snapshot's columns, as the reference does. ``device``: where
-    the graph's tensors live (``cuda`` by default)."""
+    the graph's tensors live (``cuda`` by default); ``delta_capacity``:
+    the delta overlay's fixed slot count (at least 64)."""
     device = resolve_device(device)
     types_in = snapshot.types
     rels_in = snapshot.relations
@@ -791,6 +1030,7 @@ def compile_graph(schema: Schema, snapshot, device=None) -> CompiledGraph:
     exps.append(exp_rel_all[m])
 
     # arrow term edges
+    arrow_maps: list = []
     for (tname, pname), arrows in arrow_terms.items():
         if not arrows:
             continue
@@ -813,6 +1053,7 @@ def compile_graph(schema: Schema, snapshot, device=None) -> CompiledGraph:
                 if schema.definitions[asub.type].relation_or_permission(
                         a.target):
                     tgt_off[sub_tid] = slot_offset[(asub.type, a.target)]
+            arrow_maps.append((int(tid), int(ts_id), term_off, tgt_off))
             m = ((rt == tid) & (rl == ts_id) & (srl == 0)
                  & (tgt_off[st] >= 0) & (cols.sid != WILDCARD_IDX))
             srcs.append(tgt_off[st[m]] + cols.sid[m])
@@ -942,7 +1183,9 @@ def compile_graph(schema: Schema, snapshot, device=None) -> CompiledGraph:
                     dst_off=int(offs[d_rid]), n_dst=int(sizes[d_rid]),
                     src_off=int(offs[s_rid]), n_src=int(sizes[s_rid]),
                     dst_local=dl, src_local=sl,
-                    level=lvl + 1 if lvl else 0, closured=True))
+                    level=lvl + 1 if lvl else 0, closured=True,
+                    base_dst_local=(dst[sel] - offs[d_rid]).astype(np.int32),
+                    base_src_local=(src[sel] - offs[s_rid]).astype(np.int32)))
             else:
                 blocks.append(_BlockMeta(
                     dst_off=int(offs[d_rid]), n_dst=int(sizes[d_rid]),
@@ -980,6 +1223,7 @@ def compile_graph(schema: Schema, snapshot, device=None) -> CompiledGraph:
         res_exp[lo:lo + n_k] = exp_p[sel]
         pos += n_k
 
+    cap = max(int(delta_capacity), 64)
     return CompiledGraph(
         schema=schema,
         revision=snapshot.revision,
@@ -1001,8 +1245,364 @@ def compile_graph(schema: Schema, snapshot, device=None) -> CompiledGraph:
         exp_rel=exp_p,
         n_edges=n_edges,
         res_idx=res_idx,
-        delta_src=np.full(DELTA_CAPACITY, M, dtype=np.int32),
-        delta_dst=np.full(DELTA_CAPACITY, M, dtype=np.int32),
-        delta_exp=np.full(DELTA_CAPACITY, -np.inf, dtype=np.float32),
+        delta_src=np.full(cap, M, dtype=np.int32),
+        delta_dst=np.full(cap, M, dtype=np.int32),
+        delta_exp=np.full(cap, -np.inf, dtype=np.float32),
+        delta_cav=np.zeros(cap, dtype=np.int32),
+        delta_cap=cap,
+        delta_pos={},
+        dead_set=set(),
+        dead_buf=np.zeros((cap, 2), dtype=np.int64),
+        host_lock=threading.Lock(),
+        block_codes={},
+        block_index={(b.dst_off, b.src_off): i for i, b in enumerate(blocks)},
+        self_off=self_off,
+        rel_off=rel_off,
+        relperm_off=relperm_off,
+        arrow_maps=arrow_maps,
         device=device,
     )
+
+
+# ---------------------------------------------------------------------------
+# Incremental updates: (CompiledGraph, write delta) -> CompiledGraph
+# ---------------------------------------------------------------------------
+
+
+def _edges_for_tuple(cg: CompiledGraph, store, rel):
+    """Slot-space (src, dst) edges for one relationship, mirroring the
+    vectorized extraction in compile_graph (direct / userset / arrow).
+    None when the tuple cannot be mapped onto the frozen slot layout (a
+    type or relation interned after the compile, or an object past its
+    type's padded bucket): the caller falls back to a recompile."""
+    tid = store.types.lookup(rel.resource_type)
+    stid = store.types.lookup(rel.subject_type)
+    rl = store.relations.lookup(rel.relation)
+    srl = store.relations.lookup(rel.subject_relation or "")
+    if None in (tid, stid, rl, srl):
+        return None
+    # the lookup tables carry a +1 slack row, so the covered id range is
+    # [0, len-1): an id interned after the compile lands on the slack
+    # row's -1 and must force a recompile, not read as "no edge"
+    n_types = len(cg.self_off) - 1
+    n_rels = cg.rel_off.shape[1] - 1
+    if tid >= n_types or stid >= n_types or rl >= n_rels or srl >= n_rels:
+        return None
+    r_objs = store.objects.get(tid)
+    s_objs = store.objects.get(stid)
+    rid = r_objs.lookup(rel.resource_id) if r_objs else None
+    sid = s_objs.lookup(rel.subject_id) if s_objs else None
+    if rid is None or sid is None:
+        return None
+    if rid >= cg.type_sizes.get(rel.resource_type, 0) \
+            or sid >= cg.type_sizes.get(rel.subject_type, 0):
+        return None  # object bucket overflow: the slot layout must grow
+    dst_off = int(cg.rel_off[tid, rl])
+    if dst_off < 0:
+        return []  # not a writable relation slot (compile drops these too)
+    dst = dst_off + rid
+    edges: list[tuple[int, int]] = []
+    if srl == 0:
+        so = int(cg.self_off[stid])
+        if so >= 0:  # wildcard subjects included (index 1)
+            edges.append((so + sid, dst))
+    elif sid != WILDCARD_IDX:
+        uo = int(cg.relperm_off[stid, srl])
+        if uo >= 0:
+            edges.append((uo + sid, dst))
+    if srl == 0 and sid != WILDCARD_IDX:
+        for a_tid, ts_id, term_off, tgt_off in cg.arrow_maps:
+            if a_tid == tid and ts_id == rl and int(tgt_off[stid]) >= 0:
+                edges.append((int(tgt_off[stid]) + sid, term_off + rid))
+    return edges
+
+
+def _level_order_ok(cg: CompiledGraph, src: int, dst: int) -> bool:
+    """A delta edge fits the frozen stratification iff its source
+    finalizes before (or iterates with) its destination: both in the
+    core, or level(src) < level(dst). A violation is a first-ever
+    dependency direction and needs a re-stratifying recompile."""
+    if cg.range_levels is None:
+        return True  # unstratified graph: one full fixpoint
+    offs = cg.range_offs
+    ls = int(cg.range_levels[_range_id(offs, src)])
+    ld = int(cg.range_levels[_range_id(offs, dst)])
+    return (ls == 0 and ld == 0) or ls < ld
+
+
+def _pair_block(cg: CompiledGraph, src: int, dst: int) -> Optional[int]:
+    """Dense-block index covering a (src, dst) slot pair, or None."""
+    if not cg.block_index:
+        return None
+    offs = cg.range_offs
+    d_rid = int(np.searchsorted(offs, dst, side="right")) - 1
+    s_rid = int(np.searchsorted(offs, src, side="right")) - 1
+    return cg.block_index.get((int(offs[d_rid]), int(offs[s_rid])))
+
+
+def _res_positions(cg: CompiledGraph, src: int, dst: int) -> list[int]:
+    """Base-residual positions holding the (src, dst) edge: each level
+    slice is dst-sorted, so it is binary-searched and its per-dst run
+    scanned for the src."""
+    bounds = cg.res_level_bounds or (0, len(cg.res_dst))
+    out: list[int] = []
+    for k in range(len(bounds) - 1):
+        b0, b1 = bounds[k], bounds[k + 1]
+        if b0 == b1:
+            continue
+        lo = b0 + int(np.searchsorted(cg.res_dst[b0:b1], dst, side="left"))
+        hi = b0 + int(np.searchsorted(cg.res_dst[b0:b1], dst, side="right"))
+        if lo < hi:
+            out.extend(
+                (lo + np.flatnonzero(cg.res_src[lo:hi] == src)).tolist())
+    return out
+
+
+def _block_base_codes(cg: CompiledGraph, b: int) -> np.ndarray:
+    """Sorted ``dst_local * n_src + src_local`` codes of a closured
+    block's base edges, cached on the shared ``block_codes`` dict (keyed
+    by block index, checked against the block object's identity so a
+    re-close invalidates the entry)."""
+    bm = cg.blocks[b]
+    cache = cg.block_codes
+    if cache is not None:
+        ent = cache.get(b)
+        if ent is not None and ent[0] == id(bm):
+            return ent[1]
+    codes = np.sort(bm.base_dst_local.astype(np.int64) * bm.n_src
+                    + bm.base_src_local)
+    if cache is not None:
+        cache[b] = (id(bm), codes)
+    return codes
+
+
+def incremental_update(cg: CompiledGraph, records, new_revision: int,
+                       store, sync_device: bool = True
+                       ) -> Optional[CompiledGraph]:
+    """Fold a write delta into a compiled graph without recompiling.
+    ``records`` is an ordered list of ``(is_delete, Relationship)`` from
+    the store's watch log since ``cg.revision``.
+
+    - A new edge takes the next free slot of the fixed-capacity overlay;
+      a re-touch or delete of an overlay edge rewrites its slot's
+      expiration (slots are reused, so churn on the same pairs never
+      grows occupancy).
+    - A touched or deleted BASE edge is killed where it lives (residual
+      expiration forced to -inf, dense-block cell and bit-dual bit
+      cleared) and recorded once in the append-only dead ledger.
+    - A deleted base edge of a closured block re-closes the block from
+      its remaining base edges (closure cells are derived reachability:
+      clearing one cell would over- and under-allow).
+
+    The plan mutates nothing, so a decline leaves the shared overlay as
+    it was. The commit writes the host arrays and queues the device patch
+    on the shared device state; ``sync_device`` applies it before
+    returning, else the caller does with ``resident.flush(patch_seq)``
+    (the engine, outside its lock). Returns the new revision's view
+    (sharing the overlay and the device state), or None when the delta
+    cannot be expressed against the frozen layout; every decline is
+    counted in ``engine_graph_incremental_fallback_total{reason}``."""
+    if cg.res_src is None or cg.self_off is None or cg.delta_pos is None \
+            or cg.delta_src is None or cg.dead_buf is None \
+            or cg.delta_cav is None:
+        _fallback("unstratified")
+        return None
+    if len(records) > MAX_DELTA_RECORDS:
+        _fallback("overflow")
+        return None
+
+    delta_pos = cg.delta_pos
+    dead_set = cg.dead_set
+
+    # ---- plan (no mutation) ----
+    appends: dict = {}  # pair -> expiration of a new overlay slot
+    updates: dict = {}  # overlay slot -> new expiration
+    res_kill: list[int] = []
+    block_cells: dict[int, set] = {}  # block idx -> local (dst, src) kills
+    new_dead: list[tuple[int, int]] = []
+    dead_seen: set = set()
+    reclose: dict[int, set] = {}  # closured block idx -> local pairs
+
+    for is_delete, relationship in records:
+        edges = _edges_for_tuple(cg, store, relationship)
+        if edges is None:
+            _fallback("layout")
+            return None
+        if not is_delete and relationship.caveat:
+            # a conditional grant needs a caveat instance row; the port
+            # compiles no caveat table yet (the reference's "no table")
+            _fallback("caveat")
+            return None
+        if not is_delete:
+            for src, dst in edges:
+                if relationship.expiration is not None:
+                    b_ = _pair_block(cg, src, dst)
+                    if b_ is not None and cg.blocks[b_].closured:
+                        # an expiring edge cannot live in a closure (a
+                        # derived cell would serve it past its expiry);
+                        # classified before the level check, which a
+                        # closured range's own level would trip first
+                        _fallback("closured-expiry")
+                        return None
+                if not _level_order_ok(cg, src, dst):
+                    _fallback("stratification-inversion")
+                    return None
+        for src, dst in edges:
+            pair = (src, dst)
+            b = _pair_block(cg, src, dst)
+            bm = cg.blocks[b] if b is not None else None
+            if bm is not None and bm.closured and is_delete:
+                # re-close from the base edges minus this pair; the pair
+                # stays out of the dead ledger (the new closure is the
+                # whole truth), and an overlay copy of it is killed
+                dl_ = int(dst - bm.dst_off)
+                sl_ = int(src - bm.src_off)
+                codes = _block_base_codes(cg, b)
+                code = dl_ * bm.n_src + sl_
+                p_ = int(np.searchsorted(codes, code))
+                if p_ < len(codes) and codes[p_] == code:
+                    reclose.setdefault(b, set()).add((dl_, sl_))
+                slot = delta_pos.get(pair)
+                if slot is not None:
+                    updates[slot] = float("-inf")
+                appends.pop(pair, None)
+                continue
+            # kill the base edge wherever it may live, once per pair over
+            # the base's incremental lifetime
+            if pair not in dead_set and pair not in dead_seen:
+                dead_seen.add(pair)
+                new_dead.append(pair)
+                if bm is not None:
+                    block_cells.setdefault(b, set()).add(
+                        (dst - bm.dst_off, src - bm.src_off))
+                res_kill.extend(_res_positions(cg, src, dst))
+            slot = delta_pos.get(pair)
+            if is_delete:
+                if slot is not None:
+                    updates[slot] = float("-inf")
+                appends.pop(pair, None)
+                continue
+            # adds (re-touches of block-covered pairs too) always land in
+            # the overlay; base copies are only ever cleared
+            exp_rel = (np.inf if relationship.expiration is None
+                       else relationship.expiration - cg.base_time)
+            if slot is not None:
+                updates[slot] = float(exp_rel)
+            else:
+                appends[pair] = float(exp_rel)
+
+    if cg.n_delta + len(appends) > cg.delta_cap \
+            or cg.n_dead + len(new_dead) > len(cg.dead_buf):
+        _fallback("overflow")
+        return None
+
+    blocks_host = cg.blocks
+    if reclose:
+        blocks_host = list(cg.blocks)
+        for b, pairs in reclose.items():
+            nb = blocks_host[b].reclosed(pairs)
+            if nb is None:  # closure overflow: re-stratify instead
+                _fallback("overflow")
+                return None
+            blocks_host[b] = nb
+
+    # ---- commit: host arrays in place and the device patch queued, under
+    # host_lock; the patch runs under the exclusive side of the resident
+    # lock (no query is mid-fixpoint) ----
+    app_items = list(appends.items())
+    n0, nd0 = cg.n_delta, cg.n_dead
+    res = cg.resident
+    with cg.host_lock:
+        for i, ((s, t), ex) in enumerate(app_items):
+            cg.delta_src[n0 + i] = s
+            cg.delta_dst[n0 + i] = t
+            cg.delta_exp[n0 + i] = ex
+            delta_pos[(s, t)] = n0 + i
+        # delta_cav stays 0 (unconditional): caveats are refused
+        for slot, ex in updates.items():
+            cg.delta_exp[slot] = ex
+        if res_kill:
+            cg.res_exp[np.asarray(res_kill, dtype=np.int64)] = -np.inf
+        for j, (s, t) in enumerate(new_dead):
+            cg.dead_buf[nd0 + j] = (s, t)
+        dead_set.update(new_dead)
+        if reclose:
+            for b in reclose:
+                cg.block_codes.pop(b, None)
+            res.blocks = blocks_host
+        seq = res.queue(lambda d: _patch_device(
+            cg, d, n0, app_items, updates, res_kill, block_cells, reclose,
+            blocks_host))
+    if sync_device:
+        res.flush(seq)
+    n_delta2 = n0 + len(app_items)
+    n_dead2 = nd0 + len(new_dead)
+    metrics.gauge("engine_delta_occupancy").set(n_delta2)
+    return replace(cg, revision=new_revision, n_delta=n_delta2,
+                   n_dead=n_dead2, dead_pairs=cg.dead_buf[:n_dead2],
+                   blocks=blocks_host, patch_seq=seq)
+
+
+def _patch_device(cg: CompiledGraph, d: dict, n0: int, app_items: list,
+                  updates: dict, res_kill: list, block_cells: dict,
+                  reclose: dict, blocks_host: list) -> None:
+    """Apply one committed delta to the shared device state in place:
+    O(write) scatters, plus O(block) for each re-closed block (a new
+    tensor; queries already past their hops keep the old one alive through
+    their own references). Caller holds the exclusive resident lock."""
+    dev = cg.device
+
+    def up(a, dtype):
+        return torch.as_tensor(np.asarray(a)).to(device=dev, dtype=dtype)
+
+    if app_items:
+        ai = up(np.arange(n0, n0 + len(app_items)), torch.int64)
+        d["dsrc"].index_copy_(0, ai, up([p[0] for p, _ in app_items],
+                                        torch.int64))
+        d["ddst"].index_copy_(0, ai, up([p[1] for p, _ in app_items],
+                                        torch.int64))
+    if app_items or updates:
+        # appended slots and updated slots are disjoint, each unique
+        ui = up([n0 + i for i in range(len(app_items))] + list(updates),
+                torch.int64)
+        uv = up([ex for _, ex in app_items] + list(updates.values()),
+                torch.float32)
+        d["dexp"].index_copy_(0, ui, uv)
+    if res_kill:
+        d["exp"].index_fill_(0, up(res_kill, torch.int64), float("-inf"))
+    if not (block_cells or reclose):
+        return
+    blocks = list(d["blocks"])
+    bits = list(d["blocks_bits"])
+    with cg.host_lock:  # the ledger a rebuilt block is cut by
+        for b in reclose:
+            blocks[b], bits[b] = cg._block_tensors(blocks_host[b])
+    for b, cells in block_cells.items():
+        dl = np.fromiter((c[0] for c in cells), dtype=np.int64,
+                         count=len(cells))
+        sl = np.fromiter((c[1] for c in cells), dtype=np.int64,
+                         count=len(cells))
+        blocks[b].index_put_((up(dl, torch.int64), up(sl, torch.int64)),
+                             torch.zeros(1, dtype=torch.int8, device=dev))
+        if bits[b] is not None:
+            _clear_bits(bits[b], dl, sl, up)
+    d["blocks"] = tuple(blocks)
+    d["blocks_bits"] = tuple(bits)
+
+
+def _clear_bits(bits: torch.Tensor, dl: np.ndarray, sl: np.ndarray,
+                up) -> None:
+    """Clear cells (dl, sl) in an int32 bit-packed dual. Cells that share
+    a packed (row, word) are merged into one mask on the host first: a
+    gather-modify-scatter with duplicate indices would keep only one of
+    their updates. The uint32 mask is reinterpreted as int32, not cast,
+    so bit 31 is cleared like any other."""
+    words = sl // 32
+    key = dl * bits.shape[1] + words
+    uniq, inv = np.unique(key, return_inverse=True)
+    masks = np.zeros(len(uniq), dtype=np.uint32)
+    np.bitwise_or.at(masks, inv, np.uint32(1) << (sl % 32).astype(np.uint32))
+    rows_t = up(uniq // bits.shape[1], torch.int64)
+    cols_t = up(uniq % bits.shape[1], torch.int64)
+    keep = up((~masks).view(np.int32), torch.int32)
+    bits.index_put_((rows_t, cols_t), bits[rows_t, cols_t] & keep)

@@ -13,6 +13,7 @@ import jax.numpy as jnp
 
 from spicedb_kubeapi_proxy_tpu.ops import bitprop as jbit
 from spicedb_kubeapi_proxy_tpu_torch.ops import bitprop as tbit
+from spicedb_kubeapi_proxy_tpu_torch.ops import reachability as treach
 
 
 def _block(rng, n_dst, n_src, n_edges):
@@ -350,3 +351,28 @@ def test_cuda_kernels_match_plain():
     wide = torch.zeros((1, 2 * A.shape[1]), dtype=torch.uint8, device=dev)
     with pytest.raises(ValueError, match="aligned"):
         tbit.dense_or_matmul(A, wide[:, 1:1 + A.shape[1]])
+    # a dual patched in place on the card, as the write path patches it:
+    # killed cells sharing packed words (one at bit 31), then the bit
+    # kernel on the patched dual against a fresh pack of the live cells
+    n_dst, n_src = 1024, 4096
+    dst, src = _block(rng, n_dst, n_src, 40 * n_dst)
+    dst = np.concatenate([dst, [7, 7, 9]])
+    src = np.concatenate([src, [31, 5, 63]])
+    a = _as_i32(tbit.pack_block_host(dst, src, n_dst, n_src)).to(dev)
+    kill = np.unique(np.stack([dst, src], 1), axis=0)
+    kill = np.concatenate([kill[::7], [[7, 31], [7, 5], [9, 63]]])
+    treach._clear_bits(a, kill[:, 0], kill[:, 1],
+                       lambda x, dt: torch.as_tensor(np.asarray(x)).to(
+                           device=dev, dtype=dt))
+    cells = set(zip(dst.tolist(), src.tolist())) - set(
+        zip(kill[:, 0].tolist(), kill[:, 1].tolist()))
+    live = np.array(sorted(cells))
+    fresh = _as_i32(tbit.pack_block_host(live[:, 0], live[:, 1], n_dst,
+                                         n_src)).to(dev)
+    assert torch.equal(a, fresh)
+    f = torch.from_numpy((rng.random((4, n_src)) < 0.02).astype(
+        np.uint8)).to(dev)
+    f[:, [5, 31, 63]] = 1
+    vb = tbit.pack_frontier(f, n_src)
+    assert torch.equal(tbit.bit_or_matmul(a, vb, 4),
+                       tbit.bit_or_matmul_plain(fresh, vb, 4))

@@ -24,6 +24,7 @@ from spicedb_kubeapi_proxy_tpu.models.tuples import \
     parse_relationship as jparse_rel
 from spicedb_kubeapi_proxy_tpu.ops import reachability as jreach
 from spicedb_kubeapi_proxy_tpu.ops import semiring as jsemi
+from spicedb_kubeapi_proxy_tpu.utils.metrics import metrics as jmetrics
 from spicedb_kubeapi_proxy_tpu_torch.engine import CheckItem, Engine, WriteOp
 from spicedb_kubeapi_proxy_tpu_torch.engine.store import \
     RelationshipFilter
@@ -144,22 +145,31 @@ def test_recursive_groups_intersection_exclusion_parity(monkeypatch,
 
 
 def test_writes_recompile_and_counters(monkeypatch):
+    """A write between objects the compiled layout covers is one
+    incremental overlay update on both engines: no second compile."""
     rels = random_rels(np.random.default_rng(3), nested=False,
                        expiring="wildcard", now=NOW)
     je, te = _engines(monkeypatch, BOOTSTRAP, rels, 8)
     metrics.reset()
+    jmetrics.reset()
     before = te.lookup_resources("pod", "view", "user", "u0", now=NOW)
+    je.lookup_resources("pod", "view", "user", "u0", now=NOW)
     cg0 = te.compiled()
     rel = parse_relationship("pod:p0#viewer@user:u0")
     op = "delete" if "p0" in before else "touch"
     te.write_relationships([WriteOp(op, rel)])
     je.write_relationships([JWriteOp(op, jparse_rel(str(rel)))])
     after = te.lookup_resources("pod", "view", "user", "u0", now=NOW)
-    assert te.compiled() is not cg0  # a write recompiles in this slice
+    cg1 = te.compiled()
+    assert cg1 is not cg0 and cg1.revision == te.revision
+    assert cg1.resident is cg0.resident  # patched in place, not rebuilt
     assert ("p0" in after) != ("p0" in before)
     assert sorted(after) == sorted(
         je.lookup_resources("pod", "view", "user", "u0", now=NOW))
-    assert metrics.counter("engine_graph_compiles_total").value == 2
+    for reg in (metrics, jmetrics):
+        assert reg.counter("engine_graph_compiles_total").value == 1
+        assert reg.counter(
+            "engine_graph_incremental_updates_total").value == 1
     assert metrics.counter("engine_semiring_push_steps_total").value > 0
     te.check_bulk([CheckItem("pod", "p1", "view", "user", f"u{i}")
                    for i in range(9)], now=NOW)
@@ -234,9 +244,19 @@ import pkgutil, importlib
 import spicedb_kubeapi_proxy_tpu_torch as pkg
 for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
     importlib.import_module(m.name)
+import spicedb_kubeapi_proxy_tpu_torch.engine.compaction
+import spicedb_kubeapi_proxy_tpu_torch.utils.features
 from spicedb_kubeapi_proxy_tpu_torch.engine import Engine, CheckItem
+from spicedb_kubeapi_proxy_tpu_torch.engine import WriteOp
+from spicedb_kubeapi_proxy_tpu_torch.models.tuples import parse_relationship
 e = Engine(device="cpu")
 assert e.check_bulk([CheckItem("pod", "x", "view", "user", "u")]) == [False]
+e.enable_compaction(1.0)
+e.write_relationships([WriteOp("touch", parse_relationship(
+    "pod:x#viewer@user:u"))])
+assert e.check_bulk([CheckItem("pod", "x", "view", "user", "u")]) == [True]
+assert e.compactor.compact()
+e.close_compaction()
 bad = [m for m in sys.modules if m.split(".")[0] in
        ("jax", "jaxlib", "spicedb_kubeapi_proxy_tpu")]
 assert not bad, bad

@@ -30,7 +30,9 @@ def expr_tuple(e):
 
 
 def flatten_graph(cg) -> dict:
-    """Plain numpy/Python view of a JAX ``CompiledGraph``."""
+    """Plain numpy/Python view of a JAX ``CompiledGraph``, its overlay
+    writer state and lookup tables included (copies: the JAX package
+    mutates its overlay in place)."""
     return {
         "M": cg.M,
         "revision": cg.revision,
@@ -50,7 +52,11 @@ def flatten_graph(cg) -> dict:
                     "src_off": b.src_off, "n_src": b.n_src,
                     "dst_local": np.asarray(b.dst_local),
                     "src_local": np.asarray(b.src_local),
-                    "level": b.level, "closured": b.closured}
+                    "level": b.level, "closured": b.closured,
+                    "base_dst_local": None if b.base_dst_local is None
+                    else np.array(b.base_dst_local),
+                    "base_src_local": None if b.base_src_local is None
+                    else np.array(b.base_src_local)}
                    for b in cg.blocks],
         "programs": [{"dst_off": p.dst_off, "size": p.size,
                       "expr": expr_tuple(p.expr),
@@ -58,12 +64,20 @@ def flatten_graph(cg) -> dict:
                                    for k, v in p.leaf_off.items()],
                       "level": p.level}
                      for p in cg.programs],
-        "delta_src": np.asarray(cg.delta_src),
-        "delta_dst": np.asarray(cg.delta_dst),
-        "delta_exp": np.asarray(cg.delta_exp),
+        "delta_src": np.array(cg.delta_src),
+        "delta_dst": np.array(cg.delta_dst),
+        "delta_exp": np.array(cg.delta_exp),
+        "delta_cav": np.array(cg.delta_cav),
         "n_delta": cg.n_delta,
         "dead_pairs": None if cg.dead_pairs is None
-        else np.asarray(cg.dead_pairs),
+        else np.array(cg.dead_pairs),
+        "delta_cap": cg.delta_cap,
+        "dead_buf": None if cg.dead_buf is None else np.array(cg.dead_buf),
+        "n_dead": cg.n_dead,
+        "self_off": cg.self_off, "rel_off": cg.rel_off,
+        "relperm_off": cg.relperm_off,
+        "arrow_maps": [(a, r, o, np.array(t)) for a, r, o, t in
+                       (cg.arrow_maps or ())],
     }
 
 
