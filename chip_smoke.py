@@ -44,11 +44,31 @@ rows generated from ``--seed``. Phases:
    lister and a 64 x 1,024 bulk checker, then the same with a writer
    every 10 ms as well (the proxy's dual-write load), list and write
    p50/p99 beside 9b's single-thread numbers, zero recompiles, and the
-   writer's grants exact afterwards.
+   writer's grants exact afterwards;
+10. the caveated mix, with phase 3-9's engine released first: bench.py's
+    caveated mesh configuration (MESH_SCHEMA, 30% of the flat
+    pod#viewer grants carrying an IP allowlist in one of two stored
+    contexts, a nested chain of 6 groups, seed 2) at the same widths and
+    relationship count. (a) bulk load, compile and device build, with the
+    residual, the caveat rows and the tape length; (b) phase 5's list
+    filters under three request contexts (one both stored contexts
+    allow, one only the first allows, none): p50/p99, the caveat VM's
+    device activities and host time a dispatch, the masks nested
+    (allow-both >= allow-first >= none, strictly in total) and the
+    missing-context counter rising by exactly 2 a no-context call; (c)
+    phase 6's bulk check under the second context; (d) forced pull: the
+    same masks; (e) the caveated OracleEvaluator on 2 full masks and a
+    sample of checks a context and on (c)'s verdicts; (f) 52 caveated
+    write->read pairs (stored contexts reused, new contexts on the 6
+    spare instance rows, a caveat attached to a base grant, then one new
+    context past the bucket): write and read-after-write p50/p99, exactly
+    one recompile, counted as a ``caveat`` fallback; (g) a trace of 10
+    caveated lists with the VM's share of the device time.
 
 Launch counts are zeroed just before phase 5 and read just after phase 6
 (the kernels JSON's ``launches``), and again around phases 9b-9c
-(``write_path_launches``): both kernels must have run on both paths. Any
+(``write_path_launches``) and 10b-10c (``caveat_path_launches``): both
+kernels must have run on every path. Any
 mismatch or error exits non-zero. The last line is the run's JSON
 verdict.
 
@@ -59,6 +79,7 @@ Usage: python3 chip_smoke.py [--seed N] [--n-rels N] [--writes N]
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import os
 import subprocess
@@ -98,6 +119,39 @@ definition pod {
 }
 """
 
+# bench.py's MESH_SCHEMA: BENCH_SCHEMA with nested groups and an IP
+# allowlist caveat on flat pod#viewer grants (the caveated mix of phase 10)
+MESH_SCHEMA = """
+use expiration
+
+caveat ip_allowlist(ip ipaddress, allowed list<ipaddress>) {
+  ip in allowed
+}
+
+definition user {}
+definition group {
+  relation member: user | group#member
+}
+definition namespace {
+  relation creator: user
+  relation viewer: user | group#member
+  permission admin = creator
+  permission view = viewer + creator
+}
+definition pod {
+  relation namespace: namespace
+  relation creator: user
+  relation viewer: user | user with ip_allowlist
+  permission edit = creator
+  permission view = viewer + creator + namespace->view
+}
+"""
+
+# the two stored contexts the caveated mix alternates (bench.py's
+# MESH_CTXS): two instances, an 8-row bucket with 6 spare rows
+MESH_CTXS = ('{"allowed":["10.0.0.0/8","192.168.0.0/16"]}',
+             '{"allowed":["10.0.0.0/8"]}')
+
 # H100 SXM published peaks (NVIDIA data sheet, dense, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1.979e15
@@ -125,14 +179,17 @@ def log(msg: str) -> None:
 
 
 def build_rows(n_pods: int, n_users: int, n_ns: int, n_groups: int,
-               n_rels: int, seed: int) -> dict:
+               n_rels: int, seed: int, cav_share: float = 0.0) -> dict:
     """The headline rows, generated as bench.py's build_engine does:
     ~20 users per group, 2 group viewer grants per namespace, every pod
     in a namespace, and the rest flat pod#viewer@user. Unlike
     build_engine, every kind is deduplicated (the first draw of a pair
     kept), as Store.bulk_load requires: a duplicated row outlives the
     delete of its tuple in the store, while the compiled graph drops the
-    edge."""
+    edge. ``cav_share`` > 0 is build_engine's caveated mesh mix (for
+    MESH_SCHEMA): a nested chain of 6 groups (g1 in g0, ...) and that
+    share of the flat grants carrying ``ip_allowlist``, alternating the
+    two MESH_CTXS stored contexts."""
     rng = np.random.default_rng(seed)
     pods = np.char.add("ns/p", np.arange(n_pods).astype(str))
     users = np.char.add("u", np.arange(n_users).astype(str))
@@ -140,9 +197,11 @@ def build_rows(n_pods: int, n_users: int, n_ns: int, n_groups: int,
     nss = np.char.add("ns", np.arange(n_ns).astype(str))
     keys = ["resource_type", "resource_id", "relation",
             "subject_type", "subject_id", "subject_relation"]
+    if cav_share > 0:
+        keys += ["caveat", "caveat_context"]
     cols = {k: [] for k in keys}
 
-    def add(rt, rid, rl, st, sid, srl=None):
+    def add(rt, rid, rl, st, sid, srl=None, cav=None, ctx=None):
         n = len(rid)
         cols["resource_type"].append(np.full(n, rt))
         cols["resource_id"].append(rid)
@@ -151,6 +210,10 @@ def build_rows(n_pods: int, n_users: int, n_ns: int, n_groups: int,
         cols["subject_id"].append(sid)
         cols["subject_relation"].append(
             np.full(n, srl if srl is not None else ""))
+        if cav_share > 0:
+            cols["caveat"].append(cav if cav is not None else np.full(n, ""))
+            cols["caveat_context"].append(
+                ctx if ctx is not None else np.full(n, ""))
 
     def first_draws(a, b, n_b):
         keep = np.sort(np.unique(a * n_b + b, return_index=True)[1])
@@ -160,6 +223,12 @@ def build_rows(n_pods: int, n_users: int, n_ns: int, n_groups: int,
     g, u = first_draws(rng.integers(n_groups, size=gm),
                        rng.integers(n_users, size=gm), n_users)
     add("group", groups[g], "member", "user", users[u])
+    if cav_share > 0:
+        # a short nested-group chain: a cyclic-core range too sparse for
+        # the dense-closure peel, so the fixpoint iterates a few hops
+        chain = int(min(6, n_groups - 1))
+        add("group", groups[np.arange(chain)], "member", "group",
+            groups[np.arange(1, chain + 1)], "member")
     nv = 2 * n_ns
     n, g = first_draws(rng.integers(n_ns, size=nv),
                        rng.integers(n_groups, size=nv), n_groups)
@@ -172,8 +241,15 @@ def build_rows(n_pods: int, n_users: int, n_ns: int, n_groups: int,
                         dtype=np.int64)
     pair = np.unique(pair)[:n_flat]
     rng.shuffle(pair)
+    cav = ctx = None
+    if cav_share > 0:
+        idx = np.arange(len(pair))
+        is_cav = idx < int(len(pair) * cav_share)
+        cav = np.where(is_cav, "ip_allowlist", "")
+        ctx = np.where(is_cav, np.asarray(MESH_CTXS)[idx % len(MESH_CTXS)],
+                       "")
     add("pod", pods[pair // n_users], "viewer", "user",
-        users[pair % n_users])
+        users[pair % n_users], cav=cav, ctx=ctx)
     return {k: np.concatenate(v) for k, v in cols.items()}
 
 
@@ -592,14 +668,23 @@ def kernel_phase(torch, bitprop, kernels, cap, f64, dev):
     return rows
 
 
+def _n_kernels(ev) -> int:
+    """Device activities launched under a profiler event, children's
+    included."""
+    return len(ev.kernels) + sum(_n_kernels(c) for c in ev.cpu_children)
+
+
 def trace_phase(torch, label: str, fn, n_calls: int,
-                kernels: dict) -> None:
+                kernels: dict, annotations: tuple = ()) -> None:
     """Where the time goes: a torch.profiler trace of ``fn`` (``n_calls``
     main-path calls, warmed up first). Device busy time is the union of the
     traced device activity intervals; the idle share is the rest of the
     wall time of the same window run untraced (the profiler slows the
     host), each window ending in a synchronize. ``kernels`` maps a label
-    to name fragments whose device time is reported per call."""
+    to name fragments whose device time is reported per call;
+    ``annotations`` names ``record_function`` ranges (the caveat VM's)
+    whose device time, share of the busy time and launches are reported
+    per call (the ranges themselves are not device activity)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -616,7 +701,13 @@ def trace_phase(torch, label: str, fn, n_calls: int,
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     spans, per_name = [], {}
+    notes = {a: [0.0, 0] for a in annotations}
     for ev in prof.events():
+        if ev.name in notes:
+            if ev.device_type == DeviceType.CPU:
+                notes[ev.name][0] += ev.device_time_total
+                notes[ev.name][1] += _n_kernels(ev)
+            continue
         if ev.device_type != DeviceType.CUDA:
             continue
         lo, hi = ev.time_range.start, ev.time_range.end
@@ -644,6 +735,11 @@ def trace_phase(torch, label: str, fn, n_calls: int,
         n, t = sum(h[0] for h in hit), sum(h[1] for h in hit)
         log(f"    {what}: {t / 1e3 / n_calls:.4f} ms device time a call "
             f"({n} activities over {n_calls} calls)")
+    for what, (t, n) in notes.items():
+        log(f"    {what} (range): {t / 1e3 / n_calls:.4f} ms device time a "
+            f"call, {t / busy:.4f} of the busy time, {n / n_calls:.1f} "
+            f"launches a call" if n else f"    {what} (range): device time "
+            "not measured (no activity attributed to the range)")
     top = sorted(per_name.items(), key=lambda kv: -kv[1][1])[:6]
     for nm, (n, t) in top:
         log(f"    {t / 1e3:9.3f} ms  x{n:<5d} {nm[:90]}")
@@ -722,14 +818,13 @@ def view_masks(store, users, now: float, n: int) -> dict:
     return out
 
 
-def oracle_ids(store, schema, OracleEvaluator, Snapshot, users,
-               now: float) -> dict:
-    """OracleEvaluator's pod#view ids for each user, each over the rows
-    that can reach that user: every row whose subject is not a user, and
-    the user's own (and wildcard) rows. Rows of other users never match
-    a user subject, so the answer is the full oracle's, at a fraction of
-    its build time."""
-    snap = store.snapshot()
+def user_oracles(snap, schema, OracleEvaluator, Snapshot, users,
+                 now: float, context=None) -> dict:
+    """An OracleEvaluator for each user (under the caveat ``context``),
+    each over the rows that can reach that user: every row whose subject
+    is not a user, and the user's own (and wildcard) rows. Rows of other
+    users never match a user subject, so for that user it answers as the
+    full oracle does, at a fraction of its build time."""
     c = snap.cols
     t_user = snap.types.lookup("user")
     uid = snap.objects[t_user].id_map()
@@ -738,10 +833,18 @@ def oracle_ids(store, schema, OracleEvaluator, Snapshot, users,
         keep = np.flatnonzero((c.st != t_user) | (c.sid == uid[u])
                               | (c.sid == 1))
         sub = Snapshot(snap.revision, c.take(keep), snap.types,
-                       snap.relations, snap.objects)
-        out[u] = OracleEvaluator(schema, sub, now=now).lookup_resources(
-            "pod", "view", "user", u)
+                       snap.relations, snap.objects, snap.caveat_instances)
+        out[u] = OracleEvaluator(schema, sub, now=now, context=context)
     return out
+
+
+def oracle_ids(store, schema, OracleEvaluator, Snapshot, users,
+               now: float) -> dict:
+    """OracleEvaluator's pod#view ids for each user (see user_oracles)."""
+    return {u: o.lookup_resources("pod", "view", "user", u)
+            for u, o in user_oracles(store.snapshot(), schema,
+                                     OracleEvaluator, Snapshot, users,
+                                     now).items()}
 
 
 def pct(xs, q: float) -> float:
@@ -1101,6 +1204,322 @@ def write_phase(torch, e, samples: dict, subjects: list, n_writes: int,
     return launches
 
 
+# phase 10's request contexts: the first both stored contexts allow, the
+# second only the first allows, and without one every caveated grant
+# fails closed (two instances, so two missing-context denials a call)
+CAV_CONTEXTS = (("allow-both", {"ip": "10.1.2.3"}),
+                ("allow-first", {"ip": "192.168.1.1"}),
+                ("none", None))
+MISSING = "engine_caveat_denied_missing_context_total"
+
+
+def vm_cost(torch, cg, context) -> dict:
+    """The caveat VM alone, once, on the graph's device tables and one
+    request: the device activities of one evaluation (torch.profiler:
+    kernels and the request's two copies), host ms a call (enqueue, no
+    synchronize between calls) and ms a call (CUDA events)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from spicedb_kubeapi_proxy_tpu_torch.caveats.vm import eval_caveats
+
+    cav = cg.caveats
+    stat = cg._dev()["cav_static"]
+    req, _ = cav.encode_request(context, time.time())
+
+    def fn():
+        return eval_caveats(cav.metas, stat, req, cav.n_rows)
+
+    host = host_ms(torch, fn, 50)
+    ms = cuda_ms(torch, fn, 50)
+    counts = []
+    for _ in range(2):  # a process's first profile may record none
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        counts.append(sum(ev.device_type == DeviceType.CUDA
+                          for ev in prof.events()))
+    return dict(launches=counts[-1] or None, host_ms=host, ms=ms,
+                tape=sum(m.T for m in cav.metas))
+
+
+def caveat_phase(torch, dev, n_rels: int, subjects: list, items: list,
+                 bulk_users: list) -> dict:
+    """Phase 10: the caveated mix at full width (see the module
+    docstring). Returns both kernels' launches over 10b-10c."""
+    from spicedb_kubeapi_proxy_tpu_torch.engine import CheckItem, Engine
+    from spicedb_kubeapi_proxy_tpu_torch.engine.evaluator import \
+        OracleEvaluator
+    from spicedb_kubeapi_proxy_tpu_torch.engine.store import Snapshot, \
+        WriteOp
+    from spicedb_kubeapi_proxy_tpu_torch.models import parse_schema
+    from spicedb_kubeapi_proxy_tpu_torch.models.tuples import \
+        Relationship, canonical_context
+    from spicedb_kubeapi_proxy_tpu_torch.ops import bitprop, semiring
+    from spicedb_kubeapi_proxy_tpu_torch.utils.metrics import metrics
+
+    def counter(name, **kw):
+        return metrics.counter(name, **kw).value
+
+    def hist_total(name):
+        return metrics.histogram(name).total
+
+    def list_mask(u, ctx, now=None):
+        return e.lookup_resources_mask("pod", "view", "user", u, now=now,
+                                       context=ctx)[0]
+
+    rng = np.random.default_rng(10)
+
+    # -- 10a: build --
+    t0 = time.perf_counter()
+    rows = build_rows(N_PODS, N_USERS, N_NS, N_GROUPS, n_rels, 2,
+                      cav_share=0.3)
+    gen_s = time.perf_counter() - t0
+    total = len(rows["resource_id"])
+    n_cav = int((rows["caveat"] != "").sum())
+    plain = np.flatnonzero((rows["resource_type"] == "pod")
+                           & (rows["relation"] == "viewer")
+                           & (rows["caveat"] == ""))
+    i = int(plain[rng.integers(len(plain))])
+    base_grant = (str(rows["resource_id"][i]), str(rows["subject_id"][i]))
+    del plain
+    e = Engine(schema=parse_schema(MESH_SCHEMA), device=dev)
+    t0 = time.perf_counter()
+    e.bulk_load(rows)
+    load_s = time.perf_counter() - t0
+    del rows
+    t0 = time.perf_counter()
+    cg = e.compiled()
+    compile_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    d = cg._dev()
+    torch.cuda.synchronize()
+    dev_s = time.perf_counter() - t0
+    cav, rm = cg.caveats, cg.run_meta()
+    n_res = int((cg.res_src != cg.M).sum())
+    res_cav = int(np.count_nonzero(cg.res_cav))
+    log(f"phase 10a caveated store: {total} relationships, {n_cav} of them "
+        f"caveated (gen {gen_s:.2f} s), bulk_load {load_s:.2f} s, "
+        f"compile_graph {compile_s:.2f} s, device build {dev_s:.2f} s")
+    log(f"  residual {n_res} edges ({res_cav} caveated; {len(cg.res_src)} "
+        f"padded), {len(cg.blocks)} dense blocks, {cg.n_levels} levels; "
+        f"cav_rows {rm.cav_rows}, {cav.n_inst} instances, tape length "
+        f"{[m.T for m in cav.metas]} ops, {cav.metas[0].K} list slots")
+    check(cav.n_inst == 2 and rm.cav_rows == 9,
+          f"10a: {cav.n_inst} instances, {rm.cav_rows} rows (want 2, 9)")
+    check(res_cav == n_cav, f"10a: {res_cav} caveated residual edges for "
+          f"{n_cav} caveated grants")
+    pv = next(i for i, b in enumerate(cg.blocks)
+              if b.dst_off == cg.offset_of("pod", "viewer"))
+    check(d["blocks_bits"][pv] is not None,
+          "10a: the pod#viewer block has no bit dual")
+    pods = e._objects_by_name()["pod"]
+    for _, ctx in CAV_CONTEXTS:  # warm-up of each path
+        list_mask(subjects[0], ctx)
+
+    # -- 10b: list filters under three contexts, launches counted --
+    torch.cuda.synchronize()
+    bitprop.reset_launch_counts()
+    masks = {}
+    for label, ctx in CAV_CONTEXTS:
+        lat, miss, iters = [], [], set()
+        for u in subjects:
+            m0 = counter(MISSING)
+            t0 = time.perf_counter()
+            fut = e.lookup_resources_mask_async("pod", "view", "user", u,
+                                                context=ctx)
+            masks[(label, u)] = fut.result()[0]
+            lat.append((time.perf_counter() - t0) * 1e3)
+            miss.append(counter(MISSING) - m0)
+            iters.add(fut.iterations())
+        vm = vm_cost(torch, cg, ctx)
+        log(f"phase 10b list filter, context {label} {ctx}: {len(lat)} "
+            f"subjects, B=1, p50 {pct(lat, 50):.3f} ms, p99 "
+            f"{pct(lat, 99):.3f} ms wall; iterations {sorted(iters)}; "
+            f"missing-context denials a call "
+            f"{sorted(set(miss))}; caveat VM a dispatch: {vm['launches']} "
+            f"device activities for a {vm['tape']}-op tape, host "
+            f"{vm['host_ms']:.4f} ms, {vm['ms']:.4f} ms by CUDA events")
+        want = 2 if ctx is None else 0
+        check(all(x == want for x in miss),
+              f"10b: missing-context counter rose by {sorted(set(miss))} a "
+              f"call under {label} (want {want})")
+    both, first, none = (sum(int(masks[(lab, u)].sum()) for u in subjects)
+                         for lab, _ in CAV_CONTEXTS)
+    for u in subjects:
+        check(not (masks[("allow-first", u)]
+                   & ~masks[("allow-both", u)]).any(),
+              f"10b: allow-first grants what allow-both denies for {u}")
+        check(not (masks[("none", u)] & ~masks[("allow-first", u)]).any(),
+              f"10b: no context grants what allow-first denies for {u}")
+    check(both > first > none, f"10b: visible pods {both} / {first} / "
+          f"{none}: the caveat does not bite")
+    log(f"  visible pods over {len(subjects)} subjects: allow-both {both} "
+        f">= allow-first {first} >= none {none}")
+
+    # -- 10c: bulk check under the second context --
+    ctx2 = CAV_CONTEXTS[1][1]
+    rates, now_c = [], time.time()
+    for _ in range(5):
+        t0 = time.perf_counter()
+        verdicts = e.check_bulk(items, now=now_c, context=ctx2)
+        rates.append(len(items) / (time.perf_counter() - t0))
+    launches = {"bit_or_matmul": bitprop.bit_or_matmul.launches,
+                "dense_or_matmul": bitprop.dense_or_matmul.launches}
+    log(f"phase 10c bulk check under {ctx2}: {len(items)} checks, p50 "
+        f"{np.median(rates):,.0f} checks/s over 5 trials (min "
+        f"{min(rates):,.0f}, max {max(rates):,.0f}); {sum(verdicts)} "
+        f"allowed; launches over 10b-10c {launches}")
+    for kname, cnt in launches.items():
+        check(cnt > 0, f"{kname} was not launched on the caveated path")
+
+    # -- 10d: forced pull --
+    with semiring.force_mode("pull"):
+        for label, ctx in CAV_CONTEXTS:
+            for u in subjects:
+                check(np.array_equal(list_mask(u, ctx), masks[(label, u)]),
+                      f"10d: forced pull differs for {u} under {label}")
+    log(f"phase 10d forced pull: {3 * len(subjects)} masks identical to "
+        "10b")
+
+    # -- 10e: the caveated oracle --
+    t0 = time.perf_counter()
+    snap = e.store.snapshot()
+    now = time.time()
+    sample = subjects[:6]
+    n_checks = 0
+    for label, ctx in CAV_CONTEXTS:
+        orc = user_oracles(snap, e.schema, OracleEvaluator, Snapshot,
+                           sample, now, ctx)
+        for u in sample[:2]:
+            ids = {pods.string(i) for i in
+                   np.flatnonzero(list_mask(u, ctx, now=now))}
+            check(ids == orc[u].lookup_resources("pod", "view", "user", u),
+                  f"10e: the mask for {u} under {label} disagrees with "
+                  "the oracle")
+        chk = []
+        for u in sample:
+            vis = np.flatnonzero(masks[(label, u)])
+            chk += [CheckItem("pod", pods.string(i), "view", "user", u)
+                    for i in vis[:10].tolist()]
+            chk += [CheckItem("pod", f"ns/p{rng.integers(N_PODS)}", "view",
+                              "user", u) for _ in range(30)]
+        got = e.check_bulk(chk, now=now, context=ctx)
+        want = [orc[c.subject_id].check("pod", c.resource_id, "view", "user",
+                                        c.subject_id) for c in chk]
+        check(got == want, f"10e: {sum(a != b for a, b in zip(got, want))} "
+              f"of {len(chk)} checks under {label} disagree with the oracle")
+        n_checks += len(chk)
+    orc = user_oracles(snap, e.schema, OracleEvaluator, Snapshot,
+                       bulk_users[:2], now_c, ctx2)
+    own = [(c, v) for c, v in zip(items, verdicts)
+           if c.subject_id in orc][::8]
+    check(all(v == orc[c.subject_id].check("pod", c.resource_id, "view",
+                                           "user", c.subject_id)
+              for c, v in own), "10e: 10c's verdicts disagree with the oracle")
+    del snap, orc
+    log(f"phase 10e oracle: 2 full masks and {n_checks // 3} checks a "
+        f"context exact under all three, and {len(own)} of 10c's verdicts "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    # -- 10f: caveated writes --
+    new_ctx = [canonical_context({"allowed": [f"172.16.{k}.0/24"]})
+               for k in range(7)]
+    plan = [("reuse", k) for k in range(44)] \
+        + [("new", k) for k in range(6)] + [("attach", 0)]
+    plan = [plan[i] for i in rng.permutation(len(plan))] + [("overflow", 6)]
+    # one warm pair first: the first write after a load builds the
+    # store's row index (phase 9a)
+    e.write_relationships([WriteOp("touch", Relationship(
+        "pod", f"ns/p{rng.integers(N_PODS)}", "viewer", "user",
+        subjects[0], None, None, "ip_allowlist", MESH_CTXS[0]))])
+    list_mask(subjects[0], CAV_CONTEXTS[0][1])
+    c0, i0 = counter("engine_graph_compiles_total"), counter(
+        "engine_graph_incremental_updates_total")
+    fb0 = counter("engine_graph_incremental_fallback_total", reason="caveat")
+    w_ms, r_ms, j_ms, o_ms, p_ms, kinds = [], [], [], [], [], []
+    touched = {}
+    for kind, k in plan:
+        if kind == "reuse":
+            pod, u = f"ns/p{rng.integers(N_PODS)}", f"u{rng.integers(N_USERS)}"
+            ctx_json, read = MESH_CTXS[k % 2], CAV_CONTEXTS[0][1]
+        elif kind == "attach":
+            (pod, u), ctx_json = base_grant, MESH_CTXS[1]
+            read = CAV_CONTEXTS[0][1]
+        else:
+            pod, u = f"ns/p{rng.integers(N_PODS)}", f"u{rng.integers(N_USERS)}"
+            ctx_json, read = new_ctx[k], {"ip": f"172.16.{k}.9"}
+        rel = Relationship("pod", pod, "viewer", "user", u, None, None,
+                           "ip_allowlist", ctx_json)
+        jt = hist_total("store_write_seconds")
+        ot = hist_total("engine_graph_incremental_seconds")
+        pt = hist_total("engine_overlay_patch_seconds")
+        t0 = time.perf_counter()
+        e.write_relationships([WriteOp("touch", rel)])
+        w_ms.append((time.perf_counter() - t0) * 1e3)
+        j_ms.append((hist_total("store_write_seconds") - jt) * 1e3)
+        o_ms.append((hist_total("engine_graph_incremental_seconds") - ot)
+                    * 1e3)
+        p_ms.append((hist_total("engine_overlay_patch_seconds") - pt) * 1e3)
+        t0 = time.perf_counter()
+        m = list_mask(u, read)
+        r_ms.append((time.perf_counter() - t0) * 1e3)
+        kinds.append(kind)
+        check(bool(m[pods.lookup(pod)]),
+              f"10f: the {kind} grant {pod}@{u} is not visible under {read}")
+        if kind != "reuse":
+            touched[u] = read
+    dc = counter("engine_graph_compiles_total") - c0
+    di = counter("engine_graph_incremental_updates_total") - i0
+    dfb = counter("engine_graph_incremental_fallback_total",
+                  reason="caveat") - fb0
+
+    def split(sel, xs):
+        v = [x for x, kd in zip(xs, kinds) if kd in sel]
+        return f"{pct(v, 50):.3f} ({pct(v, 99):.3f})"
+
+    log(f"phase 10f caveated writes: {len(plan)} write->read pairs (44 "
+        "reusing a stored context, 6 new contexts on spare rows, 1 caveat "
+        "attached to a base grant, 1 new context past the bucket); write "
+        f"p50 {pct(w_ms, 50):.3f} ms p99 {pct(w_ms, 99):.3f} ms, "
+        f"read-after-write p50 {pct(r_ms, 50):.3f} ms p99 "
+        f"{pct(r_ms, 99):.3f} ms")
+    for name, sel in (("reuse", ("reuse",)),
+                      ("new context (instance columns too)", ("new",))):
+        log(f"  {name}: write p50 (p99) {split(sel, w_ms)} ms = journal "
+            f"{split(sel, j_ms)} + host commit {split(sel, o_ms)} + device "
+            f"patch {split(sel, p_ms)} ms")
+    log(f"  the overflow write {w_ms[-1]:.3f} ms and its read (the "
+        f"recompile) {r_ms[-1]:.3f} ms")
+    log(f"  recompiles {dc:.0f}, incremental updates {di:.0f}, caveat "
+        f"fallbacks {dfb:.0f}; instances now {e.compiled().caveats.n_inst}")
+    check(dc == 1 and dfb == 1 and di == len(plan) - 1,
+          f"10f: {dc:.0f} recompiles, {dfb:.0f} caveat fallbacks, {di:.0f} "
+          f"incremental updates for {len(plan)} writes (want 1, 1, "
+          f"{len(plan) - 1})")
+    snap, now = e.store.snapshot(), time.time()
+    for u, read in touched.items():
+        o = user_oracles(snap, e.schema, OracleEvaluator, Snapshot, [u], now,
+                         read)[u]
+        ids = {pods.string(i) for i in
+               np.flatnonzero(list_mask(u, read, now=now))}
+        check(ids == o.lookup_resources("pod", "view", "user", u),
+              f"10f: the mask for {u} disagrees with the oracle")
+    del snap
+    log(f"  {len(touched)} written subjects' masks exact against the oracle")
+
+    # -- 10g: where the time goes --
+    trace_phase(torch, "caveated list filter (B=1, allow-both)", lambda: [
+        list_mask(u, CAV_CONTEXTS[0][1]) for u in subjects[:10]], 10,
+        {"bit_or_matmul_kernel": ("bit_or_matmul_kernel",),
+         "its small-dual stream kernel": ("bit_or_matmul_stream_kernel",)},
+        annotations=("caveat_vm",))
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1313,6 +1732,17 @@ def main(argv=None) -> int:
                                  args.seed, compile_s + dev_s)
     log(f"phase 9 took {time.perf_counter() - t0:.1f} s")
 
+    # -- phase 10: the caveated mix, on a store of its own --
+    del e, cg, d, objs, pods, fut, A, bits
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  phase 3-9's engine released: {torch.cuda.memory_allocated()} "
+        "device bytes still allocated")
+    t0 = time.perf_counter()
+    caveat_launches = caveat_phase(torch, dev, args.n_rels, subjects, items,
+                                   bulk_users)
+    log(f"phase 10 took {time.perf_counter() - t0:.1f} s")
+
     out = []
     for kname in ("bit_or_matmul", "dense_or_matmul"):
         r = krows[kname]
@@ -1320,6 +1750,7 @@ def main(argv=None) -> int:
                     "replaces": REPLACES[kname],
                     "launches": launches[kname],
                     "write_path_launches": write_launches[kname],
+                    "caveat_path_launches": caveat_launches[kname],
                     "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                     "bound_by": r["bound_by"], "library_ms": r["library_ms"],

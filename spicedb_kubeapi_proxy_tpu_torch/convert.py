@@ -28,6 +28,11 @@ updates in the port: ``delta_cap``, the dead ledger ``dead_buf`` with
 relation id, term slot offset and the per-subject-type target offsets).
 The overlay's slot index and the ledger's pair set are rebuilt from
 them.
+
+A graph with conditional grants also carries ``res_cav`` (each residual
+edge's caveat instance row; ``delta_cav`` is the overlay's) and
+``caveats``, its caveat table in plain form (:func:`caveats_from_arrays`),
+so the port evaluates the same VM rows as the reference.
 """
 
 from __future__ import annotations
@@ -36,6 +41,9 @@ import threading
 
 import numpy as np
 
+from .caveats.ast import CaveatParam, CaveatType, StringInterner
+from .caveats.compile import CaveatProgram, ListSpec
+from .caveats.vm import CavMeta, CompiledCaveats, _CavHost
 from .device import resolve_device
 from .models.schema import (
     Arrow,
@@ -70,6 +78,51 @@ def expr_from_tuple(t) -> Expr:
     if tag == "sub":
         return Exclude(expr_from_tuple(t[1]), expr_from_tuple(t[2]))
     raise ValueError(f"unknown expression tag {tag!r}")
+
+
+def caveats_from_arrays(c: dict) -> CompiledCaveats:
+    """A :class:`CompiledCaveats` from plain data: ``metas`` (dicts of the
+    CavMeta fields), ``hosts`` (dicts of the host arrays ``ctx_e``,
+    ``ctx_v``, ``ctx_k``, ``lo_e``, ``lo_v``, ``hi_e``, ``hi_v``,
+    ``list_k``, ``real`` and a ``program``: ``name``, ``params`` as
+    (name, type, list element type) triples, ``ops``, ``imm``,
+    ``n_regs``, ``out_reg``, ``lists`` as (ranges, param, element type)
+    triples, ``scalar_col``, ``list_id``, ``scalar_width``, ``uses_now``,
+    ``time_arith``), the string ``interner`` as a string -> code dict,
+    ``n_rows``, ``inst_row``, ``key_row`` as ((name, context), row) pairs,
+    ``n_inst``, ``time_bounds``, ``time_exact`` and ``any_now``. Arrays
+    are copied: instance appends write the host tables in place."""
+    interner = StringInterner()
+    interner._map = dict(c["interner"])
+    hosts = []
+    for h in c["hosts"]:
+        p = h["program"]
+        prog = CaveatProgram(
+            name=p["name"],
+            params=tuple(CaveatParam(n, CaveatType(t, el))
+                         for n, t, el in p["params"]),
+            ops=np.array(p["ops"], dtype=np.int32).reshape(-1, 4),
+            imm=np.array(p["imm"], dtype=np.float64),
+            n_regs=int(p["n_regs"]), out_reg=int(p["out_reg"]),
+            lists=tuple(ListSpec(None if r is None
+                                 else tuple(tuple(x) for x in r), pi, el)
+                        for r, pi, el in p["lists"]),
+            scalar_col=dict(p["scalar_col"]), list_id=dict(p["list_id"]),
+            scalar_width=dict(p["scalar_width"]),
+            uses_now=bool(p["uses_now"]), time_arith=bool(p["time_arith"]))
+        hosts.append(_CavHost(prog, **{
+            k: np.array(h[k], dtype=bool if k in ("ctx_k", "list_k", "real")
+                        else np.float32)
+            for k in ("ctx_e", "ctx_v", "ctx_k", "lo_e", "lo_v", "hi_e",
+                      "hi_v", "list_k", "real")}))
+    return CompiledCaveats(
+        metas=tuple(CavMeta(**m) for m in c["metas"]), hosts=hosts,
+        interner=interner, n_rows=int(c["n_rows"]),
+        inst_row=np.array(c["inst_row"], dtype=np.int64),
+        key_row={tuple(k): int(r) for k, r in c["key_row"]},
+        n_inst=int(c["n_inst"]),
+        time_bounds=np.array(c["time_bounds"], dtype=np.float64),
+        time_exact=bool(c["time_exact"]), any_now=bool(c["any_now"]))
 
 
 def _residual(d: dict, M: int) -> tuple:
@@ -156,6 +209,7 @@ def from_reference_arrays(d: dict, device=None) -> CompiledGraph:
         res_src=res_src,
         res_dst=res_dst,
         res_exp=res_exp,
+        res_cav=opt("res_cav", np.int32),
         res_level_bounds=None if bounds is None
         else tuple(int(x) for x in bounds),
         n_levels=int(d.get("n_levels", 0)),
@@ -172,6 +226,8 @@ def from_reference_arrays(d: dict, device=None) -> CompiledGraph:
         delta_cav=opt("delta_cav", np.int32),
         n_delta=int(d.get("n_delta", 0)),
         dead_pairs=None if dead is None else dead.reshape(-1, 2),
+        caveats=None if d.get("caveats") is None
+        else caveats_from_arrays(d["caveats"]),
         device=resolve_device(device),
         **writer,
     )

@@ -6,9 +6,9 @@ folded into the compiled graph's delta overlay in O(write), with a full
 recompile only when the overlay cannot express it, and the optional
 background compactor of engine/compaction.py), chunked bulk checks and
 list-filter masks through the reachability fixpoint
-(ops/reachability.py), and the push/pull crossover feedback. The
-batcher, decision cache, persistence, mesh, tiering and migration come
-with later slices.
+(ops/reachability.py) under a request caveat context (caveats/), and
+the push/pull crossover feedback. The batcher, decision cache,
+persistence, mesh, tiering and migration come with later slices.
 """
 
 from __future__ import annotations
@@ -20,10 +20,17 @@ from typing import Optional
 
 import numpy as np
 
+from ..caveats.ast import (
+    CaveatError,
+    StringInterner,
+    UnencodableListError,
+    encode_list,
+    encode_scalar,
+)
 from ..device import resolve_device
 from ..models.bootstrap import DEFAULT_BOOTSTRAP, parse_bootstrap
 from ..models.schema import Schema
-from ..models.tuples import Relationship
+from ..models.tuples import Relationship, canonical_context
 from ..ops import semiring
 from ..ops.reachability import (
     DELTA_CAPACITY,
@@ -45,6 +52,7 @@ from .store import (
     Store,
     StoreError,
     WriteOp,
+    caveat_pairs,
 )
 
 
@@ -84,13 +92,48 @@ def mask_pseudo_objects(mask: np.ndarray) -> np.ndarray:
     return mask
 
 
+def validate_caveat(schema: Schema, rel: Relationship) -> None:
+    """A caveated write must name a DECLARED caveat and carry a context
+    that encodes under the declared parameter types: a malformed context
+    stored now would become missing-context denials (or a compile-time
+    error) at read time."""
+    cdef = (schema.caveat_defs or {}).get(rel.caveat)
+    if cdef is None:
+        raise SchemaViolation(
+            f"relationship names undeclared caveat {rel.caveat!r}")
+    if not rel.caveat_context:
+        return
+    try:
+        ctx = rel.context_dict()
+    except ValueError as e:
+        raise SchemaViolation(
+            f"caveat {rel.caveat!r}: invalid context: {e}") from None
+    scratch = StringInterner()
+    for k, v in (ctx or {}).items():
+        p = cdef.param(k)
+        if p is None:
+            raise SchemaViolation(
+                f"caveat {rel.caveat!r} has no parameter {k!r}")
+        try:
+            if p.type.is_list:
+                encode_list(v, p.type.elem, scratch)
+            else:
+                encode_scalar(v, p.type.name, scratch)
+        except UnencodableListError:
+            # well-typed but beyond the VM's list tables (an IPv6
+            # element): the write is accepted and the parameter resolves
+            # UNKNOWN at evaluation (fail closed, counted)
+            pass
+        except CaveatError as e:
+            raise SchemaViolation(
+                f"caveat {rel.caveat!r} context {k!r}: {e}") from None
+
+
 def validate_relationship(schema: Schema, rel: Relationship) -> None:
     """Schema admission for one relationship tuple (the write path's
-    gate). Caveated tuples are refused until the caveat VM is ported."""
+    gate)."""
     if getattr(rel, "caveat", None):
-        raise SchemaViolation(
-            f"relationship carries caveat {rel.caveat!r}: caveats are not "
-            "ported yet")
+        validate_caveat(schema, rel)
     d = schema.definitions.get(rel.resource_type)
     if d is None:
         raise SchemaViolation(f"unknown resource type {rel.resource_type!r}")
@@ -106,6 +149,7 @@ def validate_relationship(schema: Schema, rel: Relationship) -> None:
         raise SchemaViolation(f"unknown subject type {rel.subject_type!r}")
     ok = False
     expiration_blocked = False
+    caveat_blocked = False
     for a in r.allowed:
         if a.type != rel.subject_type:
             continue
@@ -113,6 +157,14 @@ def validate_relationship(schema: Schema, rel: Relationship) -> None:
             if not a.wildcard:
                 continue
         elif a.wildcard or (a.relation or None) != rel.subject_relation:
+            continue
+        if (a.caveat or None) != (rel.caveat or None):
+            # SpiceDB matches the caveat trait exactly: a caveated tuple
+            # needs a `with <caveat>` entry, and an entry REQUIRING a
+            # caveat never accepts an unconditional tuple; another entry
+            # of the same subject type may still match
+            # (`user | user with ip_allowlist`)
+            caveat_blocked = True
             continue
         if rel.expiration is not None and not a.expiration:
             # another entry of the same subject type may allow expiration
@@ -124,6 +176,11 @@ def validate_relationship(schema: Schema, rel: Relationship) -> None:
         raise SchemaViolation(
             f"{rel.resource_type}#{rel.relation} does not allow "
             "expiring relationships")
+    if not ok and caveat_blocked:
+        raise SchemaViolation(
+            f"{rel.resource_type}#{rel.relation} does not allow "
+            + (f"subjects with caveat {rel.caveat!r}" if rel.caveat
+               else "uncaveated subjects of this type"))
     if not ok:
         raise SchemaViolation(
             f"subject {rel.subject_type}"
@@ -303,6 +360,17 @@ class Engine:
         return self.store.read(f)
 
     def bulk_load(self, rels_cols: dict) -> int:
+        got = caveat_pairs(rels_cols) if self.validate_writes else None
+        if got is not None:
+            # validate the DISTINCT (caveat, context) pairs before any
+            # store mutation: an undeclared name or a mistyped context
+            # interned here would not fail until the next compile_graph,
+            # bricking every later query instead of rejecting one load
+            for nm, cx in got[0]:
+                if nm:
+                    validate_caveat(self.schema, Relationship(
+                        "", "", "", "", "", None, None, nm,
+                        canonical_context(cx)))
         return self.store.bulk_load(rels_cols)
 
     @property
@@ -495,17 +563,24 @@ class Engine:
             q_batch[i] = row
         return np.asarray(seed_rows, dtype=np.int32), q_slots, q_batch
 
-    def check(self, item: CheckItem, now: Optional[float] = None) -> bool:
-        return self.check_bulk([item], now=now)[0]
+    def check(self, item: CheckItem, now: Optional[float] = None,
+              context: Optional[dict] = None) -> bool:
+        return self.check_bulk([item], now=now, context=context)[0]
 
     def check_bulk(self, items: list[CheckItem],
-                   now: Optional[float] = None) -> list[bool]:
+                   now: Optional[float] = None,
+                   context: Optional[dict] = None) -> list[bool]:
         """CheckBulkPermissions: distinct subjects batch along B; the
-        items dispatch in chunks of ``CHECK_PIPELINE_CHUNK``."""
-        return self.check_bulk_async(items, now=now).result()
+        items dispatch in chunks of ``CHECK_PIPELINE_CHUNK``. ``context``
+        is the request's caveat context (client IP, caller attributes);
+        the evaluation clock is injected as the ``now`` caveat
+        parameter unless the context supplies it."""
+        return self.check_bulk_async(items, now=now,
+                                     context=context).result()
 
     def check_bulk_async(self, items: list[CheckItem],
-                         now: Optional[float] = None) -> EngineFuture:
+                         now: Optional[float] = None,
+                         context: Optional[dict] = None) -> EngineFuture:
         if not items:
             return EngineFuture(None, lambda _: [])
         cg = self.compiled()
@@ -517,6 +592,13 @@ class Engine:
         chunk = self.CHECK_PIPELINE_CHUNK
         if now is None:
             now = time.time()  # one clock for every chunk of the call
+        # the request context encodes ONCE for the whole logical call:
+        # every chunk shares it (a per-chunk encode would also count a
+        # request-list overflow once per chunk)
+        cav_req = None
+        cavs = cg.caveats
+        if cavs is not None and cavs.metas:
+            cav_req, _ = cavs.encode_request(context, now)
         futs = []
         cg._dev()  # built before the shared side is taken
         # every chunk runs against one device state: a write waits for the
@@ -526,7 +608,8 @@ class Engine:
                 seeds, q_slots, q_batch = self._encode_checks(
                     cg, objs, items[s:s + chunk])
                 futs.append(backend.query_async(seeds, q_slots, q_batch,
-                                                now=now))
+                                                now=now, context=context,
+                                                cav_req=cav_req))
         metrics.counter("engine_checks_total").inc(n)
 
         def iters():
@@ -538,6 +621,10 @@ class Engine:
                 time.perf_counter() - t0)
             metrics.histogram("engine_fixpoint_iterations").observe(iters())
             self._count_semiring_modes(futs)
+            # caveat instances that resolved to missing context: DISTINCT
+            # instances per logical call (every chunk shares one graph and
+            # one context, so the chunks' counts are equal: max, not sum)
+            self._count_missing(max(f.caveats_missing() for f in futs))
             return out
 
         return EngineFuture(None, fin, iters=iters)
@@ -545,32 +632,36 @@ class Engine:
     def lookup_resources(self, resource_type: str, permission: str,
                          subject_type: str, subject_id: str,
                          subject_relation: Optional[str] = None,
-                         now: Optional[float] = None) -> list[str]:
+                         now: Optional[float] = None,
+                         context: Optional[dict] = None) -> list[str]:
         """LookupResources: ids of ``resource_type`` on which the subject
         has ``permission``, from one fixpoint."""
         mask, interner = self.lookup_resources_mask(
             resource_type, permission, subject_type, subject_id,
-            subject_relation, now=now)
+            subject_relation, now=now, context=context)
         return mask_to_ids(mask, interner)
 
     def lookup_resources_mask(self, resource_type: str, permission: str,
                               subject_type: str, subject_id: str,
                               subject_relation: Optional[str] = None,
-                              now: Optional[float] = None):
+                              now: Optional[float] = None,
+                              context: Optional[dict] = None):
         """The list-filter hot path: (bool mask over the type's object
         index space, per-type interner)."""
         return self.lookup_resources_mask_async(
             resource_type, permission, subject_type, subject_id,
-            subject_relation, now=now).result()
+            subject_relation, now=now, context=context).result()
 
     def lookup_resources_mask_async(self, resource_type: str,
                                     permission: str, subject_type: str,
                                     subject_id: str,
                                     subject_relation: Optional[str] = None,
-                                    now: Optional[float] = None
+                                    now: Optional[float] = None,
+                                    context: Optional[dict] = None
                                     ) -> EngineFuture:
         return self._lookup_direct(resource_type, permission, subject_type,
-                                   subject_id, subject_relation, now)
+                                   subject_id, subject_relation, now,
+                                   context)
 
     # -- semiring mode feedback ---------------------------------------------
 
@@ -584,6 +675,14 @@ class Engine:
         """Fold one observed final-frontier fill fraction into the EWMA."""
         e = self._occ_ewma
         self._occ_ewma = frac if e is None else 0.9 * e + 0.1 * frac
+
+    @staticmethod
+    def _count_missing(missing: int) -> None:
+        """Caveat instances that resolved to missing context in one
+        logical call: denied fail-closed, and counted."""
+        if missing:
+            metrics.counter(
+                "engine_caveat_denied_missing_context_total").inc(missing)
 
     @staticmethod
     def _count_semiring_modes(futs) -> None:
@@ -602,7 +701,8 @@ class Engine:
     def _lookup_direct(self, resource_type: str, permission: str,
                        subject_type: str, subject_id: str,
                        subject_relation: Optional[str],
-                       now: Optional[float]) -> EngineFuture:
+                       now: Optional[float],
+                       context: Optional[dict] = None) -> EngineFuture:
         cg = self.compiled()
         objs = self._objects_by_name()
         off = cg.offset_of(resource_type, permission)
@@ -626,13 +726,15 @@ class Engine:
         self._apply_crossover(cg)
         fut = self._backend(cg).query_async(
             seeds, q_slots, q_batch, now=now,
-            q_cache_key=("lookup", off, n), q_contiguous=True)
+            q_cache_key=("lookup", off, n), q_contiguous=True,
+            context=context)
 
         def fin(out):
             metrics.histogram("engine_lookup_seconds").observe(
                 time.perf_counter() - t0)
             metrics.histogram("engine_fixpoint_iterations").observe(
                 fut.iterations())
+            self._count_missing(fut.caveats_missing())
             m = mask_pseudo_objects(np.array(out, copy=True))
             # final-frontier occupancy of the queried window feeds the
             # EWMA behind the push/pull crossover
@@ -649,6 +751,8 @@ class Engine:
 
     # -- debugging ----------------------------------------------------------
 
-    def oracle(self, now: Optional[float] = None) -> OracleEvaluator:
+    def oracle(self, now: Optional[float] = None,
+               context: Optional[dict] = None) -> OracleEvaluator:
         """The plain host evaluator over the current store."""
-        return OracleEvaluator(self.schema, self.store.snapshot(), now=now)
+        return OracleEvaluator(self.schema, self.store.snapshot(), now=now,
+                               context=context)

@@ -3,9 +3,9 @@
 The slice of the JAX package's ``engine/store.py`` the port's engine
 needs: :class:`Columns`, :class:`Snapshot`, ``Store.bulk_load``,
 ``Store.write`` (CREATE/TOUCH/DELETE with preconditions),
-``Store.delete_by_filter``, ``Store.read``, ``Store.next_expiry`` and the
+``Store.delete_by_filter``, ``Store.read``, ``Store.next_expiry``, the
 watch log (``watch_since`` / ``wait_since``) that the incremental graph
-update replays. Persistence and replication come with later slices.
+update replays, and the append-only caveat-instance table. Persistence and replication come with later slices.
 
 Layout is columnar int32 (see :class:`Columns`) so that 10M-relationship
 graphs bulk-load and snapshot without per-row Python objects. The row-key
@@ -20,13 +20,13 @@ from __future__ import annotations
 import bisect
 import threading
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Optional
 
 import numpy as np
 
 from .. import native
-from ..models.tuples import Relationship
+from ..models.tuples import Relationship, canonical_context
 from ..utils.metrics import metrics
 from .interning import Interner
 
@@ -55,7 +55,8 @@ class AlreadyExists(StoreError):
 @dataclass
 class Columns:
     """Columnar relationship block: parallel int32 arrays + expiration
-    + caveat-instance id (always 0 here: caveats are not ported yet)."""
+    + caveat-instance id (0 = unconditional; else an index into the
+    store's append-only ``caveat_instances`` table)."""
 
     rt: np.ndarray  # resource type id      (types interner)
     rid: np.ndarray  # resource object id   (per-type objects interner)
@@ -134,6 +135,11 @@ class Snapshot:
     types: Interner
     relations: Interner
     objects: dict[int, Interner]  # type id -> per-type object interner
+    # append-only (name, canonical ctx JSON) caveat-instance table;
+    # index 0 reserved for "no caveat". Shared with the live store
+    # (monotone like the interners), so sharing with an immutable
+    # snapshot is safe.
+    caveat_instances: list = field(default_factory=lambda: [("", "")])
 
 
 # chunks at or above this many rows get the vectorized sorted index; below
@@ -224,6 +230,53 @@ class StoreIndex:
         return None
 
 
+def _distinct(col: np.ndarray, limit: int = 64) -> tuple[list, np.ndarray]:
+    """(distinct values, each row's index into them) of a string column.
+    A low-cardinality column (a caveat name or context column carries a
+    handful of values over millions of rows) takes one vectorized
+    comparison per distinct value, far cheaper than sorting or re-encoding
+    the strings; past ``limit`` values, ``np.unique``."""
+    codes = np.zeros(len(col), dtype=np.int64)
+    vals: list = []
+    open_ = np.ones(len(col), dtype=bool)
+    while len(vals) < limit:
+        first = int(np.argmax(open_))
+        if not open_[first]:
+            return vals, codes
+        hit = col == col[first]
+        codes[hit] = len(vals)
+        vals.append(str(col[first]))
+        open_ &= ~hit
+    uniq, inv = np.unique(col, return_inverse=True)
+    return [str(v) for v in uniq.tolist()], inv.reshape(-1)
+
+
+def caveat_pairs(rels_cols: dict) -> Optional[tuple[list, np.ndarray]]:
+    """The distinct (caveat name, context) pairs of a bulk load's
+    ``caveat`` / ``caveat_context`` columns, and each row's index into
+    them; None without a caveat column. Pairs come in the sorted order of
+    their ``name:context`` strings, the order the reference interns them
+    in, so instance ids match."""
+    names = rels_cols.get("caveat")
+    if names is None:
+        return None
+    names = np.asarray(names, dtype=str)
+    ctxs = rels_cols.get("caveat_context")
+    ctxs = (np.asarray(ctxs, dtype=str) if ctxs is not None
+            else np.full(len(names), "", dtype=str))
+    if not len(names):
+        return [], np.zeros(0, dtype=np.int64)
+    nv, nc = _distinct(names)
+    cv, cc = _distinct(ctxs)
+    keys, row_key = np.unique(nc * len(cv) + cc, return_inverse=True)
+    pairs = [(nv[k // len(cv)], cv[k % len(cv)]) for k in keys.tolist()]
+    order = sorted(range(len(pairs)),
+                   key=lambda i: pairs[i][0] + ":" + pairs[i][1])
+    rank = np.empty(len(order), dtype=np.int64)
+    rank[order] = np.arange(len(order))
+    return [pairs[i] for i in order], rank[row_key.reshape(-1)]
+
+
 class Store:
     """Thread-safe mutable relationship store."""
 
@@ -237,6 +290,12 @@ class Store:
         # relation id 0 reserved for "no subject relation"
         self.relations = Interner(reserved=("",))
         self.objects: dict[int, Interner] = {}
+        # caveat-instance table: one row per distinct (caveat name,
+        # canonical context JSON) pair; append-only, so snapshots and
+        # compiled graphs share it by reference. Index 0 reserved for
+        # "no caveat".
+        self.caveat_instances: list[tuple[str, str]] = [("", "")]
+        self._caveat_key: dict[tuple, int] = {("", ""): 0}
         self._chunks: list[Columns] = []
         self._alive: list[np.ndarray] = []  # bool per chunk
         self._index = StoreIndex()
@@ -280,8 +339,22 @@ class Store:
             self.relations.intern(rel.subject_relation or ""),
         )
 
-    def _extern_rel(self, key: tuple, exp: float) -> Relationship:
+    def _intern_cav(self, rel: Relationship) -> int:
+        """Caveat-instance id for a relationship (0 = unconditional)."""
+        if not rel.caveat:
+            return 0
+        k = (rel.caveat, rel.caveat_context or "")
+        i = self._caveat_key.get(k)
+        if i is None:
+            i = len(self.caveat_instances)
+            self.caveat_instances.append(k)
+            self._caveat_key[k] = i
+        return i
+
+    def _extern_rel(self, key: tuple, exp: float,
+                    cav: int = 0) -> Relationship:
         rt, rid, rl, st, sid, srl = key
+        name, ctx = self.caveat_instances[cav] if cav else ("", "")
         return Relationship(
             self.types.string(rt),
             self.objects[rt].string(rid),
@@ -290,6 +363,8 @@ class Store:
             self.objects[st].string(sid),
             self.relations.string(srl) or None,
             None if not np.isfinite(exp) else float(exp),
+            name or None,
+            ctx or None,
         )
 
     def _append_rows(self, cols: Columns) -> None:
@@ -361,11 +436,9 @@ class Store:
             # Pass 1 — plan + validate before any mutation so the whole
             # batch is atomic.
             seen: set[tuple] = set()
-            plan: list[tuple[int, tuple, float]] = []
+            plan: list[tuple[int, tuple, float, int]] = []
             for wop in ops:
                 code = _OPS[wop.op]
-                if wop.rel.caveat:
-                    raise StoreError("caveats are not ported yet")
                 key = self._intern_rel(wop.rel)
                 exp = wop.rel.expiration if wop.rel.expiration is not None \
                     else NO_EXPIRATION
@@ -382,17 +455,18 @@ class Store:
                     raise AlreadyExists(f"relationship already exists: {wop.rel}")
                 if code == OP_DELETE:
                     if pos is not None:  # tombstone even expired rows
-                        plan.append((OP_DELETE, key, NO_EXPIRATION))
+                        plan.append((OP_DELETE, key, NO_EXPIRATION, 0))
                     continue
-                plan.append((OP_TOUCH, key, float(exp)))
+                plan.append((OP_TOUCH, key, float(exp),
+                             self._intern_cav(wop.rel)))
 
             if not plan:
                 return self.revision
 
             # Pass 2 — apply.
             rev = self.revision + 1
-            new_rows: list[tuple[tuple, float]] = []
-            for code, key, exp in plan:
+            new_rows: list[tuple[tuple, float, int]] = []
+            for code, key, exp, cav in plan:
                 pos = idx.get(key, self._alive)
                 if pos is not None:
                     self._alive[pos[0]][pos[1]] = False
@@ -400,17 +474,19 @@ class Store:
                     self._watch_log.append(WatchRecord(
                         rev, OP_DELETE, self._extern_rel(key, NO_EXPIRATION)))
                     continue
-                new_rows.append((key, exp))
+                new_rows.append((key, exp, cav))
                 self._watch_log.append(WatchRecord(
-                    rev, OP_TOUCH, self._extern_rel(key, exp)))
+                    rev, OP_TOUCH, self._extern_rel(key, exp, cav)))
             if new_rows:
-                keys = np.array([k for k, _ in new_rows], dtype=np.int32)
-                exp_col = np.array([e for _, e in new_rows],
+                keys = np.array([k for k, _, _ in new_rows], dtype=np.int32)
+                exp_col = np.array([e for _, e, _ in new_rows],
                                    dtype=np.float64)
+                cav_col = np.array([c for _, _, c in new_rows],
+                                   dtype=np.int32)
                 self._append_rows(Columns(
                     keys[:, 0].copy(), keys[:, 1].copy(), keys[:, 2].copy(),
                     keys[:, 3].copy(), keys[:, 4].copy(), keys[:, 5].copy(),
-                    exp_col,
+                    exp_col, cav_col,
                 ))
                 if not self._has_finite_exp and np.isfinite(exp_col).any():
                     self._has_finite_exp = True
@@ -427,13 +503,11 @@ class Store:
     def bulk_load(self, rels_cols: dict) -> int:
         """Fast path for large graph loads: columnar string arrays
         {resource_type, resource_id, relation, subject_type, subject_id,
-        subject_relation?, expiration?}. Rows are assumed deduplicated.
+        subject_relation?, expiration?, caveat?, caveat_context?}. Rows
+        are assumed deduplicated.
         Not logged to watch: ``unlogged_revision`` moves to the new
         revision, so no compiled graph older than the load is advanced
         incrementally across it."""
-        if rels_cols.get("caveat") is not None and np.any(
-                np.asarray(rels_cols["caveat"], dtype=str) != ""):
-            raise StoreError("caveats are not ported yet")
         with self._lock:
             n = len(rels_cols["resource_id"])
 
@@ -463,7 +537,18 @@ class Store:
             exp = (np.asarray(exp_col, dtype=np.float64) if exp_col is not None
                    else np.full(n, NO_EXPIRATION))
             exp = np.where(np.isnan(exp), NO_EXPIRATION, exp)
-            self._append_rows(Columns(rt, rid, rl, st, sid, srl, exp))
+            got = caveat_pairs(rels_cols)
+            if got is not None:
+                pairs, row_pair = got
+                codes = np.asarray(
+                    [0 if not nm else self._intern_cav(Relationship(
+                        "", "", "", "", "", None, None, nm,
+                        canonical_context(cx))) for nm, cx in pairs],
+                    dtype=np.int32)
+                cav = codes[row_pair]
+            else:
+                cav = np.zeros(n, dtype=np.int32)
+            self._append_rows(Columns(rt, rid, rl, st, sid, srl, exp, cav))
             if not self._has_finite_exp and np.isfinite(exp).any():
                 self._has_finite_exp = True
             self.revision += 1
@@ -483,7 +568,8 @@ class Store:
                 for ri in np.flatnonzero(mask).tolist():
                     key = (int(cols.rt[ri]), int(cols.rid[ri]), int(cols.rl[ri]),
                            int(cols.st[ri]), int(cols.sid[ri]), int(cols.srl[ri]))
-                    out.append(self._extern_rel(key, cols.exp[ri]))
+                    out.append(self._extern_rel(key, cols.exp[ri],
+                                                int(cols.cav[ri])))
             return out
 
     def exists(self, f: RelationshipFilter, _now: Optional[float] = None) -> bool:
@@ -614,6 +700,7 @@ class Store:
                 types=self.types,
                 relations=self.relations,
                 objects=self.objects,
+                caveat_instances=self.caveat_instances,
             )
 
     def __len__(self) -> int:

@@ -97,11 +97,18 @@ def parse_bootstrap(text: str) -> Bootstrap:
     if missing:
         schema_text = "\n".join([schema_text] + [WORKFLOW_DEFS[n] for n in missing])
     schema = parse_schema(schema_text)
-    # conditional grants would load unenforced: refuse them until the
-    # caveat VM is ported
+    # Caveated tuples LOAD with their contexts: conditional grants are
+    # enforced on the device by the caveat VM (caveats/), resolving at
+    # check time against tuple ∪ request context and failing closed on
+    # missing context. Only DECLARED caveats are accepted: an unknown
+    # bracket trait is far more likely a typo (e.g. [expiry:...] for
+    # [expiration:...]), and silently dropping the grant would be a
+    # quiet access revocation.
     for rel in rels:
-        if rel.caveat:
+        if rel.caveat and rel.caveat not in schema.caveats:
             raise ValueError(
-                f"relationship {rel} carries caveat [{rel.caveat}...]: "
-                "caveats are not ported yet")
+                f"relationship {rel} carries unknown trait "
+                f"[{rel.caveat}...]: no such caveat is declared in "
+                "the schema — refusing to guess (a misspelled "
+                "expiration would silently drop the grant)")
     return Bootstrap(schema, schema_text, rels)

@@ -2,9 +2,9 @@
 
 A copy of the JAX package's ``models/schema.py`` parser and IR (the port
 imports nothing of that package). It produces the typed IR the port's
-graph compiler (ops/reachability.py) consumes. Caveats are not ported
-yet: a ``caveat`` definition or a ``with <caveat>`` grant raises
-:class:`SchemaError` instead of loading a grant that would go unenforced.
+graph compiler (ops/reachability.py) consumes, caveat definitions
+(``caveat name(param type, ...) { expr }``, typed and checked at parse
+time) and ``with <caveat>`` grants included.
 
 Supported surface:
 
@@ -114,6 +114,8 @@ class AllowedSubject:
     relation: Optional[str] = None  # userset subjects: group#member
     wildcard: bool = False  # user:*
     expiration: bool = False  # `with expiration` trait
+    caveat: Optional[str] = None  # `with <caveat>` trait (validated as
+    #                               declared; enforced by caveats/)
 
     def __str__(self) -> str:
         s = self.type
@@ -152,6 +154,13 @@ class Definition:
 class Schema:
     definitions: dict[str, Definition] = field(default_factory=dict)
     use_expiration: bool = False
+    # DECLARED caveat names (parse_caveat): distinguishes tuple traits
+    # from typos — an UNDECLARED bracket trait (e.g. a misspelled
+    # expiration) fails loudly instead of silently dropping the grant
+    caveats: set = field(default_factory=set)
+    # name -> caveats.ast.CaveatDef: the typed parameter list + body AST
+    # the caveat compiler lowers into the VM's tape (caveats/compile.py)
+    caveat_defs: dict = field(default_factory=dict)
 
     def definition(self, name: str) -> Definition:
         try:
@@ -270,7 +279,11 @@ class _Parser:
                     raise SchemaError(f"duplicate definition {d.name!r}")
                 schema.definitions[d.name] = d
             elif self.cur.value == "caveat":
-                self.parse_caveat()
+                defn = self.parse_caveat()
+                if defn.name in schema.caveat_defs:
+                    raise SchemaError(f"duplicate caveat {defn.name!r}")
+                schema.caveats.add(defn.name)
+                schema.caveat_defs[defn.name] = defn
             else:
                 raise SchemaError(
                     f"schema line {self.cur.line}: expected 'definition', got {self.cur.value!r}"
@@ -279,14 +292,81 @@ class _Parser:
         return schema
 
     def parse_caveat(self):
-        """``caveat name(...) { ... }`` declarations are refused: the
-        caveat expression VM is not ported yet, and accepting the
-        declaration would let conditional grants load without being
-        enforced."""
-        t = self.cur
-        raise SchemaError(
-            f"schema line {t.line}: caveats are not ported yet "
-            "(caveat definitions are refused by the PyTorch engine)")
+        """``caveat name(param type, ...) { expr }`` -> a typed
+        :class:`~...caveats.ast.CaveatDef`. The parameter list follows
+        SpiceDB (``day string``; a ``day: string`` colon is tolerated);
+        the body is handed to the caveat expression parser
+        (caveats/ast.py) and type-checked by compiling it against a
+        scratch interner, so a malformed caveat fails the SCHEMA parse
+        instead of the first query that touches it."""
+        from ..caveats.ast import (
+            CaveatDef,
+            CaveatError,
+            CaveatParam,
+            CaveatType,
+            SCALAR_TYPES,
+            parse_caveat_body,
+        )
+        from ..caveats.compile import typecheck
+
+        self.expect("caveat")
+        name = self.expect_ident()
+        self.expect("(")
+        params: list = []
+
+        def parse_type() -> CaveatType:
+            t = self.cur
+            if t.kind != "ident":
+                raise SchemaError(
+                    f"schema line {t.line}: expected a caveat parameter "
+                    f"type, got {t.value!r}")
+            self.advance()
+            if t.value == "list":
+                self.expect("<")
+                elem = self.cur
+                if elem.kind != "ident" or elem.value not in SCALAR_TYPES:
+                    raise SchemaError(
+                        f"schema line {elem.line}: unsupported list "
+                        f"element type {elem.value!r}")
+                self.advance()
+                self.expect(">")
+                return CaveatType("list", elem.value)
+            if t.value not in SCALAR_TYPES:
+                raise SchemaError(
+                    f"schema line {t.line}: unsupported caveat "
+                    f"parameter type {t.value!r}")
+            return CaveatType(t.value)
+
+        if self.cur.value != ")":
+            while True:
+                pname = self.expect_ident()
+                if self.cur.value == ":":  # tolerated `name: type` form
+                    self.advance()
+                params.append(CaveatParam(pname, parse_type()))
+                if self.cur.value != ",":
+                    break
+                self.advance()
+        self.expect(")")
+        open_tok = self.expect("{")
+        depth = 1
+        while True:
+            t = self.advance()
+            if t.kind == "eof":
+                raise SchemaError("unterminated caveat block")
+            if t.value == "{":
+                depth += 1
+            elif t.value == "}":
+                depth -= 1
+                if depth == 0:
+                    close_tok = t
+                    break
+        body = self.text[open_tok.pos + 1:close_tok.pos]
+        try:
+            defn = CaveatDef(name, tuple(params), parse_caveat_body(body))
+            typecheck(defn)
+        except CaveatError as e:
+            raise SchemaError(f"caveat {name!r}: {e}") from None
+        return defn
 
     def parse_definition(self) -> Definition:
         self.expect("definition")
@@ -341,6 +421,7 @@ class _Parser:
         if self.cur.value == "#":
             self.advance()
             relation = self.expect_ident()
+        caveat = None
         while self.cur.value == "with":
             self.advance()
             while True:
@@ -348,17 +429,19 @@ class _Parser:
                 if trait == "expiration":
                     expiration = True
                 else:
-                    # a caveated subject type (`user with ip_allowlist`)
-                    raise self.fail(
-                        self.cur.line,
-                        f"caveats are not ported yet (trait {trait!r}; "
-                        "only 'expiration' is supported)")
+                    # a caveated subject type (`user with ip_allowlist`):
+                    # tuples carrying the caveat are conditional grants,
+                    # enforced on the device by the caveat VM (caveats/).
+                    # _validate still requires the name to be DECLARED,
+                    # so a misspelled `expiration` cannot slip through
+                    # as a phantom caveat.
+                    caveat = trait
                 # SpiceDB chains traits with `and`:
                 # `user with some_caveat and expiration`
                 if self.cur.value != "and":
                     break
                 self.advance()
-        return AllowedSubject(typ, relation, wildcard, expiration)
+        return AllowedSubject(typ, relation, wildcard, expiration, caveat)
 
     def parse_permission(self) -> Permission:
         self.expect("permission")
@@ -431,6 +514,14 @@ def _validate(schema: Schema) -> None:
                 if a.type not in schema.definitions:
                     raise SchemaError(
                         f"{d.name}#{r.name}: unknown subject type {a.type!r}"
+                    )
+                if a.caveat is not None and a.caveat not in schema.caveats:
+                    # tolerate only DECLARED caveats: `with expirations`
+                    # (a typo) must fail the parse loudly, not become a
+                    # phantom caveat that silently drops grants
+                    raise SchemaError(
+                        f"{d.name}#{r.name}: unknown trait {a.caveat!r} "
+                        "(not 'expiration' and no such caveat declared)"
                     )
                 if a.relation is not None:
                     sub = schema.definitions[a.type]

@@ -27,7 +27,11 @@ descendant and guarded by a reader/writer lock (:class:`_Resident`): a
 query holds the shared side while its fixpoint enqueues, a patch the
 exclusive side, so a query sees one revision's state whole — the newest,
 which the fully-consistent read contract allows ("at least as fresh").
-Tiering comes with a later slice.
+
+Conditional grants (caveats/) ride the residual: every edge carries the
+row of its (caveat, context) instance (0 = unconditional), and each
+dispatch evaluates the caveat VM once and gates the edges with its
+verdicts (:func:`_run`). Tiering comes with a later slice.
 """
 
 from __future__ import annotations
@@ -43,6 +47,7 @@ import torch
 
 from . import bitprop, semiring
 from .. import native
+from ..caveats.vm import build_caveat_table, eval_caveats
 from ..device import resolve_device
 from ..utils.metrics import metrics
 from ..models.schema import (
@@ -87,8 +92,10 @@ def _fallback(reason: str) -> None:
     ``overflow`` (overlay/dead-ledger capacity or the per-batch record
     cap), ``stratification-inversion`` (a first-ever dependency
     direction), ``closured-expiry`` (an expiration attached to a closured
-    block pair), ``caveat`` (a conditional grant: caveats are not ported
-    yet, so there is no instance table to hold it), ``history-trimmed`` /
+    block pair), ``closured-caveat`` (a conditional grant attached to a
+    closured block pair), ``caveat`` (a caveat/context pair the frozen
+    instance tables cannot express: first-ever caveat, full row bucket,
+    or an unencodable context), ``history-trimmed`` /
     ``unlogged`` (store side, engine.py), ``layout`` (a tuple the frozen
     slot layout cannot express) and ``unstratified`` (a hand-built graph
     without overlay state)."""
@@ -368,6 +375,10 @@ class RunMeta:
     res_level_bounds: tuple  # len n_levels+2: slice bounds into residual
     n_levels: int
     level_ranges: tuple  # per level 1..L: ((offset, size), ...) merged
+    # caveat VM shapes (caveats/vm.py CavMeta per caveat) and the
+    # validity-row count (1 = no caveats: the VM is skipped)
+    caveats: tuple = ()
+    cav_rows: int = 1
     spmm_mode: str = "auto"
 
 
@@ -389,6 +400,9 @@ class CompiledGraph:
     res_src: Optional[np.ndarray] = None
     res_dst: Optional[np.ndarray] = None
     res_exp: Optional[np.ndarray] = None  # float32 rel to base_time
+    # per-residual-edge caveat instance row (0 = unconditional), read
+    # through the dispatch's cav_ok vector (caveats/vm.py)
+    res_cav: Optional[np.ndarray] = None
     res_level_bounds: Optional[tuple] = None
     n_levels: int = 0
     range_levels: Optional[np.ndarray] = None
@@ -407,8 +421,7 @@ class CompiledGraph:
     delta_src: Optional[np.ndarray] = None
     delta_dst: Optional[np.ndarray] = None
     delta_exp: Optional[np.ndarray] = None
-    # caveat row per slot, 0 = unconditional (filled by the caveat slice)
-    delta_cav: Optional[np.ndarray] = None
+    delta_cav: Optional[np.ndarray] = None  # caveat row per slot (0=none)
     n_delta: int = 0
     dead_pairs: Optional[np.ndarray] = None  # int64 [n_dead, 2] view
     n_dead: int = 0
@@ -427,6 +440,9 @@ class CompiledGraph:
     relperm_off: Optional[np.ndarray] = None
     # (resource tid, tupleset rel id, term slot offset, tgt_off[n_types+1])
     arrow_maps: list = field(default_factory=list)
+    # compiled caveat table (caveats/vm.py CompiledCaveats): instance
+    # tables shared by every incremental descendant, like the overlay
+    caveats: Optional[object] = None
     # push while the per-hop occupancy is <= this (engine EWMA feedback)
     spmm_crossover: float = 1.0
     device: torch.device = field(
@@ -503,6 +519,7 @@ class CompiledGraph:
                 wins += [(b.dst_off, b.n_dst) for b in self.blocks
                          if b.closured and b.level == k]
                 level_ranges.append(tuple(wins))
+        cav = self.caveats
         return RunMeta(
             M=self.M,
             programs=tuple(self.programs),
@@ -510,6 +527,8 @@ class CompiledGraph:
             res_level_bounds=tuple(bounds),
             n_levels=self.n_levels,
             level_ranges=tuple(level_ranges),
+            caveats=cav.metas if cav is not None else (),
+            cav_rows=cav.n_rows if cav is not None else 1,
             spmm_mode=semiring.resolved_mode(),
         )
 
@@ -527,8 +546,8 @@ class CompiledGraph:
 
     def _dev_build(self) -> dict:
         """A fresh device state from the newest host state: residual,
-        overlay, and every block minus the dead ledger's cells. Also what
-        a patched state must equal (tests)."""
+        overlay, caveat instance tables, and every block minus the dead
+        ledger's cells. Also what a patched state must equal (tests)."""
         dev = self.device
 
         def up(a, dtype):
@@ -538,13 +557,22 @@ class CompiledGraph:
                 device=dev, dtype=dtype, copy=True)
 
         with self.host_lock or nullcontext():
+            res_cav = self.res_cav
+            if res_cav is None or len(res_cav) != len(self.res_src):
+                res_cav = np.zeros(len(self.res_src), dtype=np.int32)
             d = {"src": up(self.res_src, torch.int64),
                  "dst": up(self.res_dst, torch.int64),
-                 "exp": up(self.res_exp, torch.float32)}
-            dsrc, ddst, dexp = self._delta_host()
+                 "exp": up(self.res_exp, torch.float32),
+                 "cav": up(res_cav, torch.int64)}
+            dsrc, ddst, dexp, dcav = self._delta_host()
             d["dsrc"] = up(dsrc, torch.int64)
             d["ddst"] = up(ddst, torch.int64)
             d["dexp"] = up(dexp, torch.float32)
+            d["dcav"] = up(dcav, torch.int64)
+            # caveat VM instance tables; () when the graph holds none
+            cav = self.caveats
+            d["cav_static"] = (cav.device_static(dev)
+                               if cav is not None and cav.metas else ())
             blocks, bits = [], []
             for bm in self.resident.blocks:
                 A, Ab = self._block_tensors(bm)
@@ -598,20 +626,26 @@ class CompiledGraph:
              & (s >= bm.src_off) & (s < bm.src_off + bm.n_src))
         return t[m] - bm.dst_off, s[m] - bm.src_off
 
-    def _delta_host(self) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    def _delta_host(self) -> tuple:
+        """(src, dst, exp, cav) of the overlay; an empty one when the
+        graph has none."""
         if self.delta_src is not None:
-            return self.delta_src, self.delta_dst, self.delta_exp
+            cav = self.delta_cav if self.delta_cav is not None \
+                else np.zeros(len(self.delta_src), dtype=np.int32)
+            return self.delta_src, self.delta_dst, self.delta_exp, cav
         return (np.full(DELTA_CAPACITY, self.M, dtype=np.int32),
                 np.full(DELTA_CAPACITY, self.M, dtype=np.int32),
-                np.full(DELTA_CAPACITY, -np.inf, dtype=np.float32))
+                np.full(DELTA_CAPACITY, -np.inf, dtype=np.float32),
+                np.zeros(DELTA_CAPACITY, dtype=np.int32))
 
     def device_bytes(self) -> int:
         """Bytes of device tensors this graph holds (after first query)."""
         n = 0
         for v in self._dev().values():
             for t in (v if isinstance(v, tuple) else (v,)):
-                if isinstance(t, torch.Tensor):
-                    n += t.numel() * t.element_size()
+                for x in (t.values() if isinstance(t, dict) else (t,)):
+                    if isinstance(x, torch.Tensor):
+                        n += x.numel() * x.element_size()
         return n
 
     # -- queries -----------------------------------------------------------
@@ -625,6 +659,10 @@ class CompiledGraph:
         max_iters: int = DEFAULT_MAX_ITERS,
         q_cache_key: Optional[tuple] = None,
         q_contiguous: Optional[bool] = None,
+        context: Optional[dict] = None,  # request caveat context
+        cav_req: Optional[tuple] = None,  # pre-encoded request arrays
+        # (CompiledCaveats.encode_request): chunked bulk callers encode
+        # ONCE for the whole logical call instead of per chunk
     ) -> "QueryFuture":
         """Run the fixpoint and return a future holding its device result.
 
@@ -634,7 +672,12 @@ class CompiledGraph:
         :meth:`QueryFuture.result`) is deferred. Overlapping readbacks on
         a side stream is left to a later change. The fixpoint runs under
         the shared side of the resident lock, against the newest device
-        state of this graph's base (at least as fresh as this view)."""
+        state of this graph's base (at least as fresh as this view).
+
+        ``context`` is the request's caveat context, encoded against the
+        graph's caveat tables with the absolute clock (a ``now`` caveat
+        parameter), while expirations compare against the clock relative
+        to the graph's base time."""
         self._dev()
         dev = self.device
         B = seed_slots.shape[0]
@@ -653,6 +696,12 @@ class CompiledGraph:
                           q_slots, q_slots[0] + np.arange(Q, dtype=np.int64)))
         now_abs = time.time() if now is None else now
         now_rel = np.float32(now_abs - self.base_time)
+        cav = self.caveats
+        if cav is not None and cav.metas:
+            if cav_req is None:
+                cav_req, _ = cav.encode_request(context, now_abs)
+        else:
+            cav_req = ()
         res = self.resident
         with res.lock.shared():
             d = res.tensors
@@ -661,7 +710,7 @@ class CompiledGraph:
                 bool(contig and Q and int(q_slots[0]) + Q <= Mp_state))
             out, converged, iters, n_push = _run(
                 self.run_meta(), d, torch.as_tensor(seeds).to(dev), qs, qb,
-                now_rel, np.float32(self.spmm_crossover),
+                now_rel, np.float32(self.spmm_crossover), cav_req,
                 max_iters=max_iters, q_contig_len=contig_len)
         return QueryFuture(out, converged, iters, Q, max_iters, n_push)
 
@@ -753,7 +802,11 @@ class CompiledGraph:
 class QueryFuture:
     """A dispatched query. ``result()`` validates convergence and reads
     the answer back; ``iterations()`` is how many core hops ran and
-    ``push_steps()`` how many hops (acyclic levels included) took push."""
+    ``push_steps()`` how many hops (acyclic levels included) took push;
+    ``caveats_missing()`` how many caveat instances resolved to missing
+    context this dispatch (denied fail-closed). ``_out`` is the uint8
+    answer, followed on a caveated graph by the missing count's four
+    int32 bytes: ONE device-to-host copy reads both."""
 
     _out: torch.Tensor
     _converged: bool
@@ -761,19 +814,29 @@ class QueryFuture:
     _q: int
     _max_iters: int
     _push: int = 0
+    _host: Optional[np.ndarray] = None
+
+    def _read(self) -> np.ndarray:
+        if self._host is None:
+            self._host = self._out.cpu().numpy()
+        return self._host
 
     def result(self) -> np.ndarray:
         if not self._converged:
             raise ConvergenceError(
                 f"reachability did not converge within {self._max_iters} "
                 "iterations (graph deeper than the dispatch budget)")
-        return self._out.cpu().numpy()[: self._q]
+        return self._read()[: self._q].view(np.bool_)
 
     def iterations(self) -> int:
         return int(self._iters)
 
     def push_steps(self) -> int:
         return int(self._push)
+
+    def caveats_missing(self) -> int:
+        tail = self._read()[self._q:]
+        return int(tail.view(np.int32)[0]) if len(tail) else 0
 
 
 def _apply_program(V: torch.Tensor, programs) -> torch.Tensor:
@@ -823,10 +886,18 @@ def _seed_base(meta: RunMeta, seeds: torch.Tensor) -> torch.Tensor:
 
 
 def _run(meta: RunMeta, d: dict, seeds: torch.Tensor, q_slots, q_batch,
-         now_rel, crossover, *, max_iters: int, q_contig_len: int = 0):
-    """The stratified fixpoint: ``(out bool [Q], converged, iterations,
-    push_steps)``. Only the core (level 0) iterates; each acyclic level
-    is applied once after it.
+         now_rel, crossover, cav_req: tuple = (), *, max_iters: int,
+         q_contig_len: int = 0):
+    """The stratified fixpoint: ``(out uint8 [Q] (+ 4 bytes), converged,
+    iterations, push_steps)``. Only the core (level 0) iterates; each
+    acyclic level is applied once after it.
+
+    A graph with caveat instances (``cav_rows > 1``) first evaluates the
+    caveat VM once (caveats/vm.eval_caveats on the host-encoded request
+    ``cav_req``) and gates every residual and overlay edge with its
+    verdict row in the activation masks of both; the missing-context
+    count is appended to ``out`` as four int32 bytes, so the result's one
+    readback carries it.
 
     The reference's ``lax.while_loop`` and per-hop ``lax.cond`` become a
     Python loop: each iteration ends in ONE device-to-host copy carrying
@@ -837,8 +908,13 @@ def _run(meta: RunMeta, d: dict, seeds: torch.Tensor, q_slots, q_batch,
     B, Mp = seeds.shape[0], (meta.M // LANE + 1) * LANE
     numel = B * Mp
     mode = meta.spmm_mode
-    act = semiring.edge_activation(d["exp"], now_rel)
-    dact = semiring.edge_activation(d["dexp"], now_rel)
+    cav_ok = missing = None
+    if meta.cav_rows > 1:
+        with torch.profiler.record_function("caveat_vm"):
+            cav_ok, missing = eval_caveats(meta.caveats, d["cav_static"],
+                                           cav_req, meta.cav_rows)
+    act = semiring.edge_activation(d["exp"], now_rel, d["cav"], cav_ok)
+    dact = semiring.edge_activation(d["dexp"], now_rel, d["dcav"], cav_ok)
     base = _seed_base(meta, seeds)
     bounds = meta.res_level_bounds
     blocks = list(zip(meta.blocks, d["blocks"], d["blocks_bits"]))
@@ -885,12 +961,14 @@ def _run(meta: RunMeta, d: dict, seeds: torch.Tensor, q_slots, q_batch,
         out = V[q_batch, q_slots:q_slots + q_contig_len]
     else:
         out = V[q_batch, q_slots]
-    return out.to(torch.bool), not changed, iters, n_push
+    if missing is not None:
+        out = torch.cat([out, missing.reshape(1).view(torch.uint8)])
+    return out.contiguous(), not changed, iters, n_push
 
 
 # ---------------------------------------------------------------------------
 # Compilation: (schema, snapshot) -> CompiledGraph (host numpy, a copy of
-# the reference's compile_graph without caveat instances)
+# the reference's compile_graph)
 # ---------------------------------------------------------------------------
 
 
@@ -951,8 +1029,6 @@ def compile_graph(schema: Schema, snapshot, device=None,
     types_in = snapshot.types
     rels_in = snapshot.relations
     cols = snapshot.cols
-    if len(cols) and np.any(cols.cav != 0):
-        raise ValueError("caveats are not ported yet")
 
     # ---- slot layout ----
     slot_offset: dict[tuple, int] = {}
@@ -1007,8 +1083,21 @@ def compile_graph(schema: Schema, snapshot, device=None,
     srcs: list[np.ndarray] = []
     dsts: list[np.ndarray] = []
     exps: list[np.ndarray] = []
+    cavs: list[np.ndarray] = []
     base_time = time.time()
     exp_rel_all = (cols.exp - base_time).astype(np.float32)
+
+    # caveat instance table: one VM row per distinct (caveat, context)
+    # pair among live tuples; every edge derived from a caveated tuple
+    # (direct / userset / arrow alike) carries its instance row, so the
+    # fixpoint can gate it on the dispatch's tri-state
+    cav_ids = cols.cav.astype(np.int64)
+    caveat_table = build_caveat_table(
+        getattr(schema, "caveat_defs", None) or {},
+        getattr(snapshot, "caveat_instances", None) or [("", "")],
+        np.unique(cav_ids[cav_ids > 0]))
+    cav_row_all = caveat_table.inst_row[cav_ids]
+
     rt = cols.rt.astype(np.int64)
     st = cols.st.astype(np.int64)
     rl = cols.rl.astype(np.int64)
@@ -1021,6 +1110,7 @@ def compile_graph(schema: Schema, snapshot, device=None,
     srcs.append(self_off[st[m]] + cols.sid[m])
     dsts.append(dst_all[m])
     exps.append(exp_rel_all[m])
+    cavs.append(cav_row_all[m])
 
     # userset tuples: src is the subject's (type, relation|permission) slot
     us_off = relperm_off[st, srl]
@@ -1028,6 +1118,7 @@ def compile_graph(schema: Schema, snapshot, device=None,
     srcs.append(us_off[m] + cols.sid[m])
     dsts.append(dst_all[m])
     exps.append(exp_rel_all[m])
+    cavs.append(cav_row_all[m])
 
     # arrow term edges
     arrow_maps: list = []
@@ -1059,23 +1150,27 @@ def compile_graph(schema: Schema, snapshot, device=None,
             srcs.append(tgt_off[st[m]] + cols.sid[m])
             dsts.append(term_off + cols.rid[m])
             exps.append(exp_rel_all[m])
+            cavs.append(cav_row_all[m])
 
     src = np.concatenate(srcs)
     dst = np.concatenate(dsts)
     exp = np.concatenate(exps)
+    cav = np.concatenate(cavs)
     order = native.sort_perm(dst)
     if order is None:
         order = np.argsort(dst, kind="stable")
-    src, dst, exp = src[order], dst[order], exp[order]
+    src, dst, exp, cav = src[order], dst[order], exp[order], cav[order]
 
     n_edges = len(src)
     E_pad = _next_bucket(max(n_edges, 1))
     src_p = np.full(E_pad, M, dtype=np.int32)
     dst_p = np.full(E_pad, M, dtype=np.int32)
     exp_p = np.full(E_pad, -np.inf, dtype=np.float32)
+    cav_p = np.zeros(E_pad, dtype=np.int32)
     src_p[:n_edges] = src
     dst_p[:n_edges] = dst
     exp_p[:n_edges] = exp
+    cav_p[:n_edges] = cav
 
     # ---- elementwise programs ----
     programs: list[_PermProgram] = []
@@ -1126,7 +1221,10 @@ def compile_graph(schema: Schema, snapshot, device=None,
     closure_rids: set[int] = set()
     closure_coo: dict[int, tuple] = {}
     if n_edges:
-        special = exp != np.inf
+        # caveated edges ride the residual like expiring ones: their
+        # activation is a per-dispatch condition, which a dense (let alone
+        # closured) block cell cannot carry
+        special = (exp != np.inf) | (cav != 0)
         key = dst_rid * len(offs) + src_rid
         key = np.where(~special, key, -1)
         uniq, inv, counts = np.unique(key, return_inverse=True,
@@ -1213,6 +1311,7 @@ def compile_graph(schema: Schema, snapshot, device=None,
     res_src = np.full(res_level_bounds[-1], M, dtype=np.int32)
     res_dst = np.full(res_level_bounds[-1], M, dtype=np.int32)
     res_exp = np.full(res_level_bounds[-1], -np.inf, dtype=np.float32)
+    res_cav = np.zeros(res_level_bounds[-1], dtype=np.int32)
     pos = 0
     for k in range(n_levels + 1):
         n_k = int(counts_per_level[k])
@@ -1221,6 +1320,7 @@ def compile_graph(schema: Schema, snapshot, device=None,
         res_src[lo:lo + n_k] = src_p[sel]
         res_dst[lo:lo + n_k] = dst_p[sel]
         res_exp[lo:lo + n_k] = exp_p[sel]
+        res_cav[lo:lo + n_k] = cav_p[sel]
         pos += n_k
 
     cap = max(int(delta_capacity), 64)
@@ -1236,6 +1336,7 @@ def compile_graph(schema: Schema, snapshot, device=None,
         res_src=res_src,
         res_dst=res_dst,
         res_exp=res_exp,
+        res_cav=res_cav,
         res_level_bounds=res_level_bounds,
         n_levels=n_levels,
         range_levels=range_levels,
@@ -1260,6 +1361,7 @@ def compile_graph(schema: Schema, snapshot, device=None,
         rel_off=rel_off,
         relperm_off=relperm_off,
         arrow_maps=arrow_maps,
+        caveats=caveat_table,
         device=device,
     )
 
@@ -1345,13 +1447,17 @@ def _res_positions(cg: CompiledGraph, src: int, dst: int) -> list[int]:
     slice is dst-sorted, so it is binary-searched and its per-dst run
     scanned for the src."""
     bounds = cg.res_level_bounds or (0, len(cg.res_dst))
+    # a key of the array's own dtype: a Python int would make numpy cast
+    # the whole level slice to int64 first (O(residual) a search, 6.7 ms
+    # on a 4M-edge level)
+    key = cg.res_dst.dtype.type(dst)
     out: list[int] = []
     for k in range(len(bounds) - 1):
         b0, b1 = bounds[k], bounds[k + 1]
         if b0 == b1:
             continue
-        lo = b0 + int(np.searchsorted(cg.res_dst[b0:b1], dst, side="left"))
-        hi = b0 + int(np.searchsorted(cg.res_dst[b0:b1], dst, side="right"))
+        lo = b0 + int(np.searchsorted(cg.res_dst[b0:b1], key, side="left"))
+        hi = b0 + int(np.searchsorted(cg.res_dst[b0:b1], key, side="right"))
         if lo < hi:
             out.extend(
                 (lo + np.flatnonzero(cg.res_src[lo:hi] == src)).tolist())
@@ -1393,6 +1499,9 @@ def incremental_update(cg: CompiledGraph, records, new_revision: int,
     - A deleted base edge of a closured block re-closes the block from
       its remaining base edges (closure cells are derived reachability:
       clearing one cell would over- and under-allow).
+    - A conditional grant's slot carries its (caveat, context) instance
+      row: an existing row, or a spare row of the caveat's padded bucket
+      reserved at plan time and written at commit.
 
     The plan mutates nothing, so a decline leaves the shared overlay as
     it was. The commit writes the host arrays and queues the device patch
@@ -1415,34 +1524,53 @@ def incremental_update(cg: CompiledGraph, records, new_revision: int,
     dead_set = cg.dead_set
 
     # ---- plan (no mutation) ----
-    appends: dict = {}  # pair -> expiration of a new overlay slot
-    updates: dict = {}  # overlay slot -> new expiration
+    appends: dict = {}  # pair -> (exp, cav row) of a new overlay slot
+    updates: dict = {}  # overlay slot -> (new exp, cav row | None = keep)
     res_kill: list[int] = []
     block_cells: dict[int, set] = {}  # block idx -> local (dst, src) kills
     new_dead: list[tuple[int, int]] = []
     dead_seen: set = set()
     reclose: dict[int, set] = {}  # closured block idx -> local pairs
+    # new (caveat, context) instance rows reserved this batch, written to
+    # the shared tables only at commit (caveats/vm.py plan_append)
+    planned_inst: dict = {}
 
     for is_delete, relationship in records:
         edges = _edges_for_tuple(cg, store, relationship)
         if edges is None:
             _fallback("layout")
             return None
+        cav_row = 0
         if not is_delete and relationship.caveat:
-            # a conditional grant needs a caveat instance row; the port
-            # compiles no caveat table yet (the reference's "no table")
-            _fallback("caveat")
-            return None
+            # a conditional grant: an existing instance row, or a spare
+            # row of the caveat's padded bucket; none (the caveat's first
+            # tuple since the compile, a full bucket, an unencodable
+            # context) means the tables must re-shape: a recompile
+            table = cg.caveats
+            ctx = relationship.caveat_context or ""
+            row = (table.lookup_row(relationship.caveat, ctx)
+                   if table is not None else None)
+            if row is None and table is not None:
+                row = table.plan_append(relationship.caveat, ctx,
+                                        planned_inst)
+            if row is None:
+                _fallback("caveat")
+                return None
+            cav_row = row
         if not is_delete:
             for src, dst in edges:
-                if relationship.expiration is not None:
+                if relationship.expiration is not None \
+                        or relationship.caveat:
                     b_ = _pair_block(cg, src, dst)
                     if b_ is not None and cg.blocks[b_].closured:
-                        # an expiring edge cannot live in a closure (a
-                        # derived cell would serve it past its expiry);
-                        # classified before the level check, which a
-                        # closured range's own level would trip first
-                        _fallback("closured-expiry")
+                        # an expiring or conditional edge cannot live in a
+                        # closure (a derived cell would serve it past its
+                        # expiry or without its condition); classified
+                        # before the level check, which a closured
+                        # range's own level would trip first
+                        _fallback("closured-expiry"
+                                  if relationship.expiration is not None
+                                  else "closured-caveat")
                         return None
                 if not _level_order_ok(cg, src, dst):
                     _fallback("stratification-inversion")
@@ -1464,7 +1592,7 @@ def incremental_update(cg: CompiledGraph, records, new_revision: int,
                     reclose.setdefault(b, set()).add((dl_, sl_))
                 slot = delta_pos.get(pair)
                 if slot is not None:
-                    updates[slot] = float("-inf")
+                    updates[slot] = (float("-inf"), None)
                 appends.pop(pair, None)
                 continue
             # kill the base edge wherever it may live, once per pair over
@@ -1479,17 +1607,19 @@ def incremental_update(cg: CompiledGraph, records, new_revision: int,
             slot = delta_pos.get(pair)
             if is_delete:
                 if slot is not None:
-                    updates[slot] = float("-inf")
+                    updates[slot] = (float("-inf"), None)
                 appends.pop(pair, None)
                 continue
             # adds (re-touches of block-covered pairs too) always land in
-            # the overlay; base copies are only ever cleared
+            # the overlay; base copies are only ever cleared. The caveat
+            # row rides the slot with the expiration: a touch may attach,
+            # replace or strip the condition
             exp_rel = (np.inf if relationship.expiration is None
                        else relationship.expiration - cg.base_time)
             if slot is not None:
-                updates[slot] = float(exp_rel)
+                updates[slot] = (float(exp_rel), cav_row)
             else:
-                appends[pair] = float(exp_rel)
+                appends[pair] = (float(exp_rel), cav_row)
 
     if cg.n_delta + len(appends) > cg.delta_cap \
             or cg.n_dead + len(new_dead) > len(cg.dead_buf):
@@ -1513,26 +1643,34 @@ def incremental_update(cg: CompiledGraph, records, new_revision: int,
     n0, nd0 = cg.n_delta, cg.n_dead
     res = cg.resident
     with cg.host_lock:
-        for i, ((s, t), ex) in enumerate(app_items):
+        for i, ((s, t), (ex, cv)) in enumerate(app_items):
             cg.delta_src[n0 + i] = s
             cg.delta_dst[n0 + i] = t
             cg.delta_exp[n0 + i] = ex
+            cg.delta_cav[n0 + i] = cv
             delta_pos[(s, t)] = n0 + i
-        # delta_cav stays 0 (unconditional): caveats are refused
-        for slot, ex in updates.items():
+        for slot, (ex, cv) in updates.items():
             cg.delta_exp[slot] = ex
+            if cv is not None:
+                cg.delta_cav[slot] = cv
         if res_kill:
             cg.res_exp[np.asarray(res_kill, dtype=np.int64)] = -np.inf
         for j, (s, t) in enumerate(new_dead):
             cg.dead_buf[nd0 + j] = (s, t)
         dead_set.update(new_dead)
+        # reserved caveat-instance rows land in the shared host tables
+        # (the same commit discipline as the overlay slots); the device
+        # tables get them in the same queued patch as the slots that use
+        # them, so no dispatch sees a slot pointing at an unwritten row
+        inst_dev = (cg.caveats.apply_appends(planned_inst)
+                    if planned_inst else [])
         if reclose:
             for b in reclose:
                 cg.block_codes.pop(b, None)
             res.blocks = blocks_host
         seq = res.queue(lambda d: _patch_device(
             cg, d, n0, app_items, updates, res_kill, block_cells, reclose,
-            blocks_host))
+            blocks_host, inst_dev))
     if sync_device:
         res.flush(seq)
     n_delta2 = n0 + len(app_items)
@@ -1545,11 +1683,14 @@ def incremental_update(cg: CompiledGraph, records, new_revision: int,
 
 def _patch_device(cg: CompiledGraph, d: dict, n0: int, app_items: list,
                   updates: dict, res_kill: list, block_cells: dict,
-                  reclose: dict, blocks_host: list) -> None:
+                  reclose: dict, blocks_host: list,
+                  inst_dev: list = ()) -> None:
     """Apply one committed delta to the shared device state in place:
-    O(write) scatters, plus O(block) for each re-closed block (a new
-    tensor; queries already past their hops keep the old one alive through
-    their own references). Caller holds the exclusive resident lock."""
+    O(write) scatters, the new caveat instance rows (``inst_dev``, from
+    ``CompiledCaveats.apply_appends``), plus O(block) for each re-closed
+    block (a new tensor; queries already past their hops keep the old one
+    alive through their own references). Caller holds the exclusive
+    resident lock."""
     dev = cg.device
 
     def up(a, dtype):
@@ -1565,9 +1706,19 @@ def _patch_device(cg: CompiledGraph, d: dict, n0: int, app_items: list,
         # appended slots and updated slots are disjoint, each unique
         ui = up([n0 + i for i in range(len(app_items))] + list(updates),
                 torch.int64)
-        uv = up([ex for _, ex in app_items] + list(updates.values()),
-                torch.float32)
+        uv = up([ex for _, (ex, _) in app_items]
+                + [ex for ex, _ in updates.values()], torch.float32)
         d["dexp"].index_copy_(0, ui, uv)
+    # caveat rows: appended slots start at 0 (unconditional), so only
+    # their nonzero rows are written; an update may strip a row to 0
+    cav_w = [(n0 + i, cv) for i, (_, (_, cv)) in enumerate(app_items) if cv]
+    cav_w += [(slot, cv) for slot, (_, cv) in updates.items()
+              if cv is not None]
+    if cav_w:
+        d["dcav"].index_copy_(0, up([w[0] for w in cav_w], torch.int64),
+                              up([w[1] for w in cav_w], torch.int64))
+    if inst_dev and d.get("cav_static"):
+        cg.caveats.patch_rows(d["cav_static"], inst_dev)
     if res_kill:
         d["exp"].index_fill_(0, up(res_kill, torch.int64), float("-inf"))
     if not (block_cells or reclose):

@@ -2,8 +2,9 @@
 
 Counterpart of the JAX package's ``ops/semiring.py``. One reachability
 hop is ``prop[b, d] = OR_e [dst(e)=d] (V[b, src(e)] AND act(e))`` with
-``act(e) = exp(e) > now``; residual and delta-overlay edges ride a gather
-+ scatter, dense blocks ride one of two CUDA kernels (ops/bitprop.py):
+``act(e) = (exp(e) > now) AND cav_ok[cav(e)]`` (the caveat VM's verdict
+for the edge's instance row); residual and delta-overlay edges ride a
+gather + scatter, dense blocks ride one of two CUDA kernels (ops/bitprop.py):
 
 - **push** — the bit-packed block dual through ``bit_or_matmul``, for
   batches of at most ``BIT_B_MAX`` rows;
@@ -63,12 +64,20 @@ def crossover_from_occupancy(ewma: Optional[float]) -> float:
     return float(min(1.0, max(0.05, 1.0 - ewma)))
 
 
-def edge_activation(exp_rel: torch.Tensor, now_rel) -> torch.Tensor:
-    """``exp > now`` per edge as uint8, both float32 seconds relative to
-    the graph's base time. Computed once per dispatch."""
+def edge_activation(exp_rel: torch.Tensor, now_rel,
+                    cav: Optional[torch.Tensor] = None,
+                    cav_ok: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The ``(exp > now) AND cav_ok[row]`` edge-activation mask, uint8 per
+    edge: expirations are float32 seconds relative to the graph's base
+    time, ``cav`` each edge's caveat-instance row and ``cav_ok`` the
+    caveat VM's per-row verdict (row 0 always 1). Computed once per
+    dispatch."""
     now = torch.tensor(float(now_rel), dtype=torch.float32,
                        device=exp_rel.device)
-    return (exp_rel > now).to(torch.uint8)
+    act = (exp_rel > now).to(torch.uint8)
+    if cav_ok is not None:
+        act &= cav_ok[cav]
+    return act
 
 
 def frontier_occupancy(count: int, numel: int) -> float:

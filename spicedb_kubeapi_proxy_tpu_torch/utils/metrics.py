@@ -1,9 +1,12 @@
 """Minimal in-process metrics: counters, gauges and histograms.
 
 A copy of the registry parts of the JAX package's ``utils/metrics.py``
-that the engine slice records into (check/lookup counts and latencies,
-fixpoint iterations, push/pull hop counts, compile times). Exposition
-formats come with the proxy entry points in a later slice.
+that the engine records into (check/lookup counts and latencies,
+fixpoint iterations, push/pull hop counts, compile times, and the caveat
+counters ``engine_caveat_denied_missing_context_total``,
+``engine_caveat_request_list_overflow_total`` and
+``engine_caveat_ipv6_unencodable_total``). Exposition formats come with
+the proxy entry points in a later slice.
 """
 
 from __future__ import annotations

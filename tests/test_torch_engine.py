@@ -4,8 +4,8 @@ the host OracleEvaluator on the same writes — list-filter masks and bulk
 checks under push, pull and auto, on deploy/bootstrap.yaml (an expiring
 ``user:*`` wildcard) and on a schema with recursive groups (closured
 blocks), intersection, exclusion and expired grants — plus the device
-rule (cuda by default, never a quiet CPU fallback), the refusal of
-caveats, and an import guard proving the port never loads JAX or the
+rule (cuda by default, never a quiet CPU fallback), caveated inputs
+against the JAX engine, and an import guard proving the port never loads JAX or the
 JAX package."""
 
 import os
@@ -215,20 +215,43 @@ def test_device_default_is_cuda(monkeypatch):
 
 
 def test_caveats_are_refused():
+    """The three caveated inputs the engine once refused (a caveat
+    definition, a ``with <caveat>`` grant, a caveated write) now load on
+    both engines and agree on every verdict under a request context
+    that satisfies the caveat, one that does not, and none."""
     caveated = BOOTSTRAP.replace(
         "definition user {}",
         "caveat on_tuesday(day string) {\n    day == 'tuesday'\n  }\n\n"
-        "  definition user {}")
-    with pytest.raises(SchemaError, match="not ported"):
-        Engine(caveated, device="cpu")
-    with pytest.raises(SchemaError, match="not ported"):
+        "  definition user {}").replace(
+        "relation viewer: user\n", "relation viewer: user | user with "
+        "on_tuesday\n")
+    je, te = JEngine(caveated), Engine(caveated, device="cpu")
+    assert set(te.schema.caveat_defs) == {"on_tuesday"}
+    rel = 'pod:p#viewer@user:u[on_tuesday:{"day":"tuesday"}]'
+    je.write_relationships([JWriteOp("touch", jparse_rel(rel))])
+    te.write_relationships([WriteOp("touch", parse_relationship(rel))])
+    item = ("pod", "p", "view", "user", "u")
+    for ctx, want in (({"day": "tuesday"}, True), ({"day": "monday"}, True),
+                      (None, True)):
+        # the tuple's own context supplies `day` and wins over the request
+        assert te.check(CheckItem(*item), now=NOW, context=ctx) is want
+        assert je.check(JCheckItem(*item), now=NOW, context=ctx) is want
+    rel = "pod:q#viewer@user:u[on_tuesday]"
+    je.write_relationships([JWriteOp("touch", jparse_rel(rel))])
+    te.write_relationships([WriteOp("touch", parse_relationship(rel))])
+    item = ("pod", "q", "view", "user", "u")
+    for ctx, want in (({"day": "tuesday"}, True), ({"day": "monday"}, False),
+                      (None, False)):
+        assert te.check(CheckItem(*item), now=NOW, context=ctx) is want
+        assert je.check(JCheckItem(*item), now=NOW, context=ctx) is want
+        assert te.lookup_resources("pod", "view", "user", "u", now=NOW,
+                                   context=ctx) == \
+            je.lookup_resources("pod", "view", "user", "u", now=NOW,
+                                context=ctx)
+    with pytest.raises(SchemaError, match="unknown trait"):
         Engine(BOOTSTRAP.replace("relation creator: user",
                                  "relation creator: user with on_tuesday",
                                  1), device="cpu")
-    e = Engine(BOOTSTRAP, device="cpu")
-    with pytest.raises(Exception, match="not ported"):
-        e.write_relationships([WriteOp("touch", parse_relationship(
-            'pod:p#viewer@user:u[on_tuesday:{"day":"x"}]'))])
 
 
 GUARD = r"""

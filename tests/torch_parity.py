@@ -29,6 +29,40 @@ def expr_tuple(e):
     raise TypeError(e)
 
 
+def flatten_caveats(c) -> dict:
+    """Plain view of a JAX ``CompiledCaveats`` (copies), the form
+    ``convert.caveats_from_arrays`` takes."""
+    return {
+        "metas": [dict(m.__dict__) for m in c.metas],
+        "hosts": [{
+            "program": {
+                "name": h.program.name,
+                "params": [(p.name, p.type.name, p.type.elem)
+                           for p in h.program.params],
+                "ops": np.array(h.program.ops),
+                "imm": np.array(h.program.imm),
+                "n_regs": h.program.n_regs, "out_reg": h.program.out_reg,
+                "lists": [(ls.ranges, ls.param, ls.elem)
+                          for ls in h.program.lists],
+                "scalar_col": dict(h.program.scalar_col),
+                "list_id": dict(h.program.list_id),
+                "scalar_width": dict(h.program.scalar_width),
+                "uses_now": h.program.uses_now,
+                "time_arith": h.program.time_arith},
+            **{k: np.array(getattr(h, k)) for k in (
+                "ctx_e", "ctx_v", "ctx_k", "lo_e", "lo_v", "hi_e", "hi_v",
+                "list_k", "real")}} for h in c.hosts],
+        "interner": dict(c.interner._map),
+        "n_rows": c.n_rows,
+        "inst_row": np.array(c.inst_row),
+        "key_row": list(c.key_row.items()),
+        "n_inst": c.n_inst,
+        "time_bounds": np.array(c.time_bounds),
+        "time_exact": c.time_exact,
+        "any_now": c.any_now,
+    }
+
+
 def flatten_graph(cg) -> dict:
     """Plain numpy/Python view of a JAX ``CompiledGraph``, its overlay
     writer state and lookup tables included (copies: the JAX package
@@ -44,6 +78,7 @@ def flatten_graph(cg) -> dict:
         "res_idx": np.asarray(cg.res_idx),
         "res_src": np.asarray(cg.res_src), "res_dst": np.asarray(cg.res_dst),
         "res_exp": np.asarray(cg.res_exp),
+        "res_cav": None if cg.res_cav is None else np.asarray(cg.res_cav),
         "res_level_bounds": cg.res_level_bounds,
         "range_offs": np.asarray(cg.range_offs),
         "range_levels": np.asarray(cg.range_levels),
@@ -78,6 +113,8 @@ def flatten_graph(cg) -> dict:
         "relperm_off": cg.relperm_off,
         "arrow_maps": [(a, r, o, np.array(t)) for a, r, o, t in
                        (cg.arrow_maps or ())],
+        "caveats": None if cg.caveats is None
+        else flatten_caveats(cg.caveats),
     }
 
 
