@@ -45,6 +45,27 @@ rows generated from ``--seed``. Phases:
    every 10 ms as well (the proxy's dual-write load), list and write
    p50/p99 beside 9b's single-thread numbers, zero recompiles, and the
    writer's grants exact afterwards;
+S. the serving front (engine/batcher.py, engine/decision_cache.py) on
+   the same engine: (a) BASELINE.json's multi-tenant shape, 256 list
+   filters for 256 distinct users from 32 threads, with batching off,
+   on (window 2 ms, max_rows 8) and on with the decision cache, and one
+   thread in turn as a yardstick: lists/s,
+   p50/p99 a list, fused dispatches a list, iterations, the submit time
+   of the fillers (the thread whose submit fills a batch runs the fused
+   fixpoint), the bit kernel's calls by n_b; every mask byte-equal to
+   the unbatched one and those to the columnar host reference; (c) 31
+   users x 10 lists at one revision, cache on: hit ratio, hit and miss
+   p50, no launch and no dispatch over the all-hit rounds; a 64 x 1,024
+   bulk check twice (misses, then all hits), checks/s of each; (d)
+   singleflight: 16 threads, one uncached list: one dispatch and 15
+   piggybacks; (e) invalidation: the list after a write misses and
+   matches the host reference, a grant expiring 2 s ahead served from
+   the cache before its deadline and gone after it, a compaction fold
+   retiring the entries below its revision; (f) the serving path's
+   launches; (b) the bit kernel at a fused batch's captured inputs
+   (n_b = 8 and 4), byte-equal to its plain version, with its times,
+   bounds and the live words of the union against the sparse path's
+   limit; (g) a trace of one fused dispatch of 8 lists;
 10. the caveated mix, with phase 3-9's engine released first: bench.py's
     caveated mesh configuration (MESH_SCHEMA, 30% of the flat
     pod#viewer grants carrying an IP allowlist in one of two stored
@@ -63,12 +84,20 @@ rows generated from ``--seed``. Phases:
     spare instance rows, a caveat attached to a base grant, then one new
     context past the bucket): write and read-after-write p50/p99, exactly
     one recompile, counted as a ``caveat`` fallback; (g) a trace of 10
-    caveated lists with the VM's share of the device time.
+    caveated lists with the VM's share of the device time. (h), run
+    between (e) and (f): the decision cache and the batcher on this
+    cell: one subject's masks under the three contexts cached as three
+    entries equal to (b)'s, contexted lists bypassing the batcher, a
+    context differing only in undeclared keys hitting the declared
+    entry, and 8 context-free lists fused into one dispatch counting
+    their missing-context denials once.
 
 Launch counts are zeroed just before phase 5 and read just after phase 6
 (the kernels JSON's ``launches``), and again around phases 9b-9c
-(``write_path_launches``) and 10b-10c (``caveat_path_launches``): both
-kernels must have run on every path. Any
+(``write_path_launches``), S.a-S.e (``serving_path_launches``) and
+10b-10c (``caveat_path_launches``): both kernels must have run on every
+path. The bit kernel's row also carries its readings at the fused
+batch's inputs (``fused_inputs``). Any
 mismatch or error exits non-zero. The last line is the run's JSON
 verdict.
 
@@ -734,7 +763,8 @@ def trace_phase(torch, label: str, fn, n_calls: int,
                if any(fr in nm for fr in frags)]
         n, t = sum(h[0] for h in hit), sum(h[1] for h in hit)
         log(f"    {what}: {t / 1e3 / n_calls:.4f} ms device time a call "
-            f"({n} activities over {n_calls} calls)")
+            f"({n} activities over {n_calls} calls"
+            + (f", {t / 1e3 / n:.4f} ms an activity)" if n else ")"))
     for what, (t, n) in notes.items():
         log(f"    {what} (range): {t / 1e3 / n_calls:.4f} ms device time a "
             f"call, {t / busy:.4f} of the busy time, {n / n_calls:.1f} "
@@ -1204,6 +1234,370 @@ def write_phase(torch, e, samples: dict, subjects: list, n_writes: int,
     return launches
 
 
+# the serving front's multi-tenant shape (BASELINE.json config 5): 256
+# concurrent list requests for distinct users, from 32 threads
+N_TENANT_LISTS, N_TENANT_THREADS = 256, 32
+# BIG_CACHE is the decision cache's size for the serving phase: an
+# --authz-cache-size that holds one 64 x 1,024 bulk check's verdicts (the
+# default 65,536 entries, split over 16 shards, would evict some of them)
+BIG_CACHE = 1 << 20
+
+
+class NbSpy:
+    """Swap in a ``bit_or_matmul`` that records each call's ``n_b`` and
+    still launches the kernel; on exit the launches it took (counted on
+    the spy, the wrapper counting through the module-level name) are
+    added back to the real wrapper's count."""
+
+    def __init__(self, bitprop):
+        self.bitprop, self.n_b = bitprop, {}
+
+    def __enter__(self):
+        real = self.real = self.bitprop.bit_or_matmul
+
+        def spy(a, vb, nb):
+            self.n_b[nb] = self.n_b.get(nb, 0) + 1
+            return real(a, vb, nb)
+
+        spy.launches = 0
+        self.spy = spy
+        self.bitprop.bit_or_matmul = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.bitprop.bit_or_matmul = self.real
+        self.real.launches += self.spy.launches
+        return False
+
+
+def fused_batch(e, users: list) -> list:
+    """One fused dispatch of ``users``' list filters: a batcher that
+    flushes at exactly ``len(users)`` rows (the last submit runs it);
+    returns the masks."""
+    e.enable_lookup_batching(window=60.0, max_rows=len(users))
+    try:
+        futs = [e.lookup_resources_mask_async("pod", "view", "user", u)
+                for u in users]
+        return [f.result()[0] for f in futs]
+    finally:
+        e.disable_lookup_batching()
+
+
+def serving_phase(torch, e, subjects: list, items: list,
+                  seed: int) -> tuple:
+    """Phase S: the serving front on the headline engine (see the module
+    docstring). Returns (both kernels' launches over S.a and S.c-S.e, the
+    bit kernel's readings at the fused batch's inputs)."""
+    from spicedb_kubeapi_proxy_tpu_torch.engine.store import WriteOp
+    from spicedb_kubeapi_proxy_tpu_torch.models.tuples import Relationship
+    from spicedb_kubeapi_proxy_tpu_torch.ops import bitprop
+    from spicedb_kubeapi_proxy_tpu_torch.utils.metrics import metrics
+
+    rng = np.random.default_rng(seed + 110)
+
+    def counter(name, **kw):
+        return metrics.counter(name, **kw).value
+
+    def launches():
+        return {"bit_or_matmul": bitprop.bit_or_matmul.launches,
+                "dense_or_matmul": bitprop.dense_or_matmul.launches}
+
+    def list_mask(u):
+        return e.lookup_resources_mask("pod", "view", "user", u)[0]
+
+    objs = e._objects_by_name()
+    pods, n = objs["pod"], e.compiled().type_sizes["pod"]
+    picks = rng.choice(N_USERS, N_TENANT_LISTS + 24, replace=False)
+    users = [f"u{i}" for i in picks[:N_TENANT_LISTS]]
+    spare = [f"u{i}" for i in picks[N_TENANT_LISTS:]]  # never listed in S.a
+    check(e._batcher is None and e._decision_cache is None,
+          "S: the engine starts with the serving front off")
+    fused_batch(e, spare[:8])  # warm-up: the B=8 state's first allocation
+
+    def tenant_lists(label: str) -> tuple:
+        """256 list filters from 32 threads (8 each, released together):
+        {user: mask} and the readings."""
+        out, lat, sub, iters, errors = {}, [], [], [], []
+        lock = threading.Lock()
+        barrier = threading.Barrier(N_TENANT_THREADS)
+
+        def worker(k):
+            try:
+                barrier.wait(60)
+                for u in users[k::N_TENANT_THREADS]:
+                    t0 = time.perf_counter()
+                    fut = e.lookup_resources_mask_async("pod", "view",
+                                                        "user", u)
+                    t1 = time.perf_counter()
+                    m, _ = fut.result()
+                    t2 = time.perf_counter()
+                    with lock:
+                        out[u] = m
+                        lat.append((t2 - t0) * 1e3)
+                        sub.append((t1 - t0) * 1e3)
+                        iters.append(fut.iterations())
+            except BaseException as ex:  # reported after the join
+                errors.append(ex)
+
+        l0 = counter("engine_lookups_total")
+        b0 = counter("engine_lookup_batches_total")
+        threads = [threading.Thread(target=worker, args=(k,), daemon=True)
+                   for k in range(N_TENANT_THREADS)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        wall = time.perf_counter() - t0
+        check(not any(t.is_alive() for t in threads),
+              f"S.a {label}: a list thread did not finish")
+        check(not errors, f"S.a {label}: a list thread raised {errors[:1]!r}")
+        check(len(out) == N_TENANT_LISTS, f"S.a {label}: {len(out)} masks")
+        dl = counter("engine_lookups_total") - l0
+        db = counter("engine_lookup_batches_total") - b0
+        r = dict(rate=N_TENANT_LISTS / wall, p50=pct(lat, 50),
+                 p99=pct(lat, 99), per_list=db / max(dl, 1), batches=db,
+                 lookups=dl, iters=sorted(set(iters)), sub50=pct(sub, 50),
+                 sub_max=max(sub), slow_sub=sum(s > 1.0 for s in sub))
+        log(f"phase S.a {label}: {N_TENANT_LISTS} lists from "
+            f"{N_TENANT_THREADS} threads in {wall * 1e3:.1f} ms: "
+            f"{r['rate']:.1f} lists/s, p50 {r['p50']:.3f} ms p99 "
+            f"{r['p99']:.3f} ms a list; {db:.0f} fused dispatches for "
+            f"{dl:.0f} dispatched lookups ({r['per_list']:.4f} a list); "
+            f"iterations {r['iters']}; submit p50 {r['sub50']:.3f} ms, max "
+            f"{r['sub_max']:.3f} ms, {r['slow_sub']} submits over 1 ms "
+            "(the fillers, which run the fused fixpoint)")
+        return out, r
+
+    # -- S.a: 256 concurrent lists, three ways; launches counted from here
+    torch.cuda.synchronize()
+    bitprop.reset_launch_counts()
+    plain, r_off = tenant_lists("batching off")
+    # the yardstick: the same 256 lists from one thread, one at a time
+    t0 = time.perf_counter()
+    for u in users:
+        check(np.array_equal(list_mask(u), plain[u]),
+              f"S.a: the sequential mask for {u} differs")
+    seq = time.perf_counter() - t0
+    log(f"  the same {N_TENANT_LISTS} lists from one thread in turn: "
+        f"{seq * 1e3:.1f} ms, {N_TENANT_LISTS / seq:.1f} lists/s")
+    now = time.time()
+    want = view_masks(e.store, users, now, n)
+    for u in users:
+        check(np.array_equal(plain[u], want[u]), f"S.a: the unbatched mask "
+              f"for {u} disagrees with the host reference")
+    e.enable_lookup_batching()  # the reference's defaults: 2 ms, 8 rows
+    with NbSpy(bitprop) as spy:
+        fused, r_on = tenant_lists("batching on (window 2 ms, max_rows 8)")
+    e.enable_decision_cache(max_entries=BIG_CACHE)
+    cached, r_cache = tenant_lists("batching and decision cache on")
+    e.disable_lookup_batching()
+    for u in users:
+        check(np.array_equal(fused[u], plain[u]) and
+              np.array_equal(cached[u], plain[u]),
+              f"S.a: a batched mask for {u} differs from the unbatched one")
+    log(f"  every batched mask byte-equal to the unbatched one, and those "
+        f"to the host reference; bit_or_matmul calls by n_b with batching "
+        f"on: {dict(sorted(spy.n_b.items()))}")
+    check(r_on["batches"] > 0 and max(spy.n_b) > 1,
+          "S.a: batching on ran no fused batch of more than one row")
+
+    # -- S.c: repeat traffic at one revision, cache on (batching off: one
+    # thread in turn, so a window would only add its wait to each miss)
+    e.disable_decision_cache()
+    e.enable_decision_cache(max_entries=BIG_CACHE)
+    subjects = list(dict.fromkeys(subjects))
+    h0, m0 = (counter("engine_decision_cache_hits_total", kind="lookup"),
+              counter("engine_decision_cache_misses_total", kind="lookup"))
+    rev0 = e.revision
+    miss_ms, hit_ms, first = [], [], {}
+    for u in subjects:
+        t0 = time.perf_counter()
+        first[u] = list_mask(u)
+        miss_ms.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    k0, l0 = launches(), counter("engine_lookups_total")
+    for _ in range(9):
+        for u in subjects:
+            t0 = time.perf_counter()
+            m = list_mask(u)
+            hit_ms.append((time.perf_counter() - t0) * 1e3)
+            check(np.array_equal(m, first[u]),
+                  f"S.c: a cached mask for {u} differs from its miss")
+    dh = counter("engine_decision_cache_hits_total", kind="lookup") - h0
+    dm = counter("engine_decision_cache_misses_total", kind="lookup") - m0
+    check(launches() == k0 and counter("engine_lookups_total") == l0
+          and e.revision == rev0,
+          f"S.c: all-hit rounds launched {launches()} (from {k0}) or "
+          "dispatched")
+    check(dh == 9 * len(subjects) and dm == len(subjects),
+          f"S.c: {dh:.0f} hits and {dm:.0f} misses")
+    log(f"phase S.c repeat lists, {len(subjects)} users x 10 at one "
+        f"revision: hit ratio {dh / (dh + dm):.4f}; hit p50 "
+        f"{pct(hit_ms, 50):.4f} ms p99 {pct(hit_ms, 99):.4f} ms, miss p50 "
+        f"{pct(miss_ms, 50):.3f} ms p99 {pct(miss_ms, 99):.3f} ms; 0 kernel "
+        f"launches and 0 dispatches over the {len(hit_ms)} hits")
+    rates = []
+    for k in range(2):
+        if k:
+            k0 = launches()
+        t0 = time.perf_counter()
+        verdicts = e.check_bulk(items)
+        rates.append(len(items) / (time.perf_counter() - t0))
+        if not k:
+            cold = verdicts
+    check(launches() == k0, "S.c: the all-hit bulk check launched a kernel")
+    check(verdicts == cold and cold == e.check_bulk(items, now=time.time()),
+          "S.c: cached bulk verdicts differ from a dispatch")
+    log(f"  bulk check {len(items)} items (64 x 1,024): first call (misses) "
+        f"{rates[0]:,.0f} checks/s, second call (all hits, 0 launches) "
+        f"{rates[1]:,.0f} checks/s; {sum(verdicts)} allowed")
+
+    # -- S.d: singleflight (batching on with a 50 ms window, so all 16
+    # reach the flight while the leader's batch waits)
+    e.enable_lookup_batching(window=0.05)
+    u = spare[8]
+    res, errors = [None] * 16, []
+    barrier = threading.Barrier(16)
+
+    def asker(k):
+        try:
+            barrier.wait(60)
+            res[k] = list_mask(u)
+        except BaseException as ex:  # reported after the join
+            errors.append(ex)
+
+    l0, p0 = (counter("engine_lookups_total"),
+              counter("engine_decision_cache_piggybacks_total"))
+    b0 = counter("engine_lookup_batches_total")
+    threads = [threading.Thread(target=asker, args=(k,), daemon=True)
+               for k in range(16)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=60)
+    e.disable_lookup_batching()
+    check(not any(t.is_alive() for t in threads) and not errors,
+          f"S.d: an asker hung or raised {errors[:1]!r}")
+    dl = counter("engine_lookups_total") - l0
+    dp = counter("engine_decision_cache_piggybacks_total") - p0
+    db = counter("engine_lookup_batches_total") - b0
+    ref = view_masks(e.store, [u], time.time(), n)[u]
+    check(dl == 1 and db == 1 and dp == 15,
+          f"S.d: {dl:.0f} dispatches, {db:.0f} batches, {dp:.0f} piggybacks"
+          " (want 1, 1, 15)")
+    check(all(np.array_equal(m, ref) for m in res),
+          "S.d: an asker's mask differs from the host reference")
+    log(f"phase S.d singleflight: 16 threads, one uncached list: {dl:.0f} "
+        f"dispatch, {dp:.0f} piggybacks, every mask equal to the host "
+        "reference")
+
+    # -- S.e: invalidation
+    u = subjects[0]
+    m0 = list_mask(u)  # a hit at this revision
+    hidden = np.flatnonzero(~m0[2:n]) + 2
+    p = int(hidden[rng.integers(len(hidden))])
+    mk0 = counter("engine_decision_cache_misses_total", kind="lookup")
+    e.write_relationships([WriteOp("touch", Relationship(
+        "pod", pods.string(p), "viewer", "user", u))])
+    m1 = list_mask(u)
+    check(counter("engine_decision_cache_misses_total", kind="lookup")
+          - mk0 == 1, "S.e: the list after a write did not miss")
+    check(bool(m1[p]) and np.array_equal(
+        m1, view_masks(e.store, [u], time.time(), n)[u]),
+        "S.e: the list after a write disagrees with the host reference")
+    q = int(hidden[(np.searchsorted(hidden, p) + 1) % len(hidden)])
+    exp_at = time.time() + 2.0
+    e.write_relationships([WriteOp("touch", Relationship(
+        "pod", pods.string(q), "viewer", "user", u, None, exp_at))])
+    rev = e.revision
+    hk0 = counter("engine_decision_cache_hits_total", kind="lookup")
+    ma, mb = list_mask(u), list_mask(u)
+    check(time.time() < exp_at and bool(ma[q]) and np.array_equal(ma, mb)
+          and counter("engine_decision_cache_hits_total", kind="lookup")
+          - hk0 == 1, "S.e: the expiring grant is not served from the "
+          "cache before its deadline")
+    time.sleep(max(0.0, exp_at + 0.05 - time.time()))
+    mk0 = counter("engine_decision_cache_misses_total", kind="lookup")
+    mc = list_mask(u)
+    check(e.revision == rev and not mc[q] and np.array_equal(mc, m1)
+          and counter("engine_decision_cache_misses_total", kind="lookup")
+          - mk0 == 1, "S.e: the expired grant is still served")
+    cache = e._decision_cache
+    before = cache.stats()
+    r0 = counter("engine_decision_cache_retired_total")
+    comp = e.enable_compaction(1.0)
+    try:
+        check(comp.compact(), "S.e: the compaction fold did not publish")
+    finally:
+        e.close_compaction()
+    after = cache.stats()
+    dr = counter("engine_decision_cache_retired_total") - r0
+    l0 = counter("engine_lookups_total")
+    check(np.array_equal(list_mask(u), mc)
+          and counter("engine_lookups_total") == l0,
+          "S.e: the entry at the fold revision did not survive the fold")
+    check(e.compiled().revision == rev and after["entries"] >= 1
+          and dr == before["entries"] - after["entries"] > 0,
+          f"S.e: the fold retired {dr:.0f} entries, {before} -> {after}")
+    log(f"phase S.e invalidation: the list after a write missed and matched "
+        f"the host reference; a grant expiring 2 s ahead served from the "
+        f"cache before its deadline and gone after it, no write between; a "
+        f"compaction fold at revision {rev} retired {dr:.0f} entries below "
+        f"it ({before['entries']} entries, {before['mask_bytes']} mask "
+        f"bytes -> {after['entries']}, {after['mask_bytes']}); the entry at "
+        f"the fold revision still served")
+    e.disable_decision_cache()
+
+    # -- S.f: the serving path's launches
+    torch.cuda.synchronize()
+    served = launches()
+    log(f"phase S.f serving-path launches over S.a and S.c-S.e: {served}")
+    for kname, cnt in served.items():
+        check(cnt > 0, f"{kname} was not launched on the serving path")
+
+    # -- S.b: the bit kernel at the fused batch's inputs (launches for the
+    # comparison are not counted)
+    pv = next(i for i, b in enumerate(e.compiled().blocks)
+              if b.dst_off == e.compiled().offset_of("pod", "viewer"))
+    bits = e.compiled()._dev()["blocks_bits"][pv]
+    fused_rows = {}
+    for nb in (8, 4):
+        got = {}
+        real = bitprop.bit_or_matmul
+
+        def cap(a, vb, k):
+            if a is bits and k == nb:
+                got.setdefault("bit", (a, vb.clone(), k))
+            return real(a, vb, k)
+
+        cap.launches = 0
+        bitprop.bit_or_matmul = cap
+        try:
+            fused_batch(e, spare[9:9 + nb])
+        finally:
+            bitprop.bit_or_matmul = real
+        check("bit" in got, f"S.b: the fused {nb}-row batch gave the "
+              "pod#viewer block no bit hop at n_b={nb}")
+        a, vb, k = got["bit"]
+        row = time_bit(torch, bitprop, a, vb, k,
+                       f"fused batch of {nb} lists")
+        row["sparse_max_live"] = bitprop.bit_sparse_max_live(*a.shape)
+        row["n_b"] = k
+        fused_rows[nb] = row
+        log(f"    {row['live']} live words in the union over {nb} rows "
+            f"against the sparse path's limit {row['sparse_max_live']} "
+            f"({'sparse' if row['live'] <= row['sparse_max_live'] else 'whole-row stream'})")
+
+    # -- S.g: where the time goes in one fused dispatch
+    trace_phase(torch, "fused list batch (8 lists, one dispatch, n_b=8)",
+                lambda: fused_batch(e, spare[:8]), 8,
+                {"bit_or_matmul_kernel": ("bit_or_matmul_kernel",),
+                 "its small-dual stream kernel": (
+                     "bit_or_matmul_stream_kernel",)})
+    return served, fused_rows
+
+
 # phase 10's request contexts: the first both stored contexts allow, the
 # second only the first allows, and without one every caveated grant
 # fails closed (two instances, so two missing-context denials a call)
@@ -1424,6 +1818,72 @@ def caveat_phase(torch, dev, n_rels: int, subjects: list, items: list,
     log(f"phase 10e oracle: 2 full masks and {n_checks // 3} checks a "
         f"context exact under all three, and {len(own)} of 10c's verdicts "
         f"({time.perf_counter() - t0:.1f} s)")
+
+    # -- 10h: the decision cache and the batcher on the caveated cell --
+    e.enable_decision_cache()
+    e.enable_lookup_batching()  # the reference's defaults: 2 ms, 8 rows
+    cache = e._decision_cache
+    u = next((u for u in subjects if masks[("allow-both", u)].sum()
+              > masks[("allow-first", u)].sum() > masks[("none", u)].sum()),
+             None)
+    check(u is not None, "10h: no subject whose three masks all differ")
+    n0 = cache.stats()["entries"]
+    b0 = counter("engine_lookup_batches_total")
+    for label, ctx in CAV_CONTEXTS[:2]:
+        check(np.array_equal(list_mask(u, ctx), masks[(label, u)]),
+              f"10h: the cached path's mask for {u} under {label} differs "
+              "from 10b's")
+    check(counter("engine_lookup_batches_total") == b0,
+          "10h: a contexted list went through the batcher")
+    m0 = counter(MISSING)
+    check(np.array_equal(list_mask(u, None), masks[("none", u)]),
+          f"10h: the cached path's mask for {u} without a context differs "
+          "from 10b's")
+    check(counter("engine_lookup_batches_total") == b0 + 1
+          and counter(MISSING) - m0 == 2,
+          "10h: the context-free list did not fuse or miscounted its "
+          "missing-context denials")
+    check(cache.stats()["entries"] == n0 + 3,
+          f"10h: {cache.stats()['entries'] - n0} entries for 3 contexts")
+    l0 = counter("engine_lookups_total")
+    h0 = counter("engine_decision_cache_hits_total", kind="lookup")
+    for label, ctx in CAV_CONTEXTS:
+        check(np.array_equal(list_mask(u, ctx), masks[(label, u)]),
+              f"10h: the cached mask for {u} under {label} differs")
+    undeclared = dict(CAV_CONTEXTS[0][1], verb="list", user="alice")
+    check(np.array_equal(list_mask(u, undeclared),
+                         masks[("allow-both", u)]),
+          "10h: an undeclared key changed the mask")
+    dh = counter("engine_decision_cache_hits_total", kind="lookup") - h0
+    check(counter("engine_lookups_total") == l0 and dh == 4,
+          f"10h: {dh:.0f} hits of 4, an undeclared key split the entry or "
+          "a repeat dispatched")
+    # eight context-free lists in one fused dispatch (a window long enough
+    # that the eighth submit flushes): the missing-context denials count
+    # once a dispatch, not once a row
+    e.enable_lookup_batching(window=60.0)
+    rows8 = list(dict.fromkeys(s for s in subjects if s != u))[:8]
+    m0, b0 = counter(MISSING), counter("engine_lookup_batches_total")
+    futs = [e.lookup_resources_mask_async("pod", "view", "user", s)
+            for s in rows8]
+    for s, f in zip(rows8, futs):
+        check(np.array_equal(f.result()[0], masks[("none", s)]),
+              f"10h: the fused context-free mask for {s} differs from 10b's")
+    check(counter("engine_lookup_batches_total") - b0 == 1
+          and counter(MISSING) - m0 == 2,
+          f"10h: {counter('engine_lookup_batches_total') - b0:.0f} batches, "
+          f"{counter(MISSING) - m0:.0f} missing-context denials for 8 fused "
+          "rows (want 1, 2)")
+    e.disable_lookup_batching()
+    e.disable_decision_cache()
+    log(f"phase 10h decision cache on the caveated cell: {u}'s masks under "
+        f"the three contexts cached as three entries, each byte-equal to "
+        f"10b's (visible pods {int(masks[('allow-both', u)].sum())} > "
+        f"{int(masks[('allow-first', u)].sum())} > "
+        f"{int(masks[('none', u)].sum())}); the contexted lists bypassed "
+        f"the batcher; a context differing only in undeclared keys hit the "
+        f"declared entry; 8 context-free lists fused into one dispatch "
+        f"counting 2 missing-context denials")
 
     # -- 10f: caveated writes --
     new_ctx = [canonical_context({"allowed": [f"172.16.{k}.0/24"]})
@@ -1732,6 +2192,12 @@ def main(argv=None) -> int:
                                  args.seed, compile_s + dev_s)
     log(f"phase 9 took {time.perf_counter() - t0:.1f} s")
 
+    # -- phase S: the serving front, on the same engine --
+    t0 = time.perf_counter()
+    serving_launches, fused_rows = serving_phase(torch, e, subjects, items,
+                                                 args.seed)
+    log(f"phase S took {time.perf_counter() - t0:.1f} s")
+
     # -- phase 10: the caveated mix, on a store of its own --
     del e, cg, d, objs, pods, fut, A, bits
     gc.collect()
@@ -1751,12 +2217,20 @@ def main(argv=None) -> int:
                     "launches": launches[kname],
                     "write_path_launches": write_launches[kname],
                     "caveat_path_launches": caveat_launches[kname],
+                    "serving_path_launches": serving_launches[kname],
                     "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                     "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                     "device_ms": r["device_ms"], "host_ms": r["host_ms"],
                     "library_device_ms": r.get("library_device_ms"),
-                    "sector_bound_ms": r["sector_bound_ms"]})
+                    "sector_bound_ms": r["sector_bound_ms"],
+                    "fused_inputs": {
+                        f"n_b{nb}": {k: fr[k] for k in (
+                            "ms", "device_ms", "host_ms", "plain_ms",
+                            "bound_ms", "sector_bound_ms", "live",
+                            "sparse_max_live")}
+                        for nb, fr in fused_rows.items()}
+                    if kname == "bit_or_matmul" else None})
     log("kernels: " + ", ".join(
         f"{k['name']} launches={k['launches']} matched_plain="
         f"{k['max_abs_err'] == 0}" for k in out))

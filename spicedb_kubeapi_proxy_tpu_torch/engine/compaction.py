@@ -9,7 +9,8 @@ fully-consistent read. The **compactor** thread folds the accumulated
 tail into a fresh compiled base (``compile_graph`` off the write path;
 the old base keeps serving), replays whatever landed during the fold,
 and swaps the engine's graph at a recorded revision. The swap preserves
-the revision: compaction is semantically a no-op.
+the revision: compaction is semantically a no-op, and the decision
+cache's entries keyed below it are retired at the swap.
 
 Overflow becomes **back-pressure** instead of a stall: when the overlay
 cannot absorb a write, :class:`OverlayBackpressure` sheds it before any
@@ -205,6 +206,12 @@ class Compactor:
                 return False
             e._head = fresh
             e._publish(fresh)
+        cache = e._decision_cache
+        if cache is not None:
+            # entries AT the swap revision stay valid (the swap keeps the
+            # revision); those below it can never be probed again: retire
+            # them at fold cadence rather than let churn fill the LRU
+            cache.retire_below(fresh.revision)
         dur = time.perf_counter() - t0
         self._durations.append(dur)
         metrics.counter("engine_compactions_total").inc()

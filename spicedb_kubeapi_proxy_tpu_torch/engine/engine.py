@@ -7,12 +7,17 @@ recompile only when the overlay cannot express it, and the optional
 background compactor of engine/compaction.py), chunked bulk checks and
 list-filter masks through the reachability fixpoint
 (ops/reachability.py) under a request caveat context (caveats/), and
-the push/pull crossover feedback. The batcher, decision cache,
-persistence, mesh, tiering and migration come with later slices.
+the push/pull crossover feedback, and the serving front in front of
+the fixpoint: the revision-keyed decision cache with singleflight
+(engine/decision_cache.py) and the cross-request lookup batcher
+(engine/batcher.py). Persistence, mesh, tiering and migration come with
+later slices.
 """
 
 from __future__ import annotations
 
+import hashlib
+import json
 import threading
 import time
 from dataclasses import dataclass
@@ -29,7 +34,7 @@ from ..caveats.ast import (
 )
 from ..device import resolve_device
 from ..models.bootstrap import DEFAULT_BOOTSTRAP, parse_bootstrap
-from ..models.schema import Schema
+from ..models.schema import Schema, watch_relevance
 from ..models.tuples import Relationship, canonical_context
 from ..ops import semiring
 from ..ops.reachability import (
@@ -44,6 +49,7 @@ from ..ops.reachability import (
 from ..utils.features import features
 from ..utils.metrics import metrics
 from .compaction import Compactor, validate_overlay_config
+from .decision_cache import MISS, DecisionCache, check_key, lookup_key
 from .evaluator import OracleEvaluator
 from .store import (
     OP_DELETE,
@@ -75,6 +81,21 @@ class CheckItem:
     subject_type: str
     subject_id: str
     subject_relation: Optional[str] = None
+
+
+def context_digest(context) -> Optional[str]:
+    """Stable digest of a request caveat-context dict, appended to
+    decision-cache keys so conditional verdicts never leak across
+    contexts. ``None`` for no or an empty context: context-free queries
+    keep their cache keys."""
+    if not context:
+        return None
+    try:
+        blob = json.dumps(context, sort_keys=True,
+                          separators=(",", ":"), default=str)
+    except (TypeError, ValueError):
+        blob = repr(sorted((str(k), str(v)) for k, v in context.items()))
+    return hashlib.sha1(blob.encode()).hexdigest()
 
 
 def mask_to_ids(mask, interner) -> list:
@@ -253,8 +274,48 @@ class Engine:
         self._q_host: dict[tuple, tuple] = {}
         # frontier-occupancy EWMA feeding the push/pull crossover
         self._occ_ewma: Optional[float] = None
+        # the serving front, both off until enabled: the lookup batcher
+        # and the decision cache in front of it
+        self._batcher = None
+        self._decision_cache: Optional[DecisionCache] = None
         if seed:
             self.write_relationships([WriteOp("touch", r) for r in seed])
+
+    def enable_lookup_batching(self, window: float = 0.002,
+                               max_rows: int = 8) -> None:
+        """Coalesce concurrent lookup_resources_mask calls into fused
+        device dispatches (engine/batcher.py): up to ``window`` seconds of
+        added latency for one dispatch per ``max_rows`` concurrent list
+        filters."""
+        from .batcher import LookupBatcher
+
+        self._batcher = LookupBatcher(self, window=window, max_rows=max_rows)
+
+    def disable_lookup_batching(self) -> None:
+        """Back to one dispatch a lookup. The retired batcher is closed:
+        its pending batch flushes, and a racing submit that still holds
+        it falls through to the direct path."""
+        b, self._batcher = self._batcher, None
+        if b is not None:
+            b.close()
+
+    def enable_decision_cache(self, max_entries: int = 65536,
+                              max_mask_bytes: int = 256 << 20) -> None:
+        """Serve repeat queries at an unchanged revision from a
+        revision-keyed LRU instead of dispatching, and coalesce concurrent
+        identical misses into one dispatch (engine/decision_cache.py).
+        Writes move the revision (new keys), expiring tuples and caveat
+        time bounds cap every entry's life, and explicit-``now`` queries
+        bypass the cache."""
+        self._decision_cache = DecisionCache(max_entries=max_entries,
+                                             max_mask_bytes=max_mask_bytes)
+
+    def disable_decision_cache(self) -> None:
+        """Drop the cache (gauges zeroed); fills in flight resolve but are
+        no longer consulted."""
+        c, self._decision_cache = self._decision_cache, None
+        if c is not None:
+            c.clear()
 
     def enable_compaction(self, threshold: float = 0.75):
         """Start the background overlay compactor (engine/compaction.py):
@@ -567,6 +628,69 @@ class Engine:
               context: Optional[dict] = None) -> bool:
         return self.check_bulk([item], now=now, context=context)[0]
 
+    def _cache_deadline(self, cg: CompiledGraph, now0: float,
+                        context: Optional[dict]) -> float:
+        """Validity horizon of a decision-cache entry filled at ``now0``:
+        the store's next expiration boundary joined with the caveat
+        table's next verdict-flip instant (a time-window caveat grants or
+        revokes without a write, as an expiry does)."""
+        deadline = self.store.next_expiry(now0)
+        cav = cg.caveats
+        if cav is not None and cav.metas:
+            deadline = min(deadline, cav.next_time_bound(
+                now0, cav.request_ts(context)))
+        return deadline
+
+    def _digest(self, cg: CompiledGraph, context) -> Optional[str]:
+        """The cache keys' context digest on ``cg``: none on a graph
+        without caveat instances (its answers cannot depend on the
+        context), else the digest of the declared caveat parameters
+        only, so undeclared request fields do not split the entries."""
+        cav = cg.caveats
+        if cav is None or not cav.metas:
+            return None
+        return context_digest(cav.relevant_context(context))
+
+    def watch_gate(self, resource_type: str, name: str
+                   ) -> tuple[frozenset, bool]:
+        """(relevant types, reachable expiration) for watch streams: the
+        types whose writes can affect ``resource_type#name``
+        (models/schema.py ``watch_relevance``), and whether a relation the
+        watched permission reaches allows expiring tuples."""
+        return watch_relevance(self.schema, resource_type, name)
+
+    def try_cached_check(self, items: list[CheckItem],
+                         context: Optional[dict] = None
+                         ) -> Optional[list[bool]]:
+        """Non-blocking decision-cache probe: every verdict when every
+        item is a hit at the current revision, else ``None``. Never
+        compiles, dispatches or blocks beyond a shard lock."""
+        cache = self._decision_cache
+        if cache is None:
+            return None
+        if not items:
+            return []
+        rev = self.store.revision
+        # the parameter-scoped digest only when the published graph
+        # provably is this revision; otherwise the full context's digest,
+        # which at worst misses
+        cg = self._compiled
+        if cg is not None and cg.revision == rev:
+            digest = self._digest(cg, context)
+        else:
+            digest = context_digest(context)
+        now = time.time()
+        out: list[bool] = []
+        for it in items:
+            v = cache.get(check_key(rev, it, digest), now, record=False)
+            if v is MISS:
+                return None
+            out.append(v)
+        # counted only once the whole probe served (a partial probe falls
+        # through to check_bulk_async, which counts its own)
+        cache.note_hits("check", len(out))
+        return out
+
     def check_bulk(self, items: list[CheckItem],
                    now: Optional[float] = None,
                    context: Optional[dict] = None) -> list[bool]:
@@ -581,9 +705,56 @@ class Engine:
     def check_bulk_async(self, items: list[CheckItem],
                          now: Optional[float] = None,
                          context: Optional[dict] = None) -> EngineFuture:
+        """Dispatch a bulk check; ``.result()`` waits for the verdicts.
+
+        With the decision cache on (and no explicit ``now``: a pinned
+        clock bypasses it), verdicts come from the cache and only the
+        miss residue dispatches, against the same snapshot the hits were
+        keyed at, so the answer reflects one revision. Both polarities
+        are cached at that revision (plus the context digest on a
+        caveated graph) until the cache deadline."""
+        cache = self._decision_cache
+        if cache is None or now is not None or not items:
+            return self._check_bulk_dispatch(items, now, context=context)
+        cg = self.compiled()
+        now0 = time.time()
+        digest = self._digest(cg, context)
+        keys = [check_key(cg.revision, it, digest) for it in items]
+        out: list = [None] * len(items)
+        miss_idx: list[int] = []
+        for i, k in enumerate(keys):
+            v = cache.get(k, now0)
+            if v is MISS:
+                miss_idx.append(i)
+            else:
+                out[i] = v
+        if not miss_idx:
+            return EngineFuture(None, lambda _: list(out))
+        inner = self._check_bulk_dispatch(
+            [items[i] for i in miss_idx], now0, cg=cg, context=context)
+
+        def fin(_):
+            got = inner.result()
+            deadline = self._cache_deadline(cg, now0, context)
+            for j, i in enumerate(miss_idx):
+                v = bool(got[j])
+                cache.put(keys[i], v, deadline, 0, now0)
+                out[i] = v
+            return list(out)
+
+        return EngineFuture(None, fin, iters=inner.iterations)
+
+    def _check_bulk_dispatch(self, items: list[CheckItem],
+                             now: Optional[float] = None,
+                             cg: Optional[CompiledGraph] = None,
+                             context: Optional[dict] = None
+                             ) -> EngineFuture:
+        """The bulk check without the cache: one chunked device pass.
+        ``cg`` pins a snapshot already taken (the cached path's)."""
         if not items:
             return EngineFuture(None, lambda _: [])
-        cg = self.compiled()
+        if cg is None:
+            cg = self.compiled()
         objs = self._objects_by_name()
         t0 = time.perf_counter()
         self._apply_crossover(cg)
@@ -641,6 +812,34 @@ class Engine:
             subject_relation, now=now, context=context)
         return mask_to_ids(mask, interner)
 
+    def lookup_subjects(self, resource_type: str, resource_id: str,
+                        permission: str, subject_type: str,
+                        subject_relation: Optional[str] = None,
+                        now: Optional[float] = None,
+                        context: Optional[dict] = None,
+                        chunk: int = 4096) -> list[str]:
+        """LookupSubjects: the subjects of ``subject_type`` that hold
+        ``permission`` on one resource, as bulk checks over the store's
+        known subjects of that type (every distinct subject id in any
+        relationship). A wildcard grant passes every known subject; the
+        literal ``'*'`` is never reported. Sorted."""
+        cands = sorted({
+            rel.subject_id
+            for rel in self.read_relationships(
+                RelationshipFilter(subject_type=subject_type))
+            if rel.subject_id != "*"
+        })
+        out: list[str] = []
+        for i in range(0, len(cands), chunk):
+            part = cands[i:i + chunk]
+            got = self.check_bulk(
+                [CheckItem(resource_type, resource_id, permission,
+                           subject_type, sid, subject_relation)
+                 for sid in part], now=now, context=context)
+            out.extend(sid for sid, ok in zip(part, got) if ok)
+        metrics.counter("engine_lookup_subjects_total").inc()
+        return out
+
     def lookup_resources_mask(self, resource_type: str, permission: str,
                               subject_type: str, subject_id: str,
                               subject_relation: Optional[str] = None,
@@ -659,6 +858,91 @@ class Engine:
                                     now: Optional[float] = None,
                                     context: Optional[dict] = None
                                     ) -> EngineFuture:
+        """Non-blocking mask lookup; ``.result()`` -> (mask, interner).
+        With batching on, concurrent calls fuse into one dispatch.
+
+        The decision cache (when on; now-less queries only) sits in front
+        of everything: a repeat at an unchanged revision is served on the
+        host with no device work, and concurrent identical misses share
+        one flight: one caller dispatches (through the batcher when on,
+        which so only sees true misses), the rest wait on its result.
+        Cached masks are copied on read."""
+        cache = self._decision_cache
+        if cache is None or now is not None:
+            return self._lookup_submit(resource_type, permission,
+                                       subject_type, subject_id,
+                                       subject_relation, now, context)
+        cg = self.compiled()
+        key = lookup_key(cg.revision, resource_type, permission,
+                         subject_type, subject_id, subject_relation,
+                         self._digest(cg, context))
+        now0 = time.time()
+        hit = cache.get(key, now0)
+        if hit is not MISS:
+            mask, interner = hit
+            return EngineFuture(None, lambda _: (
+                None if mask is None else mask.copy(), interner))
+        leader, flight = cache.flight(key, now0)
+        if not leader:
+
+            def fin_follower(_):
+                mask, interner = flight.result()
+                return (None if mask is None else mask.copy(), interner)
+
+            return EngineFuture(None, fin_follower)
+        try:
+            inner = self._lookup_submit(resource_type, permission,
+                                        subject_type, subject_id,
+                                        subject_relation, None, context)
+        except BaseException as e:  # the dispatch died before a future
+            flight.abort(e)
+            cache.release(key, flight)
+            raise
+
+        def finish():
+            try:
+                value = inner.result()
+            except BaseException:
+                cache.release(key, flight)  # errors are never cached
+                raise
+            mask, interner = value
+            deadline = self._cache_deadline(cg, now0, context)
+            flight.deadline = deadline
+            cache.put(key, (mask, interner), deadline,
+                      0 if mask is None else int(mask.nbytes), now0)
+            cache.release(key, flight)
+            return value
+
+        flight.launch(finish)
+
+        def fin_leader(_):
+            mask, interner = flight.result()
+            return (None if mask is None else mask.copy(), interner)
+
+        return EngineFuture(None, fin_leader,
+                            iters=getattr(inner, "iterations", None))
+
+    def _lookup_submit(self, resource_type: str, permission: str,
+                       subject_type: str, subject_id: str,
+                       subject_relation: Optional[str],
+                       now: Optional[float],
+                       context: Optional[dict] = None):
+        """Route one true-miss lookup: fused through the batcher when on,
+        direct otherwise."""
+        cg = self._compiled
+        # a fused batch evaluates ONE caveat mask a dispatch, so a context
+        # matters (and bypasses the batcher) only on a graph that may hold
+        # caveat instances; contexted lookups on a provably caveat-less
+        # current graph still fuse
+        ctx_matters = bool(context) and not (
+            cg is not None and cg.revision == self.store.revision
+            and (cg.caveats is None or not cg.caveats.metas))
+        if self._batcher is not None and now is None and not ctx_matters:
+            # explicit-now callers bypass the batcher: a fused batch runs
+            # at one dispatch-time clock
+            return self._batcher.submit(
+                resource_type, permission, subject_type, subject_id,
+                subject_relation)
         return self._lookup_direct(resource_type, permission, subject_type,
                                    subject_id, subject_relation, now,
                                    context)

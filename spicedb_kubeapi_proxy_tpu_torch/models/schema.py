@@ -564,6 +564,65 @@ def _validate(schema: Schema) -> None:
                         )
 
 
+def watch_relevance(schema: Schema, resource_type: str,
+                    name: str) -> "tuple[frozenset, bool]":
+    """(relevant resource types, reachable expiration) for the permission
+    (or relation) ``resource_type#name``. Tuples are keyed by their
+    resource type, so a write to a type outside the set provably cannot
+    change the permission — watch streams use that to skip allowed-set
+    recomputes on unrelated write traffic. The expiration flag is true only
+    when some RELATION REACHABLE from the watched permission allows
+    ``with expiration`` — a schema carrying expiration on an unrelated
+    subtree must not make every idle watcher tick. Both are
+    conservative at TYPE granularity; cycles (recursive groups) terminate
+    via the seen set."""
+    seen: set = set()
+    types: set = set()
+    expires = False
+
+    def visit(t: str, r: str) -> None:
+        nonlocal expires
+        if (t, r) in seen:
+            return
+        seen.add((t, r))
+        d = schema.definitions.get(t)
+        if d is None:
+            return
+        types.add(t)
+        if r in d.permissions:
+            walk(t, d.permissions[r].expr, d)
+        elif r in d.relations:
+            for a in d.relations[r].allowed:
+                if a.expiration:
+                    expires = True
+                if a.relation:
+                    visit(a.type, a.relation)
+
+    def walk(t: str, expr: Expr, d: Definition) -> None:
+        if isinstance(expr, RelationRef):
+            visit(t, expr.name)
+        elif isinstance(expr, Arrow):
+            visit(t, expr.tupleset)
+            rel = d.relations.get(expr.tupleset)
+            for a in (rel.allowed if rel else ()):
+                visit(a.type, expr.target)
+        elif isinstance(expr, (Union, Intersect)):
+            for o in expr.operands:
+                walk(t, o, d)
+        elif isinstance(expr, Exclude):
+            walk(t, expr.base, d)
+            walk(t, expr.subtract, d)
+
+    visit(resource_type, name)
+    return frozenset(types), expires
+
+
+def relevant_resource_types(schema: Schema, resource_type: str,
+                            name: str) -> frozenset:
+    """Resource types whose relationship writes can affect
+    ``resource_type#name`` (see :func:`watch_relevance`)."""
+    return watch_relevance(schema, resource_type, name)[0]
+
 
 def parse_schema(text: str) -> Schema:
     """Parse schema DSL text into a validated :class:`Schema`."""

@@ -659,6 +659,8 @@ class CompiledGraph:
         max_iters: int = DEFAULT_MAX_ITERS,
         q_cache_key: Optional[tuple] = None,
         q_contiguous: Optional[bool] = None,
+        q_contig_grid: Optional[tuple] = None,  # (lo, L, R): R rows x
+        # one shared [lo, lo+L) window (the fused-batch shape)
         context: Optional[dict] = None,  # request caveat context
         cav_req: Optional[tuple] = None,  # pre-encoded request arrays
         # (CompiledCaveats.encode_request): chunked bulk callers encode
@@ -673,6 +675,16 @@ class CompiledGraph:
         a side stream is left to a later change. The fixpoint runs under
         the shared side of the resident lock, against the newest device
         state of this graph's base (at least as fresh as this view).
+
+        Contiguous-window queries (the list-filter shape: one type's full
+        permission range) are read out as one strided slice of the state
+        instead of a gather through uploaded index tensors. Two forms:
+        ``q_contiguous=True`` (one window of one row; None auto-detects
+        windows of 1,024 slots and more) and ``q_contig_grid=(lo, L, R)``,
+        the lookup batcher's promise that the query is R rows (0..R-1)
+        each reading the same window ``[lo, lo + L)``, in row-major order.
+        A promise whose shape does not fit the state falls back to the
+        cached gather.
 
         ``context`` is the request's caveat context, encoded against the
         graph's caveat tables with the absolute clock (a ``now`` caveat
@@ -689,11 +701,20 @@ class CompiledGraph:
         seeds[:B] = seed_slots
         Mp_state = (self.M // LANE + 1) * LANE
         contig = q_contiguous
-        if contig is None and Q >= 1024:
+        if contig is None and q_contig_grid is None and Q >= 1024:
             contig = (int(q_slots[-1]) - int(q_slots[0]) == Q - 1
                       and not np.any(q_batch != q_batch[0])
                       and np.array_equal(
                           q_slots, q_slots[0] + np.arange(Q, dtype=np.int64)))
+        # the readout window as (first slot, first row, length, rows)
+        window = None
+        if q_contig_grid is not None:
+            lo, L, R = (int(x) for x in q_contig_grid)
+            if Q == L * R and 0 < L and 0 < R <= B_pad \
+                    and lo + L <= Mp_state:
+                window = (lo, 0, L, R)
+        elif contig and Q and int(q_slots[0]) + Q <= Mp_state:
+            window = (int(q_slots[0]), int(q_batch[0]), Q, 1)
         now_abs = time.time() if now is None else now
         now_rel = np.float32(now_abs - self.base_time)
         cav = self.caveats
@@ -705,25 +726,24 @@ class CompiledGraph:
         res = self.resident
         with res.lock.shared():
             d = res.tensors
-            qs, qb, contig_len = self._q_tensors(
-                d, q_slots, q_batch, q_cache_key,
-                bool(contig and Q and int(q_slots[0]) + Q <= Mp_state))
+            if window is not None:
+                qs, qb, q_len, q_rows = window
+            else:
+                qs, qb = self._q_tensors(d, q_slots, q_batch, q_cache_key)
+                q_len, q_rows = 0, 1
             out, converged, iters, n_push = _run(
                 self.run_meta(), d, torch.as_tensor(seeds).to(dev), qs, qb,
                 now_rel, np.float32(self.spmm_crossover), cav_req,
-                max_iters=max_iters, q_contig_len=contig_len)
+                max_iters=max_iters, q_contig_len=q_len,
+                q_contig_rows=q_rows)
         return QueryFuture(out, converged, iters, Q, max_iters, n_push)
 
-    def _q_tensors(self, d: dict, q_slots, q_batch, q_cache_key,
-                   contig: bool):
-        """(q_slots, q_batch, contiguous length): a contiguous one-row
-        window as (start, row, Q), else device index tensors (cached per
+    def _q_tensors(self, d: dict, q_slots, q_batch, q_cache_key):
+        """Device index tensors of a gathered readout (cached per
         ``q_cache_key`` in the device state)."""
-        if contig:
-            return int(q_slots[0]), int(q_batch[0]), len(q_slots)
         cached = d.get(("q", q_cache_key)) if q_cache_key else None
         if cached is not None:
-            return cached[0], cached[1], 0
+            return cached
         dev = self.device
         qs = torch.as_tensor(np.asarray(q_slots, dtype=np.int64)).to(dev)
         qb = torch.as_tensor(np.asarray(q_batch, dtype=np.int64)).to(dev)
@@ -733,7 +753,7 @@ class CompiledGraph:
             if len(q_keys) >= 32:
                 d.pop(q_keys[0], None)
             d[("q", q_cache_key)] = (qs, qb)
-        return qs, qb, 0
+        return qs, qb
 
     def query(self, seed_slots: np.ndarray, q_slots: np.ndarray,
               q_batch: np.ndarray, now: Optional[float] = None,
@@ -887,7 +907,7 @@ def _seed_base(meta: RunMeta, seeds: torch.Tensor) -> torch.Tensor:
 
 def _run(meta: RunMeta, d: dict, seeds: torch.Tensor, q_slots, q_batch,
          now_rel, crossover, cav_req: tuple = (), *, max_iters: int,
-         q_contig_len: int = 0):
+         q_contig_len: int = 0, q_contig_rows: int = 1):
     """The stratified fixpoint: ``(out uint8 [Q] (+ 4 bytes), converged,
     iterations, push_steps)``. Only the core (level 0) iterates; each
     acyclic level is applied once after it.
@@ -958,7 +978,11 @@ def _run(meta: RunMeta, d: dict, seeds: torch.Tensor, q_slots, q_batch,
             V[:, off:off + size] = propb[:, off:off + size]
         V = _apply_program(V, progs_k)
     if q_contig_len:
-        out = V[q_batch, q_slots:q_slots + q_contig_len]
+        # a window read: q_slots / q_batch are the first slot and row, and
+        # the [rows, len] block flattens row-major, the query's own order
+        out = V[q_batch:q_batch + q_contig_rows,
+                q_slots:q_slots + q_contig_len].reshape(
+                    q_contig_rows * q_contig_len)
     else:
         out = V[q_batch, q_slots]
     if missing is not None:

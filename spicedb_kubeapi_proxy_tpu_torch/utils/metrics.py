@@ -5,7 +5,8 @@ that the engine records into (check/lookup counts and latencies,
 fixpoint iterations, push/pull hop counts, compile times, and the caveat
 counters ``engine_caveat_denied_missing_context_total``,
 ``engine_caveat_request_list_overflow_total`` and
-``engine_caveat_ipv6_unencodable_total``). Exposition formats come with
+``engine_caveat_ipv6_unencodable_total``, and the decision cache's
+``engine_decision_cache_*`` counters and gauges). Exposition formats come with
 the proxy entry points in a later slice.
 """
 
@@ -41,6 +42,14 @@ class Gauge:
     def set(self, value: float) -> None:
         with self._lock:
             self._value = float(value)
+
+    def inc(self, amount: float = 1.0) -> None:
+        with self._lock:
+            self._value += amount
+
+    def dec(self, amount: float = 1.0) -> None:
+        with self._lock:
+            self._value -= amount
 
     @property
     def value(self) -> float:

@@ -268,6 +268,8 @@ import spicedb_kubeapi_proxy_tpu_torch as pkg
 for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
     importlib.import_module(m.name)
 import spicedb_kubeapi_proxy_tpu_torch.engine.compaction
+import spicedb_kubeapi_proxy_tpu_torch.engine.batcher
+import spicedb_kubeapi_proxy_tpu_torch.engine.decision_cache
 import spicedb_kubeapi_proxy_tpu_torch.utils.features
 from spicedb_kubeapi_proxy_tpu_torch.engine import Engine, CheckItem
 from spicedb_kubeapi_proxy_tpu_torch.engine import WriteOp
@@ -280,6 +282,12 @@ e.write_relationships([WriteOp("touch", parse_relationship(
 assert e.check_bulk([CheckItem("pod", "x", "view", "user", "u")]) == [True]
 assert e.compactor.compact()
 e.close_compaction()
+e.enable_decision_cache()
+e.enable_lookup_batching(window=0.001)
+assert e.lookup_resources("pod", "view", "user", "u") == ["x"]
+assert e.lookup_resources("pod", "view", "user", "u") == ["x"]
+e.disable_lookup_batching()
+e.disable_decision_cache()
 bad = [m for m in sys.modules if m.split(".")[0] in
        ("jax", "jaxlib", "spicedb_kubeapi_proxy_tpu")]
 assert not bad, bad
