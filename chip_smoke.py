@@ -66,6 +66,36 @@ S. the serving front (engine/batcher.py, engine/decision_cache.py) on
    (n_b = 8 and 4), byte-equal to its plain version, with its times,
    bounds and the live words of the union against the sparse path's
    limit; (g) a trace of one fused dispatch of 8 lists;
+P. durability on the same engine (persistence/): (0) the size one WAL
+   frame of the headline's bulk load would take, against MAX_WAL_FRAME;
+   (1) ``save_snapshot`` of the 10M store, bytes and seconds; (2)
+   ``enable_persistence`` on an empty data dir and ``--writes`` journaled
+   write->read pairs under ``wal_fsync="always"`` (append cost only, no
+   checkpoint), then on a second data dir a checkpoint of the 10M store
+   and ``--writes`` pairs under the default ``interval:100``, write and
+   read-after-write p50/p99, no recompile; (3) a fresh ``Engine`` on the
+   card, built with ``device_graph_budget_bytes`` at twice the writer's
+   block bytes, recovering from the second dir (snapshot + WAL tail):
+   recovery seconds, records replayed, time to the first list (its
+   compile tiers the graph; its first list builds the device state with
+   every block cold and streams the demanded ones); (4) every touched
+   subject's mask byte-equal to the writer's;
+T. tiered block residency (storage/) on the recovered engine, held
+   against the untiered writer: (a) its own budget, twice the blocks'
+   bytes: no block bytes on the device before the first list (P.3), that
+   list's miss stall, then 30 lists with no miss; (b) the budget changed
+   to half the bytes of the largest block a pod list demands, so that
+   block can never stay hot: 30 lists, each streaming it (wall and miss
+   stall p50/p99, COO bytes streamed a list, and each stream-in step's
+   time, which the prefetch workers record: host clocks for the arena
+   decode, the dead-cell cut and the pinned staging, CUDA events on the
+   worker's stream for the copy and the build), a 64 x 1,024 bulk check,
+   a torch.profiler trace of one list (busy time and idle share, stated
+   as not measured when the trace misses the worker stream's copy), 20
+   writes re-touching base grants (their blocks pinned), the compactor's
+   placement sweep bringing the pinned block hot (over the budget: pins
+   may overshoot), and the lists after it; every mask and verdict equal
+   to the untiered engine's;
 10. the caveated mix, with phase 3-9's engine released first: bench.py's
     caveated mesh configuration (MESH_SCHEMA, 30% of the flat
     pod#viewer grants carrying an IP allowlist in one of two stored
@@ -95,8 +125,12 @@ S. the serving front (engine/batcher.py, engine/decision_cache.py) on
 Launch counts are zeroed just before phase 5 and read just after phase 6
 (the kernels JSON's ``launches``), and again around phases 9b-9c
 (``write_path_launches``), S.a-S.e (``serving_path_launches``) and
-10b-10c (``caveat_path_launches``): both kernels must have run on every
-path. The bit kernel's row also carries its readings at the fused
+10b-10c (``caveat_path_launches``); in P and T they are summed over the
+calls of the path's own engine only, never the reference engine's
+(``persistence_path_launches``: the journaled writer's reads in P.2 and
+the recovered engine's lists in P.3-P.4; ``tiered_path_launches``: the
+tiered engine's calls in T). Both kernels must have run on every path
+(the persistence path runs lists only: its bit kernel). The bit kernel's row also carries its readings at the fused
 batch's inputs (``fused_inputs``). Any
 mismatch or error exits non-zero. The last line is the run's JSON
 verdict.
@@ -115,6 +149,7 @@ import subprocess
 import sys
 import threading
 import time
+from typing import Optional
 
 import numpy as np
 
@@ -704,7 +739,7 @@ def _n_kernels(ev) -> int:
 
 
 def trace_phase(torch, label: str, fn, n_calls: int,
-                kernels: dict, annotations: tuple = ()) -> None:
+                kernels: dict, annotations: tuple = ()) -> Optional[dict]:
     """Where the time goes: a torch.profiler trace of ``fn`` (``n_calls``
     main-path calls, warmed up first). Device busy time is the union of the
     traced device activity intervals; the idle share is the rest of the
@@ -713,7 +748,9 @@ def trace_phase(torch, label: str, fn, n_calls: int,
     to name fragments whose device time is reported per call;
     ``annotations`` names ``record_function`` ranges (the caveat VM's)
     whose device time, share of the busy time and launches are reported
-    per call (the ranges themselves are not device activity)."""
+    per call (the ranges themselves are not device activity). Returns the
+    busy ms, the idle share and each ``kernels`` label's device ms a call,
+    or None when the profiler recorded no device activity."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -747,7 +784,7 @@ def trace_phase(torch, label: str, fn, n_calls: int,
         log(f"  trace {label}: device time not measured (the profiler "
             f"recorded no device activity); wall {wall_us / 1e3:.3f} ms "
             f"for {n_calls} calls")
-        return
+        return None
     busy, end = 0.0, float("-inf")
     for lo, hi in sorted(spans):
         if hi > end:
@@ -758,10 +795,12 @@ def trace_phase(torch, label: str, fn, n_calls: int,
         f"untraced ({wall_us / 1e3:.3f} ms traced), device busy "
         f"{busy / 1e3:.3f} ms, idle share {idle:.4f}, {len(spans)} device "
         f"activities")
+    labels = {}
     for what, frags in kernels.items():
         hit = [(n, t) for nm, (n, t) in per_name.items()
                if any(fr in nm for fr in frags)]
         n, t = sum(h[0] for h in hit), sum(h[1] for h in hit)
+        labels[what] = t / 1e3 / n_calls
         log(f"    {what}: {t / 1e3 / n_calls:.4f} ms device time a call "
             f"({n} activities over {n_calls} calls"
             + (f", {t / 1e3 / n:.4f} ms an activity)" if n else ")"))
@@ -773,6 +812,7 @@ def trace_phase(torch, label: str, fn, n_calls: int,
     top = sorted(per_name.items(), key=lambda kv: -kv[1][1])[:6]
     for nm, (n, t) in top:
         log(f"    {t / 1e3:9.3f} ms  x{n:<5d} {nm[:90]}")
+    return {"busy_ms": busy / 1e3, "idle": idle, "labels": labels}
 
 
 def base_samples(rows: dict, n_pods: int, n_ns: int, n_groups: int,
@@ -1598,6 +1638,378 @@ def serving_phase(torch, e, subjects: list, items: list,
     return served, fused_rows
 
 
+def list_masks(e, users) -> dict:
+    """pod#view masks of ``users`` (the list filter, one call each)."""
+    return {u: e.lookup_resources_mask("pod", "view", "user", u)[0]
+            for u in users}
+
+
+def same_masks(got: dict, want: dict, what: str) -> None:
+    for u, m in want.items():
+        check(np.array_equal(got[u], m), f"{what}: {u}'s mask differs")
+
+
+class Launches:
+    """Both kernels' launches over the calls made inside its ``with``
+    blocks only: each block sets the counts to 0 and adds them up at its
+    end, so the reference engine's calls between blocks count for no
+    path."""
+
+    def __init__(self, bitprop):
+        self.bitprop = bitprop
+        self.n = {"bit_or_matmul": 0, "dense_or_matmul": 0}
+
+    def __enter__(self):
+        self.bitprop.reset_launch_counts()
+        return self
+
+    def __exit__(self, *exc):
+        self.n["bit_or_matmul"] += self.bitprop.bit_or_matmul.launches
+        self.n["dense_or_matmul"] += self.bitprop.dense_or_matmul.launches
+        return False
+
+
+def timed_list(e, u) -> tuple:
+    """One pod#view list of ``u`` on the tiered engine ``e``: (mask, wall
+    ms, miss stall ms, blocks streamed, COO bytes streamed)."""
+    from spicedb_kubeapi_proxy_tpu_torch.utils.metrics import metrics
+
+    stall_h = metrics.histogram("engine_tier_miss_stall_seconds")
+    misses = metrics.counter("engine_tier_misses_total")
+    streamed = metrics.counter("engine_tier_streamed_bytes_total")
+    s0, m0, b0 = stall_h.total, misses.value, streamed.value
+    t0 = time.perf_counter()
+    m = e.lookup_resources_mask("pod", "view", "user", u)[0]
+    ms = (time.perf_counter() - t0) * 1e3
+    return (m, ms, (stall_h.total - s0) * 1e3, misses.value - m0,
+            streamed.value - b0)
+
+
+def persistence_phase(torch, e, root: str, subjects: list, n_writes: int,
+                      seed: int, frame_bytes: int) -> tuple:
+    """Phase P: durability on the headline engine (see the module
+    docstring). The recovered engine is tiered at twice the writer's block
+    bytes. Returns (the recovered engine, both kernels' launches over the
+    journaled writer's reads and the recovered engine's lists, its cold
+    start for T.a)."""
+    import shutil
+
+    from spicedb_kubeapi_proxy_tpu_torch.engine import Engine
+    from spicedb_kubeapi_proxy_tpu_torch.engine.store import WriteOp
+    from spicedb_kubeapi_proxy_tpu_torch.models.tuples import Relationship
+    from spicedb_kubeapi_proxy_tpu_torch.ops import bitprop
+    from spicedb_kubeapi_proxy_tpu_torch.ops.reachability import block_nbytes
+    from spicedb_kubeapi_proxy_tpu_torch.persistence import wal as walmod
+    from spicedb_kubeapi_proxy_tpu_torch.utils.metrics import metrics
+
+    rng = np.random.default_rng(seed + 70)
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+
+    # -- P.0: the reckoning of a journaled headline load --
+    log(f"phase P.0 a journaled bulk load of the headline rows would be one "
+        f"WAL frame of {frame_bytes} bytes (fixed-width string columns), "
+        f"{frame_bytes / walmod.MAX_WAL_FRAME:.4f} of MAX_WAL_FRAME "
+        f"({walmod.MAX_WAL_FRAME}); the store is already loaded, so P takes "
+        "the operator's path: enable persistence on an empty data dir, then "
+        "checkpoint")
+
+    # -- P.1: save_snapshot of the 10M store --
+    path = os.path.join(root, "headline.npz")
+    t0 = time.perf_counter()
+    e.save_snapshot(path)
+    save_s = time.perf_counter() - t0
+    log(f"phase P.1 save_snapshot: {len(e.store)} live rows, revision "
+        f"{e.revision}, {os.path.getsize(path)} bytes in {save_s:.2f} s")
+    os.unlink(path)
+
+    touched: set = set()
+    mine: list = []  # grants written in P, some deleted again
+
+    def one_write():
+        if mine and rng.random() < 0.3:
+            rel = mine.pop(int(rng.integers(len(mine))))
+            op = WriteOp("delete", rel)
+        else:
+            rel = Relationship("pod", f"ns/p{rng.integers(N_PODS)}",
+                               "viewer", "user", f"u{rng.integers(N_USERS)}")
+            mine.append(rel)
+            op = WriteOp("touch", rel)
+        touched.add(rel.subject_id)
+        t0 = time.perf_counter()
+        e.write_relationships([op])
+        w = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        e.lookup_resources_mask("pod", "view", "user", rel.subject_id)
+        return w, (time.perf_counter() - t0) * 1e3
+
+    def pairs(policy: str, data_dir: str, checkpoint: bool) -> dict:
+        p = e.enable_persistence(data_dir, wal_fsync=policy)
+        check(p.recovery.snapshot_path is None
+              and p.recovery.replayed_records == 0,
+              "P: an empty data dir restored something")
+        cp_s = None
+        if checkpoint:
+            t0 = time.perf_counter()
+            check(p.checkpoint_now() == e.revision, "P: checkpoint revision")
+            cp_s = time.perf_counter() - t0
+        c0 = metrics.counter("engine_graph_compiles_total").value
+        one_write()  # warm
+        w_ms, r_ms = [], []
+        for _ in range(n_writes):
+            w, r = one_write()
+            w_ms.append(w)
+            r_ms.append(r)
+        dc = metrics.counter("engine_graph_compiles_total").value - c0
+        wal_bytes = p.wal.appended_bytes
+        e.close_persistence(final_checkpoint=False)
+        check(dc == 0, f"P: {dc:.0f} recompiles under journaled writes")
+        log(f"  {policy}: {n_writes} write->read pairs, write p50 "
+            f"{pct(w_ms, 50):.3f} ms p99 {pct(w_ms, 99):.3f} ms, "
+            f"read-after-write p50 {pct(r_ms, 50):.3f} ms p99 "
+            f"{pct(r_ms, 99):.3f} ms; {wal_bytes} WAL bytes appended"
+            + (f"; checkpoint of the {len(e.store)}-row store {cp_s:.2f} s"
+               if checkpoint
+               else "; no checkpoint (the append cost only)"))
+        return {"w_ms": w_ms, "r_ms": r_ms, "checkpoint_s": cp_s}
+
+    # -- P.2: journaled write->read pairs under two fsync policies --
+    launches = Launches(bitprop)
+    log("phase P.2 journaled writes (one engine, two data dirs):")
+    with launches:
+        pairs("always", os.path.join(root, "always"), False)
+        data_dir = os.path.join(root, "data")
+        pairs("interval:100", data_dir, True)
+
+    # -- P.3: a fresh engine, tiered, recovers from the data dir --
+    budget = 2 * sum(block_nbytes(b) for b in e.compiled().blocks)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    e2 = Engine(schema=e.schema, device=e.device,
+                device_graph_budget_bytes=budget)
+    p2 = e2.enable_persistence(data_dir)
+    rec_s = time.perf_counter() - t0
+    res = p2.recovery
+    check(res.snapshot_path is not None, "P.3: no snapshot recovered")
+    check(res.replayed_records == n_writes + 1,
+          f"P.3: {res.replayed_records} records replayed, "
+          f"{n_writes + 1} journaled after the checkpoint")
+    check(e2.revision == e.revision and len(e2.store) == len(e.store),
+          "P.3: the recovered store is not the writer's")
+    t0 = time.perf_counter()
+    cg2 = e2.compiled()
+    compile_s = time.perf_counter() - t0
+    tier = cg2.tier
+    check(tier is not None and tier.budget_bytes == budget,
+          "P.3: the recovered engine is not tiered at its budget")
+    check(tier.hot_bytes() == 0 and not cg2.resident.tensors,
+          "T.a: device block bytes before the first list")
+    alloc0 = torch.cuda.memory_allocated()
+    with launches:
+        m, ms, stall, miss, nb = timed_list(e2, subjects[0])
+    torch.cuda.synchronize()
+    d = cg2.resident.tensors
+    check(all(x is None for x in d["blocks"]),
+          "T.a: the cold device state holds block tensors")
+    cold = dict(budget=budget, compile_s=compile_s, list_ms=ms,
+                stall_ms=stall, misses=miss, coo_bytes=nb, alloc0=alloc0,
+                alloc1=torch.cuda.memory_allocated(),
+                hot_bytes=tier.hot_bytes(),
+                hot_blocks=tier.stats()["hot_blocks"], mask=m)
+    log(f"phase P.3 recovery: {rec_s:.2f} s wall (recover() "
+        f"{res.duration_s:.2f} s: snapshot at revision "
+        f"{res.snapshot_revision} + {res.replayed_records} WAL records) "
+        f"into an engine with device_graph_budget_bytes {budget}; first "
+        f"list {compile_s + ms / 1e3:.2f} s after it (compile "
+        f"{compile_s:.2f} s, then the list {ms:.3f} ms with its stream-in)")
+
+    # -- P.4: every touched subject's mask byte-equal to the writer's --
+    users = sorted(touched | set(subjects))
+    want = list_masks(e, users)
+    with launches:
+        got = list_masks(e2, users)
+    same_masks(got, want, "P.4 recovered vs writer")
+    same_masks({subjects[0]: m}, {subjects[0]: want[subjects[0]]},
+               "P.3 first list")
+    log(f"phase P.4 {len(users)} masks of the recovered engine byte-equal "
+        f"to the writer's; persistence-path launches {launches.n} (the "
+        "journaled writer's reads and the recovered engine's lists)")
+    check(launches.n["bit_or_matmul"] > 0,
+          "bit_or_matmul was not launched on the persistence path")
+    return e2, launches.n, cold
+
+
+STREAM_STEPS = (("decode", "arena decode"), ("cut", "dead-cell cut"),
+                ("stage", "pinned staging + upload enqueue"),
+                ("copy", "host -> device copy (device)"),
+                ("build", "block build (device)"))
+
+
+def tiered_phase(torch, e, e2, subjects: list, items: list,
+                 cold: dict) -> dict:
+    """Phase T: tiered block residency on the recovered engine ``e2``,
+    built tiered by P.3 (``cold``: its cold start), held against the
+    untiered writer ``e`` (see the module docstring). Returns both
+    kernels' launches over ``e2``'s calls in T."""
+    from spicedb_kubeapi_proxy_tpu_torch.engine.store import \
+        RelationshipFilter, WriteOp
+    from spicedb_kubeapi_proxy_tpu_torch.models.tuples import Relationship
+    from spicedb_kubeapi_proxy_tpu_torch.ops import bitprop
+    from spicedb_kubeapi_proxy_tpu_torch.ops.reachability import \
+        block_nbytes, tier_stream_timings
+    from spicedb_kubeapi_proxy_tpu_torch.utils.metrics import metrics
+
+    def counter(name):
+        return metrics.counter(name).value
+
+    def step_totals() -> dict:
+        tier_stream_timings()  # the device steps' events, read
+        return {k: metrics.histogram(f"engine_tier_stream_{k}_seconds").total
+                for k, _ in STREAM_STEPS}
+
+    launches = Launches(bitprop)
+    cg = e2.compiled()
+    tier = cg.tier
+    want = list_masks(e, subjects)
+
+    # -- T.a: the recovered engine's budget, twice the block bytes --
+    total = sum(block_nbytes(b) for b in cg.blocks)
+    log(f"phase T.a budget {cold['budget']} bytes (device_graph_budget_"
+        f"bytes; {len(cg.blocks)} blocks of {total} bytes): 0 "
+        f"hot block bytes before the first list (P.3); device memory "
+        f"{cold['alloc0']} -> {cold['alloc1']} bytes allocated over it")
+    log(f"  first list: {cold['list_ms']:.3f} ms wall, miss stall "
+        f"{cold['stall_ms']:.3f} ms, {cold['misses']:.0f} blocks streamed "
+        f"({cold['coo_bytes']:.0f} COO bytes); hot {cold['hot_bytes']} "
+        f"bytes in {cold['hot_blocks']} blocks")
+    lat, misses = [], 0
+    with launches:
+        for u in subjects[1:31]:
+            m, ms, _, miss, _ = timed_list(e2, u)
+            same_masks({u: m}, {u: want[u]}, "T.a")
+            lat.append(ms)
+            misses += miss
+    check(misses == 0, f"T.a: {misses:.0f} misses after the first list")
+    log(f"  {len(lat)} lists after it: 0 misses, p50 {pct(lat, 50):.3f} ms "
+        f"p99 {pct(lat, 99):.3f} ms, masks equal the untiered engine's")
+
+    # -- T.b: half of the largest block a pod list demands --
+    demanded = [i for i, a in tier.stats()["accesses"].items() if a]
+    big = max(demanded, key=lambda i: block_nbytes(cg.blocks[i]))
+    bb = cg.blocks[big]
+    budget = block_nbytes(bb) // 2
+    tier = cg.enable_tiering(budget)
+    gc.collect()
+    log(f"phase T.b budget {budget} bytes, half of the largest demanded "
+        f"block (dst@{bb.dst_off} [{bb.n_dst} x {bb.n_src}], "
+        f"{block_nbytes(bb)} bytes); {len(demanded)} blocks demanded")
+    lat, stalls, streamed = [], [], []
+    steps = {k: [] for k, _ in STREAM_STEPS}
+    with launches:
+        for u in subjects[:30]:
+            t0 = step_totals()
+            m, ms, stall, miss, nb = timed_list(e2, u)
+            t1 = step_totals()
+            same_masks({u: m}, {u: want[u]}, "T.b")
+            check(miss >= 1 and not tier.entry_resident(big),
+                  f"T.b: the list for {u} did not stream the largest block")
+            lat.append(ms)
+            stalls.append(stall)
+            streamed.append(nb)
+            for k in steps:
+                steps[k].append((t1[k] - t0[k]) * 1e3)
+    log(f"  {len(lat)} lists, each streaming: p50 {pct(lat, 50):.3f} ms p99 "
+        f"{pct(lat, 99):.3f} ms; miss stall p50 {pct(stalls, 50):.3f} ms "
+        f"p99 {pct(stalls, 99):.3f} ms; {np.mean(streamed):.0f} COO bytes "
+        f"streamed a list; hot {tier.hot_bytes()} bytes; masks equal the "
+        f"untiered engine's")
+    log("  a list's stream-ins by step (p50 / p99 over the lists, ms; host "
+        "clocks on the prefetch workers, CUDA events on their streams): "
+        + "; ".join(f"{what} {pct(steps[k], 50):.3f} / "
+                    f"{pct(steps[k], 99):.3f}" for k, what in STREAM_STEPS))
+    now = time.time()
+    want_bulk = e.check_bulk(items, now=now)
+    with launches:
+        t0 = time.perf_counter()
+        got = e2.check_bulk(items, now=now)
+        bulk_s = time.perf_counter() - t0
+    check(got == want_bulk,
+          "T.b: the tiered bulk check differs from the untiered one")
+    log(f"  64 x 1,024 bulk check: {len(items) / bulk_s:,.0f} checks/s, "
+        f"{sum(got)} allowed, verdicts equal the untiered engine's")
+    c0 = step_totals()["copy"]
+    with launches:
+        tr = trace_phase(
+            torch, "tiered list (T.b, streams the largest block)",
+            lambda: e2.lookup_resources_mask("pod", "view", "user",
+                                             subjects[0]), 1,
+            {"bit_or_matmul_kernel": ("bit_or_matmul_kernel",),
+             "host -> device copies": ("Memcpy HtoD",)})
+    # the trace runs the list three times (warm, untraced, traced)
+    copy_ms = (step_totals()["copy"] - c0) * 1e3 / 3
+    traced = (tr or {}).get("labels", {}).get("host -> device copies", 0.0)
+    if traced < 0.5 * copy_ms:
+        log(f"  the trace's device busy time and idle share: not measured "
+            f"(it holds {traced:.4f} ms of host -> device copies against "
+            f"the {copy_ms:.4f} ms the worker stream's events give one "
+            "list's stream-in copy)")
+    else:
+        log(f"  the trace holds the stream-in's copy ({traced:.4f} ms; the "
+            f"worker stream's events: {copy_ms:.4f} ms)")
+
+    # -- T.b: 20 writes that pin blocks (re-touches of base grants) --
+    c0 = counter("engine_graph_compiles_total")
+    for u in subjects[:20]:
+        base = e.store.read(RelationshipFilter(
+            resource_type="pod", relation="viewer", subject_type="user",
+            subject_id=u))
+        check(bool(base), f"T.b: {u} holds no pod#viewer grant")
+        op = WriteOp("touch", Relationship(
+            "pod", base[0].resource_id, "viewer", "user", u, None,
+            time.time() + 3600))
+        e.write_relationships([op])
+        with launches:
+            e2.write_relationships([op])
+    check(counter("engine_graph_compiles_total") == c0,
+          "T.b: a pinning write recompiled")
+    st = tier.stats()
+    log(f"  20 writes re-touching base grants: {st['pinned_blocks']} "
+        f"blocks pinned, hot {st['hot_bytes']} bytes")
+    check(st["pinned_blocks"] >= 1, "T.b: no block pinned by the writes")
+    check(not tier.entry_resident(big), "T.b: the largest block went hot "
+          "before the sweep")
+
+    # the compactor's placement sweep (threshold 1: no fold)
+    comp = e2.enable_compaction(1.0)
+    t0 = time.perf_counter()
+    with launches:
+        comp.request_placement()
+        while not tier.entry_resident(big):
+            check(time.perf_counter() - t0 < 60, "T.b: the compactor's "
+                  "sweep left the pinned block cold for 60 s")
+            time.sleep(0.001)
+        torch.cuda.synchronize()
+    sweep_s = time.perf_counter() - t0
+    e2.close_compaction()
+    st = tier.stats()
+    want = list_masks(e, subjects)
+    misses = counter("engine_tier_misses_total")
+    with launches:
+        got = list_masks(e2, subjects)
+    same_masks(got, want, "T.b after the sweep")
+    log(f"  the compactor's placement sweep: {sweep_s * 1e3:.3f} ms from "
+        f"its request to the pinned block hot on the card; "
+        f"{st['hot_blocks']} blocks hot, {st['hot_bytes']} bytes (budget "
+        f"{budget}: pins may overshoot), {st['pinned_blocks']} pinned; "
+        f"{counter('engine_tier_misses_total') - misses:.0f} misses over "
+        f"{len(subjects)} lists after it, masks equal the untiered engine's")
+    log(f"  tiered-path launches over T (the tiered engine's calls only): "
+        f"{launches.n}")
+    for kname, n in launches.n.items():
+        check(n > 0, f"{kname} was not launched on the tiered path")
+    return launches.n
+
+
 # phase 10's request contexts: the first both stored contexts allow, the
 # second only the first allows, and without one every caveated grant
 # fails closed (two instances, so two missing-context denials a call)
@@ -2046,6 +2458,8 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     e.bulk_load(rows)
     load_s = time.perf_counter() - t0
+    # what journaling this load would take: one WAL frame of the columns
+    frame_bytes = sum(v.nbytes for v in rows.values())
     samples = base_samples(rows, N_PODS, N_NS, N_GROUPS, args.n_rels,
                            args.seed)
     del rows
@@ -2198,6 +2612,19 @@ def main(argv=None) -> int:
                                                  args.seed)
     log(f"phase S took {time.perf_counter() - t0:.1f} s")
 
+    # -- phase P: snapshots, the WAL and crash recovery, on the same engine
+    t0 = time.perf_counter()
+    e2, persist_launches, cold = persistence_phase(
+        torch, e, os.path.join(here, "build", "persist"), subjects,
+        args.writes, args.seed, frame_bytes)
+    log(f"phase P took {time.perf_counter() - t0:.1f} s")
+
+    # -- phase T: tiered residency on the recovered engine --
+    t0 = time.perf_counter()
+    tiered_launches = tiered_phase(torch, e, e2, subjects, items, cold)
+    log(f"phase T took {time.perf_counter() - t0:.1f} s")
+    del e2
+
     # -- phase 10: the caveated mix, on a store of its own --
     del e, cg, d, objs, pods, fut, A, bits
     gc.collect()
@@ -2218,6 +2645,8 @@ def main(argv=None) -> int:
                     "write_path_launches": write_launches[kname],
                     "caveat_path_launches": caveat_launches[kname],
                     "serving_path_launches": serving_launches[kname],
+                    "persistence_path_launches": persist_launches[kname],
+                    "tiered_path_launches": tiered_launches[kname],
                     "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                     "bound_by": r["bound_by"], "library_ms": r["library_ms"],

@@ -236,6 +236,14 @@ class LookupBatcher:
                     pos, n, interner), qfut.iterations)
             pos += n
 
+    def flush(self) -> None:
+        """Dispatch the pending window now (a store restore is about to
+        replace the contents it was submitted against)."""
+        with self._lock:
+            batch = self._take_locked()
+        if batch:
+            self._flush(batch)
+
     def close(self) -> None:
         """Flush the pending batch and mark the batcher dead: submits
         from here on bypass it entirely (direct engine path)."""

@@ -1,7 +1,6 @@
 """Background compaction of the delta overlay into a fresh compiled base.
 
-Counterpart of the JAX package's ``engine/compaction.py``, without its
-tier-placement branch (tiering comes with a later slice). The write path
+Counterpart of the JAX package's ``engine/compaction.py``. The write path
 appends into a fixed-capacity overlay (ops/reachability.py
 ``incremental_update``): O(write) per mutation, but occupancy only grows,
 and a full overlay would mean a synchronous full recompile on the next
@@ -18,6 +17,11 @@ store mutation with a bounded ``Retry-After`` sized from recent fold
 times. ``notify`` is cheap and called on every overlay advance; crossing
 ``threshold`` (a fraction of the overlay slots or dead-ledger rows) wakes
 the worker.
+
+On a tiered graph (storage/) the worker doubles as the placement engine:
+every ``PLACE_EVERY`` advanced graphs it runs one sweep
+(``reachability.tier_maintain``: decay access recency, demote blocks that
+went cold, re-materialize pinned overlay blocks), off the serving path.
 """
 
 from __future__ import annotations
@@ -109,6 +113,9 @@ class Compactor:
         self.threshold = float(threshold)
         self._cond = threading.Condition()
         self._pending = False
+        # tiered placement sweeps, requested every PLACE_EVERY advances
+        self._place_pending = False
+        self._notify_count = 0
         self._closed = False
         # recent fold wall times, feeding the Retry-After estimate
         self._durations: deque = deque(maxlen=8)
@@ -122,6 +129,11 @@ class Compactor:
         """Cheap occupancy check, called with every advanced graph."""
         if cg is None or cg.delta_pos is None or not cg.delta_cap:
             return
+        if cg.tier is not None:
+            # placement rides the same cheap per-advance hook
+            self._notify_count += 1
+            if self._notify_count % self.PLACE_EVERY == 0:
+                self.request_placement()
         if (cg.n_delta >= self.threshold * cg.delta_cap
                 or cg.n_dead >= self.threshold * len(cg.dead_buf)):
             self.request()
@@ -132,6 +144,17 @@ class Compactor:
             if self._closed:
                 return
             self._pending = True
+            self._cond.notify()
+
+    # advanced-graph notifies between placement sweeps
+    PLACE_EVERY = 64
+
+    def request_placement(self) -> None:
+        """Ask for an async tier placement sweep (idempotent)."""
+        with self._cond:
+            if self._closed:
+                return
+            self._place_pending = True
             self._cond.notify()
 
     def retry_after(self) -> float:
@@ -173,11 +196,24 @@ class Compactor:
     def _run(self) -> None:
         while True:
             with self._cond:
-                while not self._pending and not self._closed:
+                while not (self._pending or self._place_pending) \
+                        and not self._closed:
                     self._cond.wait()
                 if self._closed and not self._pending:
                     return
-                self._pending = False
+                do_fold, self._pending = self._pending, False
+                do_place, self._place_pending = self._place_pending, False
+            if do_place and not do_fold:
+                # a fold supersedes placement: it rebuilds the graph, and
+                # with it a fresh, unpinned TierStore
+                from ..ops.reachability import tier_maintain
+
+                try:
+                    tier_maintain(self.engine._compiled)
+                except Exception:
+                    log.exception("tier placement sweep failed "
+                                  "(will retry on next cadence)")
+                continue
             try:
                 self.compact()
             except Exception:
@@ -191,8 +227,13 @@ class Compactor:
         published. Also the direct entry point for tests and drains."""
         e = self.engine
         t0 = time.perf_counter()
+        lineage = e._lineage
         fresh = e._compile_fresh()
         with e._lock:
+            if e._lineage != lineage:
+                # the store was restored during the fold: the fresh base
+                # is of the old contents, and the next read compiles anew
+                return False
             cur = e._head  # writes still applying their patches included
             if cur is not None and cur.revision > fresh.revision:
                 # writes landed during the fold: bring the fresh base

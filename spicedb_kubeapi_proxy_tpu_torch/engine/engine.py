@@ -10,14 +10,19 @@ list-filter masks through the reachability fixpoint
 the push/pull crossover feedback, and the serving front in front of
 the fixpoint: the revision-keyed decision cache with singleflight
 (engine/decision_cache.py) and the cross-request lookup batcher
-(engine/batcher.py). Persistence, mesh, tiering and migration come with
-later slices.
+(engine/batcher.py); durability (``enable_persistence``: recovery, the
+write-ahead log and checkpoints of persistence/, and the snapshot
+save/load of the store) and tiered block residency under a device byte
+budget (``device_graph_budget_bytes``: storage/ and the tiered dispatch
+of ops/reachability.py). The mesh, migration and the engine host come
+with later slices.
 """
 
 from __future__ import annotations
 
 import hashlib
 import json
+import os
 import threading
 import time
 from dataclasses import dataclass
@@ -45,6 +50,7 @@ from ..ops.reachability import (
     _fallback,
     compile_graph,
     incremental_update,
+    release_resident,
 )
 from ..utils.features import features
 from ..utils.metrics import metrics
@@ -243,7 +249,9 @@ class Engine:
     def __init__(self, bootstrap: Optional[str] = None,
                  schema: Optional[Schema] = None,
                  validate_writes: bool = True, device=None,
-                 delta_capacity: int = DELTA_CAPACITY):
+                 delta_capacity: int = DELTA_CAPACITY,
+                 device_graph_budget_bytes: Optional[int] = None,
+                 tier_spill_dir: Optional[str] = None):
         self.device = resolve_device(device)
         validate_overlay_config(delta_capacity)
         if schema is None:
@@ -278,6 +286,16 @@ class Engine:
         # and the decision cache in front of it
         self._batcher = None
         self._decision_cache: Optional[DecisionCache] = None
+        self._persistence = None  # persistence/manager.py, opt-in
+        # tiered block residency (storage/): with a budget, every graph
+        # this engine compiles keeps its dense blocks in a host-cold arena
+        # and streams the ones a dispatch demands onto the device, holding
+        # them hot while the budget allows; 0/None = all resident
+        self._tier_budget = int(device_graph_budget_bytes or 0)
+        self._tier_spill_dir = tier_spill_dir
+        # bumped by every restore: a compaction fold compiled from the
+        # store before a restore must not publish after it
+        self._lineage = 0
         if seed:
             self.write_relationships([WriteOp("touch", r) for r in seed])
 
@@ -343,6 +361,101 @@ class Engine:
     @property
     def compactor(self):
         return self._compactor
+
+    # -- durability ---------------------------------------------------------
+
+    def enable_persistence(self, data_dir: str, **kw):
+        """Make the store durable under ``data_dir``: recover what a
+        previous process left there (newest valid snapshot + WAL tail,
+        persistence/recovery.py), then journal every later mutation
+        through the write-ahead log with background checkpoints. Returns
+        the :class:`~..persistence.Persistence` manager (``.recovery``
+        says what was restored); keyword arguments pass through to
+        ``Persistence.open`` (``wal_fsync``, checkpoint thresholds...)."""
+        from ..persistence import Persistence
+
+        with self._lock:
+            if self._persistence is not None:
+                raise RuntimeError("persistence is already enabled")
+            self._flush_batcher()
+            before = (self.store.epoch, self.store.revision)
+            try:
+                p = Persistence.open(self.store, data_dir, **kw)
+            finally:
+                # recovery that changed the store (also one that failed
+                # part way) replaced what the views were compiled from; an
+                # empty data dir changes nothing, and the views stay
+                if (self.store.epoch, self.store.revision) != before:
+                    self._restored()
+            self._persistence = p
+        return p
+
+    def close_persistence(self, final_checkpoint: bool = True) -> None:
+        """Shut the durability layer down (fsync, and by default a final
+        checkpoint so the next boot replays nothing)."""
+        with self._lock:
+            p, self._persistence = self._persistence, None
+        if p is not None:
+            p.close(final_checkpoint=final_checkpoint)
+
+    @property
+    def persistence(self):
+        return self._persistence
+
+    def save_snapshot(self, path: str) -> None:
+        """Persist the store (compacted, atomic): a restored engine skips
+        the bulk re-load."""
+        self.store.save(path)
+
+    def load_snapshot(self, path: str) -> None:
+        with self._lock:
+            if self._persistence is not None:
+                # a file restore bypasses the journal: the WAL would replay
+                # over the wrong lineage on the next boot
+                raise StoreError(
+                    "load_snapshot is incompatible with an enabled "
+                    "persistence data dir (recovery owns restores)")
+            self._flush_batcher()
+            self.store.load(path)
+            self._restored()
+
+    def load_snapshot_if_exists(self, path: Optional[str]) -> bool:
+        """Boot-time restore: load when the file exists, and say whether
+        it did."""
+        if not path or not os.path.exists(path):
+            return False
+        self.load_snapshot(path)
+        return True
+
+    def _flush_batcher(self) -> None:
+        """Dispatch the lookup batcher's open window now, before a restore
+        replaces the store: its lookups were submitted against the old
+        contents (caller holds the engine lock)."""
+        b = self._batcher
+        if b is not None:
+            b.flush()
+
+    def _restored(self) -> None:
+        """Reset everything keyed on the replaced store's revisions
+        (caller holds the engine lock, the batcher's window flushed before
+        the store changed). A restore can land on a revision number the
+        old lineage also had, with other rows, so: the published and head
+        views go (the next read compiles the restored store), the old
+        base's device state is freed, and the decision cache is replaced
+        by an empty one (the old one is closed, so a fill still in flight
+        from the old lineage lands nowhere)."""
+        old = self._head
+        self._compiled = self._head = None
+        self._incremental_declined = None
+        self._lineage += 1
+        if old is not None:
+            release_resident(old)
+        cache = self._decision_cache
+        if cache is not None:
+            cache.clear()
+            self._decision_cache = DecisionCache(
+                max_entries=cache.max_entries,
+                max_mask_bytes=cache.max_mask_bytes)
 
     # -- write path ---------------------------------------------------------
 
@@ -463,6 +576,8 @@ class Engine:
         metrics.gauge("engine_csr_nnz").set(cg.n_edges)
         metrics.gauge("engine_graph_slots").set(cg.M)
         metrics.gauge("engine_delta_occupancy").set(cg.n_delta)
+        if cg.tier is not None:
+            cg.tier.publish_gauges()
 
     def compiled(self) -> CompiledGraph:
         """Fully-consistent snapshot: every acknowledged write is in it.
@@ -498,6 +613,11 @@ class Engine:
         cg = compile_graph(self.schema, self.store.snapshot(),
                            device=self.device,
                            delta_capacity=self._delta_capacity)
+        if self._tier_budget:
+            # each compiled base gets a fresh TierStore: residency and
+            # overlay pins start clean ("pinned until folded")
+            cg.enable_tiering(self._tier_budget,
+                              spill_dir=self._tier_spill_dir)
         metrics.counter("engine_graph_compiles_total").inc()
         metrics.histogram("engine_graph_compile_seconds").observe(
             time.perf_counter() - t0)
@@ -771,10 +891,9 @@ class Engine:
         if cavs is not None and cavs.metas:
             cav_req, _ = cavs.encode_request(context, now)
         futs = []
-        cg._dev()  # built before the shared side is taken
         # every chunk runs against one device state: a write waits for the
         # whole call, so one bulk check never spans two revisions
-        with cg.resident.lock.shared():
+        with cg.shared_state():
             for s in range(0, n, chunk):
                 seeds, q_slots, q_batch = self._encode_checks(
                     cg, objs, items[s:s + chunk])

@@ -5,7 +5,13 @@ needs: :class:`Columns`, :class:`Snapshot`, ``Store.bulk_load``,
 ``Store.write`` (CREATE/TOUCH/DELETE with preconditions),
 ``Store.delete_by_filter``, ``Store.read``, ``Store.next_expiry``, the
 watch log (``watch_since`` / ``wait_since``) that the incremental graph
-update replays, and the append-only caveat-instance table. Persistence and replication come with later slices.
+update replays, the append-only caveat-instance table, and durability:
+the ``journal`` hook every revision-advancing mutation calls under the
+store lock (persistence/manager.py), ``apply_effects`` (WAL replay),
+snapshots (``save`` / ``save_dir`` / ``state_bytes`` and ``load`` /
+``load_state_bytes``, the same npz keys and meta JSON as the reference,
+so either package loads the other's files) and the interner ``epoch``
+a restore rotates. Replication comes with a later slice.
 
 Layout is columnar int32 (see :class:`Columns`) so that 10M-relationship
 graphs bulk-load and snapshot without per-row Python objects. The row-key
@@ -18,9 +24,14 @@ needs no index maintenance.
 from __future__ import annotations
 
 import bisect
+import io
+import json
+import os
+import tempfile
 import threading
 import time
-from dataclasses import dataclass, field
+import uuid
+from dataclasses import asdict, dataclass, field
 from typing import Optional
 
 import numpy as np
@@ -206,12 +217,36 @@ class StoreIndex:
         self._dict: dict[tuple, tuple[int, int]] = {}
         self._sorted: list[tuple[int, _SortedChunkIndex]] = []
         self._built = 0  # chunks indexed so far
+        # chunk indexes computed ahead of time by a background thread
+        # (keyed by chunk identity: chunks are immutable once appended)
+        self._prebuilt: dict[int, _SortedChunkIndex] = {}
+        self._prelock = threading.Lock()
+
+    def prebuild(self, chunks: list[Columns]) -> None:
+        """Build sorted indexes for big chunks not yet synced. Safe from a
+        background thread: reads only immutable chunk arrays and publishes
+        under its own lock. ``Store.bulk_load`` starts it, so the first
+        write after a 10M-row load joins a build already running (usually
+        finished) instead of paying it inline."""
+        for cols in chunks[self._built:]:
+            if len(cols) < INDEX_SMALL_CHUNK:
+                continue
+            key = id(cols)
+            with self._prelock:
+                if key in self._prebuilt:
+                    continue
+            idx = _SortedChunkIndex(cols)
+            with self._prelock:
+                self._prebuilt[key] = idx
 
     def sync(self, chunks: list[Columns]) -> None:
         for ci in range(self._built, len(chunks)):
             cols = chunks[ci]
             if len(cols) >= INDEX_SMALL_CHUNK:
-                self._sorted.append((ci, _SortedChunkIndex(cols)))
+                with self._prelock:
+                    idx = self._prebuilt.pop(id(cols), None)
+                self._sorted.append((ci, idx if idx is not None
+                                     else _SortedChunkIndex(cols)))
             else:
                 arr = np.stack([cols.rt, cols.rid, cols.rl, cols.st,
                                 cols.sid, cols.srl], axis=1)
@@ -286,6 +321,10 @@ class Store:
 
     def __init__(self):
         self._lock = threading.RLock()
+        # interner epoch: interners only ever append within an epoch, so a
+        # client may cache id->string tables keyed on (epoch, len); a
+        # restore rebuilds the interners and mints a new epoch
+        self.epoch = uuid.uuid4().hex
         self.types = Interner()
         # relation id 0 reserved for "no subject relation"
         self.relations = Interner(reserved=("",))
@@ -299,6 +338,7 @@ class Store:
         self._chunks: list[Columns] = []
         self._alive: list[np.ndarray] = []  # bool per chunk
         self._index = StoreIndex()
+        self._prebuild_thread: Optional[threading.Thread] = None
         # revision-advance signal: wait_since() blocks on this instead of
         # polling
         self._watch_cond = threading.Condition(self._lock)
@@ -317,6 +357,11 @@ class Store:
         # monotone fast path for stores that never wrote an expiring tuple
         self._expiry_bounds: Optional[tuple] = None
         self._has_finite_exp = False
+        # durability hook (persistence/manager.py): called UNDER the
+        # write lock with (record_meta, blob) after each revision-advancing
+        # mutation, so journal order is revision order and the record is
+        # on disk before the transaction returns. None = in-memory only
+        self.journal = None
 
     # -- interning helpers -------------------------------------------------
 
@@ -367,6 +412,31 @@ class Store:
             ctx or None,
         )
 
+    # -- index -------------------------------------------------------------
+
+    def _ensure_index(self) -> StoreIndex:
+        t = self._prebuild_thread
+        if t is not None:
+            if t.is_alive():
+                t.join()
+            self._prebuild_thread = None
+        self._index.sync(self._chunks)
+        return self._index
+
+    def _start_index_prebuild(self) -> None:
+        """Overlap the big-chunk index build with whatever follows a bulk
+        load or a restore (the graph compile)."""
+        prev = self._prebuild_thread
+        if prev is not None and prev.is_alive():
+            # back-to-back loads: an abandoned thread could publish a stale
+            # _prebuilt entry after sync() passed its chunk
+            prev.join()
+        idx, chunks = self._index, list(self._chunks)
+        t = threading.Thread(target=idx.prebuild, args=(chunks,),
+                             daemon=True, name="store-index-prebuild")
+        self._prebuild_thread = t
+        t.start()
+
     def _append_rows(self, cols: Columns) -> None:
         # the index picks the new chunk up at the next sync (lazy)
         self._chunks.append(cols)
@@ -412,6 +482,12 @@ class Store:
 
     # -- public API --------------------------------------------------------
 
+    def _observe_revision(self) -> None:
+        """Gauges refreshed by every revision-advancing mutation (write,
+        delete, bulk load, replay, restore)."""
+        metrics.gauge("store_revision").set(self.revision)
+        metrics.gauge("store_watch_log_records").set(len(self._watch_log))
+
     def write(self, ops: list[WriteOp],
               preconditions: list[Precondition] = ()) -> int:
         """Apply a write transaction; returns the new revision.
@@ -419,7 +495,9 @@ class Store:
         CREATE errors on an existing live tuple (SpiceDB AlreadyExists);
         TOUCH upserts (refreshing expiration); DELETE is idempotent.
         Duplicate updates for the same tuple in one write are rejected.
-        Every applied change lands in the watch log at the new revision.
+        Every applied change lands in the watch log at the new revision
+        and, with a journal attached, in one ``write`` record before the
+        call returns.
         """
         t0 = time.perf_counter()
         with self._lock:
@@ -430,8 +508,7 @@ class Store:
                         f"precondition {'exists' if pc.must_exist else 'does not exist'} "
                         f"failed for {pc.filter}"
                     )
-            idx = self._index
-            idx.sync(self._chunks)
+            idx = self._ensure_index()
 
             # Pass 1 — plan + validate before any mutation so the whole
             # batch is atomic.
@@ -466,17 +543,23 @@ class Store:
             # Pass 2 — apply.
             rev = self.revision + 1
             new_rows: list[tuple[tuple, float, int]] = []
+            journaled = self.journal is not None
+            effects: list[dict] = []  # journal record (concrete, replayable)
             for code, key, exp, cav in plan:
                 pos = idx.get(key, self._alive)
                 if pos is not None:
                     self._alive[pos[0]][pos[1]] = False
                 if code == OP_DELETE:
-                    self._watch_log.append(WatchRecord(
-                        rev, OP_DELETE, self._extern_rel(key, NO_EXPIRATION)))
+                    rel = self._extern_rel(key, NO_EXPIRATION)
+                    self._watch_log.append(WatchRecord(rev, OP_DELETE, rel))
+                    if journaled:
+                        effects.append({"op": "delete", "rel": asdict(rel)})
                     continue
                 new_rows.append((key, exp, cav))
-                self._watch_log.append(WatchRecord(
-                    rev, OP_TOUCH, self._extern_rel(key, exp, cav)))
+                rel = self._extern_rel(key, exp, cav)
+                self._watch_log.append(WatchRecord(rev, OP_TOUCH, rel))
+                if journaled:
+                    effects.append({"op": "touch", "rel": asdict(rel)})
             if new_rows:
                 keys = np.array([k for k, _, _ in new_rows], dtype=np.int32)
                 exp_col = np.array([e for _, e, _ in new_rows],
@@ -492,6 +575,10 @@ class Store:
                     self._has_finite_exp = True
             self._trim_watch_log()
             self.revision = rev
+            self._observe_revision()
+            if journaled:
+                self.journal({"kind": "write", "rev": rev,
+                              "effects": effects}, None)
             self._watch_cond.notify_all()
             # the store's share of one applied write (the "journal" stage
             # of the per-write split; the overlay append and the read's
@@ -500,15 +587,24 @@ class Store:
                 time.perf_counter() - t0)
             return rev
 
-    def bulk_load(self, rels_cols: dict) -> int:
+    def bulk_load(self, rels_cols: dict,
+                  _revision: Optional[int] = None) -> int:
         """Fast path for large graph loads: columnar string arrays
         {resource_type, resource_id, relation, subject_type, subject_id,
         subject_relation?, expiration?, caveat?, caveat_context?}. Rows
         are assumed deduplicated.
         Not logged to watch: ``unlogged_revision`` moves to the new
         revision, so no compiled graph older than the load is advanced
-        incrementally across it."""
+        incrementally across it. With a journal attached the columns are
+        journaled as one ``bulk_load`` record (persistence/codec.py);
+        ``_revision`` pins the assigned revision, which is how WAL replay
+        (persistence/recovery.py) re-applies a load at the revision it was
+        acknowledged with."""
         with self._lock:
+            if _revision is not None and _revision <= self.revision:
+                raise StoreError(
+                    f"bulk_load replay revision {_revision} is not past "
+                    f"current revision {self.revision}")
             n = len(rels_cols["resource_id"])
 
             def intern_typed(type_col, id_col):
@@ -551,9 +647,17 @@ class Store:
             self._append_rows(Columns(rt, rid, rl, st, sid, srl, exp, cav))
             if not self._has_finite_exp and np.isfinite(exp).any():
                 self._has_finite_exp = True
-            self.revision += 1
+            self.revision = (_revision if _revision is not None
+                             else self.revision + 1)
             self.unlogged_revision = self.revision
+            self._observe_revision()
+            if self.journal is not None:
+                from ..persistence.codec import encode_bulk_cols
+
+                self.journal({"kind": "bulk_load", "rev": self.revision},
+                             encode_bulk_cols(rels_cols))
             self._watch_cond.notify_all()
+            self._start_index_prebuild()
             return self.revision
 
     def read(self, f: RelationshipFilter, now: Optional[float] = None
@@ -595,6 +699,8 @@ class Store:
                         f"failed for {pc.filter}")
             count = 0
             rev = self.revision + 1
+            journaled = self.journal is not None
+            effects: list[dict] = []
             for cols, alive in zip(self._chunks, self._alive):
                 rows = np.flatnonzero(self._filter_mask(cols, f, now=now)
                                       & alive)
@@ -607,13 +713,83 @@ class Store:
                            int(cols.rl[ri]), int(cols.st[ri]),
                            int(cols.sid[ri]), int(cols.srl[ri]))
                     # the index needs no touch-up: lookups check aliveness
-                    self._watch_log.append(WatchRecord(
-                        rev, OP_DELETE, self._extern_rel(key, NO_EXPIRATION)))
+                    rel = self._extern_rel(key, NO_EXPIRATION)
+                    self._watch_log.append(WatchRecord(rev, OP_DELETE, rel))
+                    if journaled:
+                        effects.append({"op": "delete", "rel": asdict(rel)})
             if count:
                 self._trim_watch_log()
                 self.revision = rev
+                self._observe_revision()
+                if journaled:
+                    self.journal({"kind": "delete", "rev": rev,
+                                  "effects": effects}, None)
                 self._watch_cond.notify_all()
             return count
+
+    def apply_effects(self, effects: list, revision: int) -> None:
+        """Replay hook: apply concrete touch/delete effects and pin the
+        revision (WAL replay at boot, persistence/recovery.py; follower
+        catch-up later). The effects re-apply decisions a live ``write`` /
+        ``delete_by_filter`` already made, so there are no preconditions,
+        no duplicate checks and no clock reads; within one call the LAST
+        effect per key wins. Nothing lands in the watch log: replayed
+        history is a new lineage for watchers (as a snapshot restore is),
+        and ``unlogged_revision`` advances so incremental graph updates
+        restart from the recovered point."""
+        with self._lock:
+            revision = int(revision)
+            if revision <= self.revision:
+                raise StoreError(
+                    f"apply_effects revision {revision} is not past "
+                    f"current revision {self.revision}")
+            idx = self._ensure_index()
+            final: dict[tuple, Optional[tuple]] = {}
+            journaled: list[dict] = []
+            for eff in effects:
+                rel = eff["rel"]
+                if isinstance(rel, dict):
+                    rel = Relationship(**rel)
+                key = self._intern_rel(rel)
+                if eff["op"] == "delete":
+                    final[key] = None
+                else:
+                    final[key] = ((float(rel.expiration)
+                                   if rel.expiration is not None
+                                   else float(NO_EXPIRATION)),
+                                  self._intern_cav(rel))
+                journaled.append({"op": eff["op"], "rel": asdict(rel)})
+            new_rows: list[tuple[tuple, float, int]] = []
+            for key, ent in final.items():
+                pos = idx.get(key, self._alive)
+                if pos is not None:
+                    self._alive[pos[0]][pos[1]] = False
+                if ent is not None:
+                    new_rows.append((key, ent[0], ent[1]))
+            if new_rows:
+                keys = np.array([k for k, _, _ in new_rows], dtype=np.int32)
+                exp_col = np.array([e for _, e, _ in new_rows],
+                                   dtype=np.float64)
+                cav_col = np.array([c for _, _, c in new_rows],
+                                   dtype=np.int32)
+                self._append_rows(Columns(
+                    keys[:, 0].copy(), keys[:, 1].copy(), keys[:, 2].copy(),
+                    keys[:, 3].copy(), keys[:, 4].copy(), keys[:, 5].copy(),
+                    exp_col, cav_col,
+                ))
+                if not self._has_finite_exp and np.isfinite(exp_col).any():
+                    self._has_finite_exp = True
+            self._expiry_bounds = None
+            self.revision = revision
+            self.unlogged_revision = revision
+            self._observe_revision()
+            # watchers from before the jump must re-list: their revisions
+            # describe history this store never logged
+            self._watch_oldest_rev = revision
+            if self.journal is not None:
+                self.journal({"kind": "apply", "rev": revision,
+                              "effects": journaled}, None)
+            self._watch_cond.notify_all()
 
     def next_expiry(self, now: float) -> float:
         """Earliest expiration boundary strictly after ``now`` among live
@@ -681,6 +857,165 @@ class Store:
             i = bisect.bisect_right(self._watch_log, revision,
                                     key=lambda r: r.revision)
             return self._watch_log[i:]
+
+    # -- durability ---------------------------------------------------------
+
+    def _collect_state(self) -> tuple[Columns, dict]:
+        """(compacted live columns, meta) under the lock: the snapshot
+        payload of file saves and the full-state transfer."""
+        with self._lock:
+            live = [cols.take(np.flatnonzero(alive))
+                    for cols, alive in zip(self._chunks, self._alive)
+                    if np.any(alive)]
+            cols = Columns.concat(live)
+            meta = {
+                "revision": self.revision,
+                "types": self.types.strings(),
+                "relations": self.relations.strings(),
+                "objects": {str(tid): it.strings()
+                            for tid, it in self.objects.items()},
+                "caveat_instances": [list(p)
+                                     for p in self.caveat_instances],
+            }
+        return cols, meta
+
+    @staticmethod
+    def _state_arrays(cols: Columns, meta: dict) -> dict:
+        """The snapshot's npz members: the eight columns and the meta
+        JSON as uint8 (the reference's keys, so either package reads the
+        other's snapshots)."""
+        return {"rt": cols.rt, "rid": cols.rid, "rl": cols.rl,
+                "st": cols.st, "sid": cols.sid, "srl": cols.srl,
+                "exp": cols.exp, "cav": cols.cav,
+                "meta": np.frombuffer(json.dumps(meta).encode(),
+                                      dtype=np.uint8)}
+
+    def save(self, path: str) -> int:
+        """Persist the store to one compressed npz (live rows compacted
+        into one chunk plus the interner string tables); returns the saved
+        revision. The watch log is not persisted: a watcher resuming
+        against a restored store must re-list."""
+        cols, meta = self._collect_state()
+        # a unique temp per save, streamed, fsynced, then renamed: the
+        # checkpointer prunes WAL segments on the strength of this file
+        fd, tmp = tempfile.mkstemp(
+            dir=os.path.dirname(os.path.abspath(path)),
+            prefix=os.path.basename(path) + ".tmp.")
+        try:
+            with os.fdopen(fd, "wb") as f:
+                np.savez_compressed(f, **self._state_arrays(cols, meta))
+                f.flush()
+                os.fsync(f.fileno())
+            os.replace(tmp, path)
+        except BaseException:
+            try:
+                os.unlink(tmp)
+            except OSError:
+                pass
+            raise
+        return int(meta["revision"])
+
+    @staticmethod
+    def encode_state(cols: Columns, meta: dict) -> bytes:
+        """A ``_collect_state`` pair in the snapshot npz format, in memory
+        (lock-free: the collected arrays are copies)."""
+        bio = io.BytesIO()
+        np.savez_compressed(bio, **Store._state_arrays(cols, meta))
+        return bio.getvalue()
+
+    def state_bytes(self) -> tuple[int, bytes]:
+        """(revision, full-state payload): ``save``'s npz in memory."""
+        cols, meta = self._collect_state()
+        return int(meta["revision"]), self.encode_state(cols, meta)
+
+    @staticmethod
+    def _parse_state(z) -> tuple[dict, Columns]:
+        # np.asarray, not astype: matching-dtype columns pass through, so
+        # mmap-backed directory snapshots stay lazily paged
+        names = z.files if hasattr(z, "files") else set(z.keys())
+        meta = json.loads(bytes(np.asarray(z["meta"]).tobytes()).decode())
+        cols = Columns(
+            np.asarray(z["rt"], dtype=np.int32),
+            np.asarray(z["rid"], dtype=np.int32),
+            np.asarray(z["rl"], dtype=np.int32),
+            np.asarray(z["st"], dtype=np.int32),
+            np.asarray(z["sid"], dtype=np.int32),
+            np.asarray(z["srl"], dtype=np.int32),
+            np.asarray(z["exp"], dtype=np.float64),
+            # snapshots from before caveats carry no cav column
+            (np.asarray(z["cav"], dtype=np.int32)
+             if "cav" in names else None),
+        )
+        return meta, cols
+
+    def save_dir(self, path: str) -> int:
+        """Save a snapshot as a ``persistence/codec.save`` directory (one
+        flat ``.npy`` a column), the only layout ``load(..., mmap=True)``
+        can memory-map. Returns the saved revision."""
+        from ..persistence import codec
+
+        cols, meta = self._collect_state()
+        codec.save(path, self._state_arrays(cols, meta))
+        return int(meta["revision"])
+
+    def load(self, path: str, mmap: bool = False) -> None:
+        """Replace this store's contents with a saved snapshot: the
+        single-file npz, or a :meth:`save_dir` directory (with ``mmap``
+        its columns are mapped read-only and paged in on demand)."""
+        if os.path.isdir(path):
+            from ..persistence import codec
+
+            meta, cols = self._parse_state(codec.load(path, mmap=mmap))
+        else:
+            with np.load(path) as z:
+                meta, cols = self._parse_state(z)
+        self._install_state(meta, cols)
+
+    def load_state_bytes(self, payload: bytes) -> None:
+        """Replace this store's contents from a :meth:`state_bytes`
+        payload, journaled as a ``load_state`` record."""
+        with np.load(io.BytesIO(payload)) as z:
+            meta, cols = self._parse_state(z)
+        self._install_state(meta, cols, journal_payload=payload)
+
+    def _install_state(self, meta: dict, cols: Columns,
+                       journal_payload: Optional[bytes] = None) -> None:
+        with self._lock:
+            self.epoch = uuid.uuid4().hex  # cached id maps are now invalid
+            self.types = Interner()
+            for s in meta["types"]:
+                self.types.intern(s)
+            self.relations = Interner()
+            for s in meta["relations"]:
+                self.relations.intern(s)
+            self.objects = {}
+            for tid, strings in meta["objects"].items():
+                it = Interner()
+                for s in strings:
+                    it.intern(s)
+                self.objects[int(tid)] = it
+            insts = meta.get("caveat_instances") or [["", ""]]
+            self.caveat_instances = [tuple(p) for p in insts]
+            self._caveat_key = {tuple(p): i for i, p in enumerate(insts)}
+            self._chunks = [cols]
+            self._alive = [np.ones(len(cols), dtype=bool)]
+            self._index = StoreIndex()
+            self._start_index_prebuild()
+            # a restore may land on the SAME revision number with other
+            # rows: the expiry watermark must not be served from the old
+            self._expiry_bounds = None
+            self._has_finite_exp = bool(np.isfinite(cols.exp).any())
+            self.revision = int(meta["revision"])
+            self.unlogged_revision = self.revision
+            self._watch_log = []
+            self._observe_revision()
+            # watchers from before the restore must re-list + re-watch
+            # (their revisions describe another lineage)
+            self._watch_oldest_rev = self.revision
+            if self.journal is not None and journal_payload is not None:
+                self.journal({"kind": "load_state", "rev": self.revision},
+                             journal_payload)
+            self._watch_cond.notify_all()
 
     def snapshot(self) -> Snapshot:
         """Immutable columnar view of all live tuples for the compiler.

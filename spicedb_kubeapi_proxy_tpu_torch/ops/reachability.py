@@ -31,15 +31,28 @@ which the fully-consistent read contract allows ("at least as fresh").
 Conditional grants (caveats/) ride the residual: every edge carries the
 row of its (caveat, context) instance (0 = unconditional), and each
 dispatch evaluates the caveat VM once and gates the edges with its
-verdicts (:func:`_run`). Tiering comes with a later slice.
+verdicts (:func:`_run`).
+
+Tiered block residency (storage/, :meth:`CompiledGraph.enable_tiering`)
+keeps the dense blocks of a graph larger than its device budget in a
+host-cold arena: a dispatch demand-sets the blocks its seeds and queried
+ranges can reach (:meth:`CompiledGraph._demand_blocks`), streams the cold
+ones in on prefetch workers, each building its block on a CUDA stream of
+its own from a pinned staging buffer (:func:`_materialize_block`), and
+runs the fixpoint over that active subset only; streamed blocks stay hot
+while the budget allows. A block is built against the device state's own
+watermarks (its block metadata and dead-ledger rows), so a query never
+mixes a block newer than the overlay it runs with.
 """
 
 from __future__ import annotations
 
 import threading
 import time
+from collections import deque
 from contextlib import contextmanager, nullcontext
 from dataclasses import dataclass, field, replace
+from functools import partial
 from typing import Optional
 
 import numpy as np
@@ -171,10 +184,16 @@ class _Resident:
     number of the last one applied). Queries run under ``lock.shared()``;
     builds and patches under ``lock.exclusive()``. Queries and patches
     enqueue on the device's current stream, so a patch also runs after
-    every hop enqueued before it."""
+    every hop enqueued before it.
+
+    ``tier`` is the base's TierStore (storage/tiers.py) when its blocks are
+    tiered (:meth:`CompiledGraph.enable_tiering`), shared like the tensors;
+    ``tier_coo`` maps each block index to the block metadata whose COO the
+    cold arena holds. ``released``: a restore freed this state
+    (:func:`release_resident`)."""
 
     __slots__ = ("tensors", "blocks", "lock", "pending", "committed",
-                 "applied", "_plock")
+                 "applied", "_plock", "tier", "tier_coo", "released")
 
     def __init__(self, blocks: list):
         self.tensors: dict = {}
@@ -184,6 +203,9 @@ class _Resident:
         self.committed = 0
         self.applied = 0
         self._plock = threading.Lock()
+        self.tier = None
+        self.tier_coo: dict = {}
+        self.released = False
 
     def queue(self, patch) -> int:
         """Queue one commit's device patch (a callable on the tensors);
@@ -407,6 +429,10 @@ class CompiledGraph:
     n_levels: int = 0
     range_levels: Optional[np.ndarray] = None
     range_offs: Optional[np.ndarray] = None
+    # range-granularity adjacency ((src range, dst range) pairs of the full
+    # edge set plus each program's leaf -> permission pairs), retained for
+    # the tiered dispatch's demand closure; None on hand-built graphs
+    range_adj: Optional[tuple] = None
     # the full dst-sorted edge set (padded) and the residual's indices
     src: Optional[np.ndarray] = None
     dst: Optional[np.ndarray] = None
@@ -454,6 +480,11 @@ class CompiledGraph:
     def __post_init__(self):
         if self.resident is None:
             self.resident = _Resident(self.blocks)
+
+    @property
+    def tier(self):
+        """The TierStore of this graph's base, or None (all resident)."""
+        return self.resident.tier
 
     # -- host-side encoding ------------------------------------------------
 
@@ -503,7 +534,13 @@ class CompiledGraph:
             return VOID_IDX
         return i
 
-    def run_meta(self) -> RunMeta:
+    def run_meta(self, active: Optional[tuple] = None) -> RunMeta:
+        """What the fixpoint reads besides device tensors. ``active``
+        (tiered dispatch) keeps only those block indices, in that order,
+        matching the block tensors the dispatch passes; the per-level merge
+        windows stay unfiltered: an excluded closured block's range merges
+        plain propagation values, which is safe because the demand closure
+        guarantees an excluded range cannot reach a queried slot."""
         bounds = self.res_level_bounds
         if bounds is None:
             bounds = (0, len(self.res_src))  # unstratified: all core
@@ -520,10 +557,12 @@ class CompiledGraph:
                          if b.closured and b.level == k]
                 level_ranges.append(tuple(wins))
         cav = self.caveats
+        kept = (self.blocks if active is None
+                else [self.blocks[i] for i in active])
         return RunMeta(
             M=self.M,
             programs=tuple(self.programs),
-            blocks=tuple(b.slim() for b in self.blocks),
+            blocks=tuple(b.slim() for b in kept),
             res_level_bounds=tuple(bounds),
             n_levels=self.n_levels,
             level_ranges=tuple(level_ranges),
@@ -540,14 +579,41 @@ class CompiledGraph:
         res = self.resident
         if not res.tensors:
             with res.lock.exclusive():
+                if res.released:
+                    raise RuntimeError(
+                        "this graph's device state was released by a store "
+                        "restore; read the engine's compiled() again")
                 if not res.tensors:
-                    res.tensors = self._dev_build()
+                    d = self._dev_build()
+                    if res.tier is not None:
+                        _tier_sync_arena(res, d["mark"]["blocks"])
+                    res.tensors = d
         return res.tensors
+
+    @contextmanager
+    def shared_state(self):
+        """The shared side of the resident lock, yielding the device state
+        that holds under it. :meth:`_dev` builds the state before the
+        shared side is taken, so a re-tiering (:meth:`enable_tiering`) or
+        a restore (:func:`release_resident`) can drop it in between: the
+        first builds it again, the second raises :meth:`_dev`'s restore
+        error."""
+        res = self.resident
+        while True:
+            self._dev()
+            with res.lock.shared():
+                if res.tensors:
+                    yield res.tensors
+                    return
 
     def _dev_build(self) -> dict:
         """A fresh device state from the newest host state: residual,
         overlay, caveat instance tables, and every block minus the dead
-        ledger's cells. Also what a patched state must equal (tests)."""
+        ledger's cells (on a tiered graph, placeholders: blocks stream in
+        on demand). Also what a patched state must equal (tests).
+        ``mark`` holds the host watermarks the state reflects (block
+        metadata, dead-ledger rows, overlay slots), which every patch
+        advances: a tiered dispatch builds its blocks against them."""
         dev = self.device
 
         def up(a, dtype):
@@ -573,11 +639,24 @@ class CompiledGraph:
             cav = self.caveats
             d["cav_static"] = (cav.device_static(dev)
                                if cav is not None and cav.metas else ())
-            blocks, bits = [], []
-            for bm in self.resident.blocks:
-                A, Ab = self._block_tensors(bm)
-                blocks.append(A)
-                bits.append(Ab)
+            d["mark"] = {"seq": self.resident.committed,
+                         "blocks": list(self.resident.blocks),
+                         "n_dead": (len(self.dead_set)
+                                    if self.dead_set is not None
+                                    else self.n_dead),
+                         "n_delta": (len(self.delta_pos)
+                                     if self.delta_pos is not None
+                                     else self.n_delta)}
+            if self.tier is not None:
+                # nothing is resident up front: every block starts cold,
+                # so a definition no traffic reaches costs no device bytes
+                blocks = bits = [None] * len(self.resident.blocks)
+            else:
+                blocks, bits = [], []
+                for bm in self.resident.blocks:
+                    A, Ab = self._block_tensors(bm)
+                    blocks.append(A)
+                    bits.append(Ab)
         d["blocks"] = tuple(blocks)
         d["blocks_bits"] = tuple(bits)
         return d
@@ -587,25 +666,17 @@ class CompiledGraph:
         cells on the device."""
         dev = self.device
         dl, sl = self._live_cells(bm)
-        dl_t = torch.as_tensor(dl).to(dev)
-        sl_t = torch.as_tensor(sl).to(dev)
-        A = torch.zeros((bm.n_dst, bm.n_src), dtype=torch.int8, device=dev)
-        A.index_put_((dl_t, sl_t), torch.ones(1, dtype=torch.int8, device=dev))
-        # bit-packed dual for the small-batch push path
-        Ab = (bitprop.pack_block(dl_t, sl_t, bm.n_dst, bm.n_src)
-              if bitprop.eligible(bm.n_dst, bm.n_src) else None)
-        return A, Ab
+        return _build_block(bm, torch.as_tensor(dl).to(dev),
+                            torch.as_tensor(sl).to(dev))
 
-    def _live_cells(self, bm: _BlockMeta) -> tuple[np.ndarray, np.ndarray]:
+    def _live_cells(self, bm: _BlockMeta, ledger=None
+                    ) -> tuple[np.ndarray, np.ndarray]:
         """The block's local (dst, src) cells minus :meth:`_dead_cells` —
-        the reference sets every cell and then clears the dead ones."""
-        dl = np.asarray(bm.dst_local, dtype=np.int64)
-        sl = np.asarray(bm.src_local, dtype=np.int64)
-        dd, ds = self._dead_cells(bm)
-        if len(dd):
-            keep = ~np.isin(dl * bm.n_src + sl, dd * bm.n_src + ds)
-            dl, sl = dl[keep], sl[keep]
-        return dl, sl
+        the reference sets every cell and then clears the dead ones.
+        ``ledger``: the dead pairs to cut (default: the newest)."""
+        dl, sl = _dst_sorted(np.asarray(bm.dst_local, dtype=np.int64),
+                             np.asarray(bm.src_local, dtype=np.int64))
+        return _drop_cells(dl, sl, *self._dead_cells(bm, ledger))
 
     def _ledger(self) -> Optional[np.ndarray]:
         """Killed base (src, dst) pairs the device state reflects: the
@@ -615,9 +686,10 @@ class CompiledGraph:
             return self.dead_buf[:len(self.dead_set)]
         return self.dead_pairs
 
-    def _dead_cells(self, bm: _BlockMeta) -> tuple[np.ndarray, np.ndarray]:
+    def _dead_cells(self, bm: _BlockMeta, ledger=None
+                    ) -> tuple[np.ndarray, np.ndarray]:
         """Local (dst, src) coordinates of ledger pairs inside a block."""
-        dead = self._ledger()
+        dead = self._ledger() if ledger is None else ledger
         if dead is None or not len(dead):
             z = np.empty(0, dtype=np.int64)
             return z, z
@@ -647,6 +719,141 @@ class CompiledGraph:
                     if isinstance(x, torch.Tensor):
                         n += x.numel() * x.element_size()
         return n
+
+    # -- tiered storage ----------------------------------------------------
+
+    def enable_tiering(self, budget_bytes: int,
+                       spill_dir: Optional[str] = None):
+        """Track this base's dense blocks in tiers under a device byte
+        budget (storage/): every block's COO goes into a host-cold arena,
+        nothing is uploaded until a dispatch demands it, and streamed
+        blocks stay hot while the budget allows. Every view of the base
+        shares the TierStore (it lives on the resident state). Each block
+        registers with the bytes of the port's own tensors for it: the
+        int8 block and, where :func:`bitprop.eligible`, its int32 bit dual.
+        Any device state built before is dropped. Returns the TierStore."""
+        from ..storage import ColdArena, TierStore
+
+        res = self.resident
+        with res.lock.exclusive():
+            if res.tier is not None:
+                # a budget change: retire the old store's prefetch workers
+                res.tier.close()
+            arena = ColdArena(spill_dir)
+            tier = TierStore(budget_bytes, arena)
+            blocks = res.blocks
+            for i, b in enumerate(blocks):
+                tier.register(i, block_nbytes(b), b.level)
+            res.tier = tier
+            res.tier_coo = {}
+            _tier_sync_arena(res, blocks)
+            res.tensors = {}
+        tier.publish_gauges()
+        return tier
+
+    def _demand_blocks(self, seed_slots: np.ndarray, q_slots: np.ndarray,
+                       n_delta: int) -> Optional[tuple]:
+        """Block indices this dispatch can possibly exercise: a block is
+        demanded iff its src range is forward-reachable from the seed
+        ranges AND its dst range backward-reachable from the queried
+        ranges, over the compile-retained range adjacency plus the
+        overlay's first ``n_delta`` slots (the device state's watermark).
+        Anything outside provably cannot reach a queried slot. None = no
+        adjacency (a hand-built graph): stream everything. Cached per
+        (seed ranges, query ranges, overlay watermark)."""
+        offs = self.range_offs
+        if offs is None or self.range_adj is None or not len(self.blocks):
+            return None
+        trash = self.M
+
+        def ranges_of(slots) -> frozenset:
+            x = np.asarray(slots).ravel()
+            x = x[(x >= 0) & (x < trash)]
+            if not len(x):
+                return frozenset()
+            rid = np.searchsorted(offs, x, side="right") - 1
+            return frozenset(np.unique(rid).tolist())
+
+        seed_r = ranges_of(seed_slots)
+        q_r = ranges_of(q_slots)
+        key = (seed_r, q_r, n_delta)
+        cached = self.tier.demand_cache_get(key)
+        if cached is not None:
+            return cached
+        n_ranges = len(offs)
+        fwd: list = [set() for _ in range(n_ranges)]
+        back: list = [set() for _ in range(n_ranges)]
+        for a, t in self.range_adj:
+            fwd[a].add(t)
+            back[t].add(a)
+        if n_delta and self.delta_src is not None:
+            # slots below the watermark never change their pair
+            ds = self.delta_src[:n_delta].astype(np.int64)
+            dt = self.delta_dst[:n_delta].astype(np.int64)
+            keep = (ds >= 0) & (ds < trash) & (dt >= 0) & (dt < trash)
+            if np.any(keep):
+                srid = np.searchsorted(offs, ds[keep], side="right") - 1
+                drid = np.searchsorted(offs, dt[keep], side="right") - 1
+                for a, t in zip(srid.tolist(), drid.tolist()):
+                    fwd[a].add(t)
+                    back[t].add(a)
+
+        def close_over(starts, edges) -> set:
+            seen = set(starts)
+            frontier = list(starts)
+            while frontier:
+                nxt = []
+                for r in frontier:
+                    for t in edges[r]:
+                        if t not in seen:
+                            seen.add(t)
+                            nxt.append(t)
+                frontier = nxt
+            return seen
+
+        reach_f = close_over(seed_r, fwd)
+        reach_b = close_over(q_r, back)
+        active = tuple(
+            i for i, b in enumerate(self.blocks)
+            if _range_id(offs, b.src_off) in reach_f
+            and _range_id(offs, b.dst_off) in reach_b)
+        self.tier.demand_cache_put(key, active)
+        return active
+
+    def _stream_blocks(self, active: tuple, d: dict) -> tuple:
+        """The dispatch's block tensors for ``active``: hot payloads from
+        the tier, cold ones built by the prefetch workers in level order
+        and admitted if they fit (the wall time the dispatch blocks on
+        them is the miss stall, ``engine_tier_miss_stall_seconds``). The
+        caller holds the shared side of the resident lock, so no patch
+        runs between a block's build against ``d``'s watermarks and its
+        admission. On the card the dispatch stream waits on each block's
+        build event, and every block tensor is marked as used on it
+        (``record_stream``): one evicted meanwhile is not reused under
+        the fixpoint. A block that fails to build raises: nothing falls
+        back to uploading the whole graph."""
+        tier = self.tier
+        hot, missing = tier.lookup(active)
+        if missing:
+            t0 = time.perf_counter()
+            futs = tier.prefetcher.fetch(
+                missing, partial(_materialize_block, self, d))
+            for i in missing:
+                payload = futs[i].result()
+                hot[i] = payload
+                tier.admit(i, payload)
+            tier.observe_stall(time.perf_counter() - t0)
+        payloads = [hot[i] for i in active]
+        if self.device.type == "cuda":
+            cur = torch.cuda.current_stream(self.device)
+            for A, Ab, ready in payloads:
+                if ready is not None:
+                    cur.wait_event(ready)
+                A.record_stream(cur)
+                if Ab is not None:
+                    Ab.record_stream(cur)
+        return (tuple(p[0] for p in payloads),
+                tuple(p[1] for p in payloads))
 
     # -- queries -----------------------------------------------------------
 
@@ -690,7 +897,6 @@ class CompiledGraph:
         graph's caveat tables with the absolute clock (a ``now`` caveat
         parameter), while expirations compare against the clock relative
         to the graph's base time."""
-        self._dev()
         dev = self.device
         B = seed_slots.shape[0]
         Q = len(q_slots)
@@ -723,16 +929,25 @@ class CompiledGraph:
                 cav_req, _ = cav.encode_request(context, now_abs)
         else:
             cav_req = ()
-        res = self.resident
-        with res.lock.shared():
-            d = res.tensors
+        with self.shared_state() as d:
             if window is not None:
                 qs, qb, q_len, q_rows = window
             else:
                 qs, qb = self._q_tensors(d, q_slots, q_batch, q_cache_key)
                 q_len, q_rows = 0, 1
+            meta, run_d = self.run_meta(), d
+            if self.tier is not None:
+                # tiered dispatch: demand-set the blocks, stream the cold
+                # ones in, and run the fixpoint over that subset only
+                active = self._demand_blocks(seed_slots, q_slots,
+                                             d["mark"]["n_delta"])
+                if active is None:
+                    active = tuple(range(len(self.blocks)))
+                blocks, bits = self._stream_blocks(active, d)
+                meta = self.run_meta(active)
+                run_d = dict(d, blocks=blocks, blocks_bits=bits)
             out, converged, iters, n_push = _run(
-                self.run_meta(), d, torch.as_tensor(seeds).to(dev), qs, qb,
+                meta, run_d, torch.as_tensor(seeds).to(dev), qs, qb,
                 now_rel, np.float32(self.spmm_crossover), cav_req,
                 max_iters=max_iters, q_contig_len=q_len,
                 q_contig_rows=q_rows)
@@ -857,6 +1072,285 @@ class QueryFuture:
     def caveats_missing(self) -> int:
         tail = self._read()[self._q:]
         return int(tail.view(np.int32)[0]) if len(tail) else 0
+
+
+def block_nbytes(bm: _BlockMeta) -> int:
+    """Device bytes of one block as the port holds it: the int8 block,
+    plus its int32 bit dual (``K_pad`` words a row) where eligible."""
+    n = bm.n_dst * bm.n_src
+    if bitprop.eligible(bm.n_dst, bm.n_src):
+        n += bm.n_dst * bitprop._k_pad(bm.n_src) * 4
+    return n
+
+
+def _build_block(bm: _BlockMeta, dl_t: torch.Tensor, sl_t: torch.Tensor):
+    """(int8 block, bit-packed dual or None) with cells (dl, sl) set, on
+    the device of the index tensors and its current stream."""
+    dev = dl_t.device
+    A = torch.zeros((bm.n_dst, bm.n_src), dtype=torch.int8, device=dev)
+    A.index_put_((dl_t, sl_t), torch.ones(1, dtype=torch.int8, device=dev))
+    # bit-packed dual for the small-batch push path
+    Ab = (bitprop.pack_block(dl_t, sl_t, bm.n_dst, bm.n_src)
+          if bitprop.eligible(bm.n_dst, bm.n_src) else None)
+    return A, Ab
+
+
+def _block_coo(bm: _BlockMeta) -> dict:
+    """A block's cold-arena payload: its COO in ascending dst order (the
+    compile's order already; a closure's is re-sorted), and a closured
+    block's base edges."""
+    dl, sl = _dst_sorted(np.asarray(bm.dst_local, dtype=np.int32),
+                         np.asarray(bm.src_local, dtype=np.int32))
+    cols = {"dst_local": dl, "src_local": sl}
+    if bm.closured:
+        cols["base_dst_local"] = np.asarray(bm.base_dst_local,
+                                            dtype=np.int32)
+        cols["base_src_local"] = np.asarray(bm.base_src_local,
+                                            dtype=np.int32)
+    return cols
+
+
+def _tier_sync_arena(res: _Resident, blocks: list) -> None:
+    """Bring the cold arena up to ``blocks`` (the metadata a device state
+    reflects): re-encode every block whose arena COO came from other
+    metadata (a re-close). Caller holds the exclusive side."""
+    for i, bm in enumerate(blocks):
+        if res.tier_coo.get(i) is not bm:
+            res.tier.arena.put(i, _block_coo(bm))
+            res.tier_coo[i] = bm
+
+
+def _dst_sorted(dl: np.ndarray, sl: np.ndarray
+                ) -> tuple[np.ndarray, np.ndarray]:
+    """Cells ``(dl, sl)`` in ascending dst order: the compile's own order
+    (its edges are dst-sorted); a closure's is re-sorted."""
+    if len(dl) > 1 and np.any(dl[1:] < dl[:-1]):
+        order = np.argsort(dl, kind="stable")
+        return dl[order], sl[order]
+    return dl, sl
+
+
+def _drop_cells(dl: np.ndarray, sl: np.ndarray, dd: np.ndarray,
+                ds: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """``(dl, sl)`` minus the cells ``(dd, ds)``, for ``dl`` ascending:
+    each dead cell's dst run is binary-searched, so the cost is
+    O(dead x log cells) plus one pass when a cell is found, not a
+    membership test over every cell of a multi-million-cell block."""
+    if not len(dd):
+        return dl, sl
+    lo = np.searchsorted(dl, dd, side="left")
+    cnt = np.searchsorted(dl, dd, side="right") - lo
+    if not cnt.any():
+        return dl, sl
+    first = np.repeat(np.cumsum(cnt) - cnt, cnt)
+    idx = np.repeat(lo, cnt) + np.arange(int(cnt.sum())) - first
+    hit = idx[sl[idx] == np.repeat(ds, cnt)]
+    if not len(hit):
+        return dl, sl
+    keep = np.ones(len(dl), dtype=bool)
+    keep[hit] = False
+    return dl[keep], sl[keep]
+
+
+_STAGING = threading.local()
+
+# device-side timing events of recent stream-ins on the card, (copy start,
+# copy end, build end) each, read once they have completed
+_STREAM_EVENTS: deque = deque(maxlen=1024)
+_STREAM_LOCK = threading.Lock()
+
+
+def _staged_upload(dev: torch.device, dl: np.ndarray, sl: np.ndarray):
+    """(dst, src) int64 index tensors on ``dev`` for a block build, the
+    stream to build on, and the copy's (start, end) timing events. On the
+    card: the prefetch worker's own CUDA stream, fed by a non-blocking
+    copy out of the worker's pinned staging buffer (grown on demand,
+    reused once its last copy has landed)."""
+    n = len(dl)
+    if dev.type != "cuda":
+        # copies: an arena spilled to disk hands back read-only maps
+        return (torch.tensor(dl).to(dev), torch.tensor(sl).to(dev), None,
+                None)
+    st = _STAGING
+    if getattr(st, "stream", None) is None or st.device != dev:
+        st.stream = torch.cuda.Stream(device=dev)
+        st.device = dev
+        st.buf = None
+        st.ready = None
+    if st.ready is not None:
+        st.ready.synchronize()  # the buffer's previous copy has landed
+    if st.buf is None or st.buf.numel() < 2 * n:
+        st.buf = torch.empty(max(2 * n, 1 << 16), dtype=torch.int32,
+                             pin_memory=True)
+    host = st.buf.numpy()
+    host[:n] = dl
+    host[n:2 * n] = sl
+    copy = (torch.cuda.Event(enable_timing=True),
+            torch.cuda.Event(enable_timing=True))
+    with torch.cuda.stream(st.stream):
+        copy[0].record(st.stream)
+        idx = st.buf[:2 * n].to(dev, non_blocking=True)
+        copy[1].record(st.stream)
+        idx = idx.to(torch.int64)
+    return idx[:n], idx[n:], st.stream, copy
+
+
+def _observe_stream_events(wait: bool) -> None:
+    """Move the device times of finished stream-ins into their histograms
+    (``engine_tier_stream_copy_seconds``: the host -> device copy;
+    ``engine_tier_stream_build_seconds``: the int64 widening, zero-fill,
+    scatter and bit pack), oldest first, up to the first one still running;
+    ``wait`` waits for every one instead."""
+    with _STREAM_LOCK:
+        while _STREAM_EVENTS:
+            c0, c1, done = _STREAM_EVENTS[0]
+            if not wait and not done.query():
+                return
+            done.synchronize()
+            _STREAM_EVENTS.popleft()
+            metrics.histogram("engine_tier_stream_copy_seconds").observe(
+                c0.elapsed_time(c1) / 1e3)
+            metrics.histogram("engine_tier_stream_build_seconds").observe(
+                c1.elapsed_time(done) / 1e3)
+
+
+def tier_stream_timings() -> None:
+    """Wait for every stream-in enqueued so far and record its device
+    times (see :func:`_observe_stream_events`); a stream-in records its
+    host steps itself. For measurement, off the serving path."""
+    _observe_stream_events(wait=True)
+
+
+def _materialize_block(cg: CompiledGraph, d: dict, i: int) -> tuple:
+    """Build one tiered block's device tensors, ``(A, bits or None,
+    ready event or None)``, from its cold-arena COO minus the dead
+    ledger's cells, both at the watermarks of the device state ``d`` (its
+    block metadata and ledger rows): the block matches the residual and
+    overlay the dispatch runs with. Runs on prefetch worker threads while
+    the dispatching thread holds the shared side of the resident lock;
+    reads only the arena, append-only ledger rows and ``d``. Each host
+    step's time goes into a histogram (``engine_tier_stream_decode_,
+    cut_, stage_seconds``); the device steps' are read later from timing
+    events (:func:`tier_stream_timings`)."""
+    _observe_stream_events(wait=False)
+    mark = d["mark"]
+    bm = mark["blocks"][i]
+    t0 = time.perf_counter()
+    coo = cg.tier.arena.get(i)
+    t1 = time.perf_counter()
+    ledger = (cg.dead_buf[:mark["n_dead"]] if cg.dead_buf is not None
+              else cg.dead_pairs)
+    dd, ds = cg._dead_cells(bm, ledger)
+    dl, sl = _drop_cells(np.asarray(coo["dst_local"]),
+                         np.asarray(coo["src_local"]), dd, ds)
+    t2 = time.perf_counter()
+    dl_t, sl_t, stream, copy = _staged_upload(cg.device, dl, sl)
+    t3 = time.perf_counter()
+    for name, sec in (("decode", t1 - t0), ("cut", t2 - t1),
+                      ("stage", t3 - t2)):
+        metrics.histogram(f"engine_tier_stream_{name}_seconds").observe(sec)
+    metrics.counter("engine_tier_streamed_bytes_total").inc(
+        dl.nbytes + sl.nbytes)
+    if stream is None:
+        A, Ab = _build_block(bm, dl_t, sl_t)
+        return A, Ab, None
+    with torch.cuda.stream(stream):
+        A, Ab = _build_block(bm, dl_t, sl_t)
+        ready = torch.cuda.Event(enable_timing=True)
+        ready.record(stream)
+    _STAGING.ready = ready
+    _STREAM_EVENTS.append((copy[0], copy[1], ready))
+    return A, Ab, ready
+
+
+def _tier_apply_update(cg: CompiledGraph, d: dict, blocks_host: list,
+                       reclose: dict, block_cells: dict) -> None:
+    """A committed delta's block edits on a tiered graph (the tiered
+    branch of :func:`_patch_device`, under the exclusive side of the
+    resident lock). A re-closed block re-encodes its arena COO and, when
+    hot, is rebuilt whole; killed cells are cleared in place in a hot
+    payload (a cold block needs nothing: its next build reads the arena
+    and the ledger at the advanced watermarks). Every touched block is
+    pinned hot until the next compaction fold, whose fresh base gets a
+    fresh TierStore. (A state built after the commit passes no re-closes:
+    its arena already holds the newer closure.)"""
+    tier = cg.tier
+    res = cg.resident
+    dev = cg.device
+    mark = d["mark"]
+    ledger = (cg.dead_buf[:mark["n_dead"]] if cg.dead_buf is not None
+              else cg.dead_pairs)
+    for b in reclose:
+        bm = blocks_host[b]
+        tier.arena.put(b, _block_coo(bm))
+        res.tier_coo[b] = bm
+        if tier.peek(b) is not None:
+            dl, sl = cg._live_cells(bm, ledger=ledger)
+            A, Ab = _build_block(bm, torch.as_tensor(dl).to(dev),
+                                 torch.as_tensor(sl).to(dev))
+            tier.replace(b, (A, Ab, None))
+        tier.pin(b)
+    for b, cells in block_cells.items():
+        payload = tier.peek(b)
+        if payload is not None:
+            A, Ab, ready = payload
+            if ready is not None:
+                # built on a worker's stream: order the edit after the
+                # build, and keep the memory from reuse until it has run
+                cur = torch.cuda.current_stream(dev)
+                cur.wait_event(ready)
+                A.record_stream(cur)
+                if Ab is not None:
+                    Ab.record_stream(cur)
+            dl = np.fromiter((c[0] for c in cells), dtype=np.int64,
+                             count=len(cells))
+            sl = np.fromiter((c[1] for c in cells), dtype=np.int64,
+                             count=len(cells))
+
+            def up(a, dtype):
+                return torch.as_tensor(np.asarray(a)).to(device=dev,
+                                                         dtype=dtype)
+
+            A.index_put_((up(dl, torch.int64), up(sl, torch.int64)),
+                         torch.zeros(1, dtype=torch.int8, device=dev))
+            if Ab is not None:
+                _clear_bits(Ab, dl, sl, up)
+        tier.pin(b)
+
+
+def tier_maintain(cg: Optional[CompiledGraph]) -> None:
+    """Placement sweep, off the serving path (the compactor's worker):
+    decay access recency, demote blocks that went cold while the store is
+    over headroom, and build pinned-but-cold blocks so a write never pays
+    a stream-in for its own overlay's cells; then publish the gauges.
+    Builds run under the shared side of the resident lock, as a
+    dispatch's do."""
+    tier = cg.tier if cg is not None else None
+    if tier is None:
+        return
+    want = tier.place()
+    if want:
+        with cg.shared_state() as d:
+            if cg.tier is not tier:
+                return  # re-tiered meanwhile: the new store starts clean
+            for i in want:
+                tier.admit(i, _materialize_block(cg, d, i), pinned=True)
+    tier.publish_gauges()
+
+
+def release_resident(cg: CompiledGraph) -> None:
+    """Free a base's device state (a store restore replaced the contents
+    it was built from): tensors, queued patches and tiered payloads. A
+    query still holding a view of it raises on its next dispatch."""
+    res = cg.resident
+    with res.lock.exclusive():
+        res.released = True
+        res.tensors = {}
+        with res._plock:
+            res.pending = []
+        if res.tier is not None:
+            res.tier.close()
+            res.tier = None
 
 
 def _apply_program(V: torch.Tensor, programs) -> torch.Tensor:
@@ -1280,6 +1774,20 @@ def compile_graph(schema: Schema, snapshot, device=None,
 
     level_map, n_levels = _stratify(offs, src_rid, dst_rid, programs,
                                     ignore_self=frozenset(closure_rids))
+
+    # the range-granularity adjacency the tiered demand closure walks:
+    # every (src range, dst range) pair the full edge set crosses (block
+    # edges included: the rids predate the dense split) plus each
+    # program's leaf -> permission pairs; self pairs stay in
+    adj_pairs: set = set()
+    if n_edges:
+        for p in np.unique(
+                src_rid.astype(np.int64) * len(offs) + dst_rid).tolist():
+            adj_pairs.add(divmod(p, len(offs)))
+    for p in programs:
+        p_rid = _range_id(offs, p.dst_off)
+        for off_ in set(p.leaf_off.values()):
+            adj_pairs.add((_range_id(offs, off_), p_rid))
     if closure_rids:
         # levels are doubled: odd phase 2k-1 applies a closured range's
         # in-edges and merges; even phase 2k applies its closure block
@@ -1365,6 +1873,7 @@ def compile_graph(schema: Schema, snapshot, device=None,
         n_levels=n_levels,
         range_levels=range_levels,
         range_offs=offs,
+        range_adj=tuple(sorted(adj_pairs)),
         src=src_p,
         dst=dst_p,
         exp_rel=exp_p,
@@ -1692,13 +2201,15 @@ def incremental_update(cg: CompiledGraph, records, new_revision: int,
             for b in reclose:
                 cg.block_codes.pop(b, None)
             res.blocks = blocks_host
+        n_delta2 = n0 + len(app_items)
+        n_dead2 = nd0 + len(new_dead)
+        # commits queue only under host_lock: this one's number is next
+        marks = (res.committed + 1, n_delta2, n_dead2)
         seq = res.queue(lambda d: _patch_device(
             cg, d, n0, app_items, updates, res_kill, block_cells, reclose,
-            blocks_host, inst_dev))
+            blocks_host, inst_dev, marks))
     if sync_device:
         res.flush(seq)
-    n_delta2 = n0 + len(app_items)
-    n_dead2 = nd0 + len(new_dead)
     metrics.gauge("engine_delta_occupancy").set(n_delta2)
     return replace(cg, revision=new_revision, n_delta=n_delta2,
                    n_dead=n_dead2, dead_pairs=cg.dead_buf[:n_dead2],
@@ -1708,14 +2219,23 @@ def incremental_update(cg: CompiledGraph, records, new_revision: int,
 def _patch_device(cg: CompiledGraph, d: dict, n0: int, app_items: list,
                   updates: dict, res_kill: list, block_cells: dict,
                   reclose: dict, blocks_host: list,
-                  inst_dev: list = ()) -> None:
+                  inst_dev: list = (), marks: tuple = (0, 0, 0)) -> None:
     """Apply one committed delta to the shared device state in place:
     O(write) scatters, the new caveat instance rows (``inst_dev``, from
     ``CompiledCaveats.apply_appends``), plus O(block) for each re-closed
     block (a new tensor; queries already past their hops keep the old one
-    alive through their own references). Caller holds the exclusive
-    resident lock."""
+    alive through their own references), and advance the state's
+    watermarks to this commit's (``marks``: commit number, overlay slots,
+    ledger rows; a state built after the commit keeps its own).
+    On a tiered graph the block edits go through the tier
+    (:func:`_tier_apply_update`). Caller holds the exclusive resident
+    lock."""
     dev = cg.device
+    mark = d["mark"]
+    fresh = marks[0] > mark["seq"]
+    if fresh:
+        mark["seq"], mark["n_delta"], mark["n_dead"] = marks
+        mark["blocks"] = list(blocks_host)
 
     def up(a, dtype):
         return torch.as_tensor(np.asarray(a)).to(device=dev, dtype=dtype)
@@ -1746,6 +2266,10 @@ def _patch_device(cg: CompiledGraph, d: dict, n0: int, app_items: list,
     if res_kill:
         d["exp"].index_fill_(0, up(res_kill, torch.int64), float("-inf"))
     if not (block_cells or reclose):
+        return
+    if cg.tier is not None:
+        _tier_apply_update(cg, d, blocks_host,
+                           reclose if fresh else {}, block_cells)
         return
     blocks = list(d["blocks"])
     bits = list(d["blocks_bits"])

@@ -288,6 +288,19 @@ assert e.lookup_resources("pod", "view", "user", "u") == ["x"]
 assert e.lookup_resources("pod", "view", "user", "u") == ["x"]
 e.disable_lookup_batching()
 e.disable_decision_cache()
+import tempfile
+d = tempfile.mkdtemp()
+e.enable_persistence(d, wal_fsync="always")
+e.write_relationships([WriteOp("touch", parse_relationship(
+    "pod:y#viewer@user:u"))])
+e.close_persistence()
+r = Engine(device="cpu", device_graph_budget_bytes=1)
+assert r.enable_persistence(d).recovery.snapshot_path
+assert sorted(r.lookup_resources("pod", "view", "user", "u")) == ["x", "y"]
+assert r.compiled().tier is not None
+r.close_persistence()
+import shutil
+shutil.rmtree(d)
 bad = [m for m in sys.modules if m.split(".")[0] in
        ("jax", "jaxlib", "spicedb_kubeapi_proxy_tpu")]
 assert not bad, bad
