@@ -96,6 +96,32 @@ T. tiered block residency (storage/) on the recovered engine, held
    placement sweep bringing the pinned block hot (over the budget: pins
    may overshoot), and the lists after it; every mask and verdict equal
    to the untiered engine's;
+R. the engine host (engine/remote.py) on the headline engine, after T:
+   (a) an in-process ``EngineServer`` on a loop thread of its own,
+   plaintext on loopback, and the port's ``RemoteEngine``: phase 5's 31
+   list filters over the wire (p50/p99 beside phase 5's in-process p50,
+   every mask byte-equal to the in-process one), the mask frame's
+   payload bytes, the first ``object_ids`` sync of the 100k pod ids
+   (bytes, ms) and the incremental one after a write that adds a pod
+   (only the new id rides); (b) phase 6's 64 x 1,024 bulk check over the
+   wire (checks/s beside phase 6's, verdicts equal, the frames' bytes and
+   the JSON encode and parse cost on one host); (c) 20 write->read pairs
+   over the wire (write and read-after-write p50/p99, 0 recompiles) with
+   a ``watch_push_stream`` subscribed first that must receive every
+   write's events (p50 from the write's ack to the event's arrival); (d)
+   256 lists for distinct users from 32 client threads, one
+   ``RemoteEngine`` each, with the host's lookup batching off and on
+   (window 2 ms): lists/s beside S.a's, every batched mask equal to the
+   unbatched one and those to the in-process engine's; then the host
+   stops (its workers joined); (e) the engine-host CLI, ``python -m
+   spicedb_kubeapi_proxy_tpu_torch.engine.remote --engine-insecure
+   --bind-port P --bootstrap <BENCH_SCHEMA> --data-dir <copy>`` with its
+   default flags (the card, the decision cache, the compactor), on a
+   copy of phase P's data dir taken after its last owner (T's engine)
+   closed it: seconds from spawn to the first answered ``lookup_mask``,
+   its pid among nvidia-smi's compute apps, P's subjects' masks
+   byte-equal to the writer's, and SIGTERM: exit code 0 and the seconds
+   its shutdown took (the final checkpoint);
 10. the caveated mix, with phase 3-9's engine released first: bench.py's
     caveated mesh configuration (MESH_SCHEMA, 30% of the flat
     pod#viewer grants carrying an IP allowlist in one of two stored
@@ -129,7 +155,10 @@ Launch counts are zeroed just before phase 5 and read just after phase 6
 calls of the path's own engine only, never the reference engine's
 (``persistence_path_launches``: the journaled writer's reads in P.2 and
 the recovered engine's lists in P.3-P.4; ``tiered_path_launches``: the
-tiered engine's calls in T). Both kernels must have run on every path
+tiered engine's calls in T; ``remote_path_launches``: the in-process
+host's engine calls in R.a-R.d, the reference answers computed outside
+the tally; R.e's subprocess proves its device through nvidia-smi and its
+answers). Both kernels must have run on every path
 (the persistence path runs lists only: its bit kernel). The bit kernel's row also carries its readings at the fused
 batch's inputs (``fused_inputs``). Any
 mismatch or error exits non-zero. The last line is the run's JSON
@@ -1327,7 +1356,8 @@ def serving_phase(torch, e, subjects: list, items: list,
                   seed: int) -> tuple:
     """Phase S: the serving front on the headline engine (see the module
     docstring). Returns (both kernels' launches over S.a and S.c-S.e, the
-    bit kernel's readings at the fused batch's inputs)."""
+    bit kernel's readings at the fused batch's inputs, S.a's lists/s with
+    batching off and on)."""
     from spicedb_kubeapi_proxy_tpu_torch.engine.store import WriteOp
     from spicedb_kubeapi_proxy_tpu_torch.models.tuples import Relationship
     from spicedb_kubeapi_proxy_tpu_torch.ops import bitprop
@@ -1635,7 +1665,7 @@ def serving_phase(torch, e, subjects: list, items: list,
                 {"bit_or_matmul_kernel": ("bit_or_matmul_kernel",),
                  "its small-dual stream kernel": (
                      "bit_or_matmul_stream_kernel",)})
-    return served, fused_rows
+    return served, fused_rows, {"off": r_off["rate"], "on": r_on["rate"]}
 
 
 def list_masks(e, users) -> dict:
@@ -1691,7 +1721,7 @@ def persistence_phase(torch, e, root: str, subjects: list, n_writes: int,
     docstring). The recovered engine is tiered at twice the writer's block
     bytes. Returns (the recovered engine, both kernels' launches over the
     journaled writer's reads and the recovered engine's lists, its cold
-    start for T.a)."""
+    start for T.a, the subjects whose masks P.4 held)."""
     import shutil
 
     from spicedb_kubeapi_proxy_tpu_torch.engine import Engine
@@ -1836,7 +1866,7 @@ def persistence_phase(torch, e, root: str, subjects: list, n_writes: int,
         "journaled writer's reads and the recovered engine's lists)")
     check(launches.n["bit_or_matmul"] > 0,
           "bit_or_matmul was not launched on the persistence path")
-    return e2, launches.n, cold
+    return e2, launches.n, cold, users
 
 
 STREAM_STEPS = (("decode", "arena decode"), ("cut", "dead-cell cut"),
@@ -2008,6 +2038,564 @@ def tiered_phase(torch, e, e2, subjects: list, items: list,
     for kname, n in launches.n.items():
         check(n > 0, f"{kname} was not launched on the tiered path")
     return launches.n
+
+
+class LoopThread:
+    """An asyncio loop on a thread of its own, for an in-process engine
+    host: ``run(coro)`` runs a coroutine there and returns its result."""
+
+    def __init__(self):
+        import asyncio
+
+        self.loop = asyncio.new_event_loop()
+        self.thread = threading.Thread(target=self.loop.run_forever,
+                                       daemon=True)
+        self.thread.start()
+
+    def run(self, coro, timeout: float = 120.0):
+        import asyncio
+
+        return asyncio.run_coroutine_threadsafe(coro, self.loop).result(
+            timeout)
+
+    def close(self) -> None:
+        self.loop.call_soon_threadsafe(self.loop.stop)
+        self.thread.join(30)
+        check(not self.thread.is_alive(), "R: the host's loop did not stop")
+        self.loop.close()
+
+
+class EngineTimes:
+    """Host clocks around ``e.<name>`` inside its ``with`` block: the
+    engine's share of a wire call (the host's op handlers call the
+    engine's methods through the instance)."""
+
+    def __init__(self, e, name: str):
+        self.e, self.name, self.ms = e, name, []
+
+    def __enter__(self):
+        real = getattr(self.e, self.name)
+
+        def timed(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return real(*a, **kw)
+            finally:
+                self.ms.append((time.perf_counter() - t0) * 1e3)
+
+        setattr(self.e, self.name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        delattr(self.e, self.name)
+        return False
+
+
+def frame_bytes(remote, result) -> int:
+    """Bytes of the JSON response frame that carried ``result`` (the host
+    packs ``{"ok": true, "result": ...}`` with the same encoder)."""
+    return len(remote._pack({"ok": True, "result": result}))
+
+
+def remote_phase(torch, e, subjects: list, items: list, now: float,
+                 inproc: dict, seed: int) -> dict:
+    """Phase R.a-R.d: the engine host (engine/remote.py) in process on the
+    headline engine, the port's RemoteEngine on loopback TCP (see the
+    module docstring). ``inproc``: phase 5's list p50, phase 6's checks/s
+    and S.a's lists/s from this run. Returns both kernels' launches over
+    the host's engine calls in R.a-R.d."""
+    from spicedb_kubeapi_proxy_tpu_torch.engine import CheckItem, remote
+    from spicedb_kubeapi_proxy_tpu_torch.engine.store import WriteOp
+    from spicedb_kubeapi_proxy_tpu_torch.models.tuples import Relationship
+    from spicedb_kubeapi_proxy_tpu_torch.ops import bitprop
+    from spicedb_kubeapi_proxy_tpu_torch.utils.metrics import metrics
+
+    rng = np.random.default_rng(seed + 120)
+    compiles = metrics.counter("engine_graph_compiles_total")
+    check(e._batcher is None and e._decision_cache is None,
+          "R: the engine starts with the serving front off")
+    launches = Launches(bitprop)
+
+    def inproc_lists() -> tuple:
+        out, ms = {}, []
+        for u in subjects:
+            t0 = time.perf_counter()
+            out[u] = e.lookup_resources_mask("pod", "view", "user", u)[0]
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return out, ms
+
+    # the in-process answers (untallied), timed at this engine state on
+    # this thread and on a worker thread of its own
+    want, main_ms = inproc_lists()
+    box: dict = {}
+    worker = threading.Thread(target=lambda: box.update(r=inproc_lists()))
+    worker.start()
+    worker.join(300)
+    check("r" in box, "R: the in-process lists on a worker thread")
+    worker_ms = box["r"][1]
+    lt = LoopThread()
+    server = remote.EngineServer(e)
+    lt.run(server.start())
+    c = remote.RemoteEngine("127.0.0.1", server.port)
+    try:
+        # -- R.a: the headline list over the wire --
+        args = dict(resource_type="pod", permission="view",
+                    subject_type="user", subject_relation=None, now=None,
+                    ctx=None)
+        with launches:
+            meta, payload = c._call_any("lookup_mask",
+                                        subject_id=subjects[0], **args)
+            check(meta["n"] == len(want[subjects[0]])
+                  and len(payload) == (meta["n"] + 7) // 8,
+                  f"R.a: mask frame meta {meta}, {len(payload)} bytes")
+            t0 = time.perf_counter()
+            ids = c._sync_ids("pod", meta["gen"], meta["epoch"])
+            sync_ms = (time.perf_counter() - t0) * 1e3
+        check(ids is not None and len(ids) == meta["gen"],
+              "R.a: the first id sync")
+        sync_bytes = frame_bytes(remote, c._call(
+            "object_ids", type="pod", **{"from": 0}))
+        mask_frame = len(remote._pack_binary(remote.BinaryResult(
+            meta, payload)))
+
+        def wire_lists() -> tuple:
+            lat = []
+            with EngineTimes(e, "lookup_resources_mask") as host:
+                for u in subjects:
+                    t0 = time.perf_counter()
+                    m, _ = c.lookup_resources_mask("pod", "view", "user", u)
+                    lat.append((time.perf_counter() - t0) * 1e3)
+                    check(np.array_equal(m, want[u]),
+                          f"R.a: the wire mask for {u} differs from the "
+                          "in-process one")
+            return lat, host.ms
+
+        with launches:
+            c.lookup_resources_mask("pod", "view", "user", subjects[1])
+            lat, host_ms = wire_lists()
+            # the same lists with the interpreter's thread switch interval
+            # at 0.5 ms instead of 5: how much of the wire's cost is threads
+            # waiting for the GIL (a diagnostic; the host keeps the default)
+            swi = sys.getswitchinterval()
+            sys.setswitchinterval(0.0005)
+            try:
+                lat_sw, host_sw = wire_lists()
+            finally:
+                sys.setswitchinterval(swi)
+        log(f"phase R.a list over the wire (in-process EngineServer, port "
+            f"RemoteEngine, loopback TCP): {len(lat)} subjects, p50 "
+            f"{pct(lat, 50):.3f} ms p99 {pct(lat, 99):.3f} ms wall; the "
+            f"engine's call inside the host p50 {pct(host_ms, 50):.3f} ms; "
+            f"in process at this engine state: p50 {pct(main_ms, 50):.3f} "
+            f"ms on the main thread, {pct(worker_ms, 50):.3f} ms on a "
+            f"thread of its own (phase 5: {inproc['list_p50']:.3f} ms); "
+            "every mask byte-equal to the in-process engine's")
+        log(f"  with the switch interval at 0.5 ms (default {swi * 1e3:.1f} "
+            f"ms): wire p50 {pct(lat_sw, 50):.3f} ms p99 "
+            f"{pct(lat_sw, 99):.3f} ms, the engine's call p50 "
+            f"{pct(host_sw, 50):.3f} ms")
+        log(f"  mask frame: {len(payload)} payload bytes ({meta['n']} "
+            f"slots packed), {mask_frame} bytes on the wire; first id "
+            f"sync: {meta['gen']} pod ids, {sync_bytes} bytes, "
+            f"{sync_ms:.3f} ms")
+        # a write that adds a pod: the next list syncs only the new id
+        spy = []
+        orig = type(c)._call_any
+
+        def spying(this, op, **kw):
+            r = orig(this, op, **kw)
+            spy.append((op, kw, r))
+            return r
+
+        c._call_any = spying.__get__(c)
+        c0 = compiles.value
+        with launches:
+            c.write_relationships([WriteOp("touch", Relationship(
+                "pod", "ns/p-wire-new", "viewer", "user", subjects[0]))])
+            t0 = time.perf_counter()
+            m, it = c.lookup_resources_mask("pod", "view", "user",
+                                            subjects[0])
+            inc_ms = (time.perf_counter() - t0) * 1e3
+        del c._call_any
+        syncs = [(kw, r) for op, kw, r in spy if op == "object_ids"]
+        check(len(syncs) == 1 and syncs[0][0]["from"] == meta["gen"]
+              and syncs[0][1]["ids"] == ["ns/p-wire-new"],
+              f"R.a: the incremental sync fetched {syncs!r:.300}")
+        check("ns/p-wire-new" in {it.string(i) for i in
+                                   np.flatnonzero(m).tolist()},
+              "R.a: the new pod is not in its grantee's list")
+        want[subjects[0]] = list_masks(e, subjects[:1])[subjects[0]]
+        check(np.array_equal(m, want[subjects[0]]),
+              "R.a: the list after the write differs from the in-process one")
+        log(f"  incremental sync after a write adding a pod: from "
+            f"{syncs[0][0]['from']}, 1 id, "
+            f"{frame_bytes(remote, syncs[0][1])} bytes; that list "
+            f"{inc_ms:.3f} ms; {compiles.value - c0:.0f} recompiles")
+
+        # -- R.b: the 64 x 1,024 bulk check over the wire --
+        verdicts = e.check_bulk(items, now=now)  # untallied reference
+        rates = []
+        with launches, EngineTimes(e, "check_bulk") as host:
+            for _ in range(5):
+                t0 = time.perf_counter()
+                got = c.check_bulk(items, now=now)
+                rates.append(len(items) / (time.perf_counter() - t0))
+                check(got == verdicts, "R.b: wire verdicts differ from "
+                      "the in-process ones")
+        # a wire bulk check's host-side stages, each timed alone on this
+        # thread at the same inputs (the engine's from inside the host)
+        st, t0 = {}, time.perf_counter()
+        rows = [[it.resource_type, it.resource_id, it.permission,
+                 it.subject_type, it.subject_id, it.subject_relation]
+                for it in items]
+        st["client: items to rows"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        body = remote._pack({"op": "check_bulk", "now": now, "ctx": None,
+                             "items": rows})
+        st["client: request JSON"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        req = json.loads(body[4:])
+        st["host: request parse"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        [CheckItem(*it) for it in req["items"]]
+        st["host: rows to CheckItems"] = time.perf_counter() - t0
+        st["host: the engine's check_bulk"] = pct(host.ms, 50) / 1e3
+        t0 = time.perf_counter()
+        resp = remote._pack({"ok": True, "result": verdicts})
+        st["host: response JSON"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        json.loads(resp[4:])
+        st["client: response parse"] = time.perf_counter() - t0
+        call_ms = len(items) / np.median(rates) * 1e3
+        staged = sum(st.values()) * 1e3
+        log(f"phase R.b bulk check over the wire: {len(items)} checks, p50 "
+            f"{np.median(rates):,.0f} checks/s over 5 trials (min "
+            f"{min(rates):,.0f}, max {max(rates):,.0f}; phase 6 in process: "
+            f"{inproc['checks_per_s']:,.0f}); verdicts equal the in-process "
+            f"ones ({sum(verdicts)} allowed); request frame {len(body)} "
+            f"bytes, response {len(resp)}")
+        log(f"  a {call_ms:.3f} ms call's stages, each alone: "
+            + ", ".join(f"{k} {v * 1e3:.3f} ms" for k, v in st.items())
+            + f"; their sum {staged:.3f} ms, the rest (the transfer and "
+            f"the threads' handoffs) {call_ms - staged:.3f} ms")
+
+        # -- R.c: writes over the wire, a push stream subscribed first --
+        arrivals, errors = {}, []
+        stream = c.watch_push_stream(c.revision)
+        done = threading.Event()
+
+        def pump():
+            try:
+                while not done.is_set():
+                    for ev in stream.next_batch():
+                        arrivals.setdefault(ev.revision,
+                                            time.perf_counter())
+            except BaseException as ex:  # reported after the join
+                if not done.is_set():
+                    errors.append(ex)
+
+        reader = threading.Thread(target=pump, daemon=True)
+        reader.start()
+        mine, acks, touched = [], {}, set()
+
+        def pairs(write, read, n: int, wire: bool) -> tuple:
+            """``n`` write->read pairs (new pod#viewer grants, every third
+            a delete of an earlier one), after one warm pair: the write
+            and read-after-write ms."""
+            w_ms, r_ms = [], []
+            for k in range(n + 1):
+                if mine and k % 3 == 2:
+                    op = WriteOp("delete", mine.pop(0))
+                else:
+                    op = WriteOp("touch", Relationship(
+                        "pod", f"ns/p{rng.integers(N_PODS)}", "viewer",
+                        "user", f"u{rng.integers(N_USERS)}"))
+                    mine.append(op.rel)
+                u = op.rel.subject_id
+                touched.add(u)
+                t0 = time.perf_counter()
+                rev = write([op])
+                t1 = time.perf_counter()
+                if wire:
+                    acks[rev] = t1
+                read("pod", "view", "user", u)
+                t2 = time.perf_counter()
+                if k:
+                    w_ms.append((t1 - t0) * 1e3)
+                    r_ms.append((t2 - t1) * 1e3)
+            return w_ms, r_ms
+
+        c0 = compiles.value
+        # in process at this engine state first, the stream subscribed
+        # (untallied: the in-process engine's calls are no wire calls)
+        w_in, r_in = pairs(e.write_relationships, e.lookup_resources_mask,
+                           10, False)
+        with launches, EngineTimes(e, "write_relationships") as host:
+            w_ms, r_ms = pairs(c.write_relationships,
+                               c.lookup_resources_mask, 20, True)
+        deadline = time.perf_counter() + 30
+        while not set(acks) <= set(arrivals):
+            check(time.perf_counter() < deadline and not errors,
+                  f"R.c: events of {sorted(set(acks) - set(arrivals))} "
+                  f"never arrived ({errors[:1]!r})")
+            time.sleep(0.001)
+        done.set()
+        stream.close()
+        reader.join(30)
+        ev_ms = [(arrivals[r] - t) * 1e3 for r, t in acks.items()]
+        dc = compiles.value - c0
+        check(dc == 0, f"R.c: {dc:.0f} recompiles under wire writes")
+        wire = {u: c.lookup_resources_mask("pod", "view", "user", u)[0]
+                for u in sorted(touched)}
+        same_masks(wire, list_masks(e, sorted(touched)), "R.c")
+        log(f"phase R.c writes over the wire: {len(w_ms)} write->read pairs "
+            f"(after one warm pair), write p50 {pct(w_ms, 50):.3f} ms p99 "
+            f"{pct(w_ms, 99):.3f} ms (the engine's write inside the host "
+            f"p50 {pct(host.ms[1:], 50):.3f} ms; in process at this state, "
+            f"10 pairs: write p50 {pct(w_in, 50):.3f} ms, read-after-write "
+            f"p50 {pct(r_in, 50):.3f} ms), read-after-write p50 "
+            f"{pct(r_ms, 50):.3f} ms p99 {pct(r_ms, 99):.3f} ms; 0 "
+            f"recompiles; the push stream got all {len(acks)} writes' "
+            f"events, ack -> arrival p50 {pct(ev_ms, 50):.3f} ms, max "
+            f"{max(ev_ms):.3f} ms; {len(touched)} touched subjects' masks "
+            "equal the in-process ones")
+
+        # -- R.d: 256 lists from 32 client threads, one RemoteEngine each
+        picks = rng.choice(N_USERS, N_TENANT_LISTS, replace=False)
+        users = [f"u{i}" for i in picks]
+        clients = [remote.RemoteEngine("127.0.0.1", server.port)
+                   for _ in range(N_TENANT_THREADS)]
+        ref = list_masks(e, users)  # untallied
+        try:
+            with launches:
+                for cl in clients:  # each proxy's first id sync
+                    cl.lookup_resources_mask("pod", "view", "user",
+                                             subjects[2])
+
+            def tenant_lists(label: str) -> tuple:
+                out, lat, errs = {}, [], []
+                lock = threading.Lock()
+                barrier = threading.Barrier(N_TENANT_THREADS)
+
+                def worker(k):
+                    try:
+                        barrier.wait(60)
+                        for u in users[k::N_TENANT_THREADS]:
+                            t0 = time.perf_counter()
+                            m, _ = clients[k].lookup_resources_mask(
+                                "pod", "view", "user", u)
+                            with lock:
+                                out[u] = m
+                                lat.append((time.perf_counter() - t0) * 1e3)
+                    except BaseException as ex:  # reported after the join
+                        errs.append(ex)
+
+                threads = [threading.Thread(target=worker, args=(k,),
+                                            daemon=True)
+                           for k in range(N_TENANT_THREADS)]
+                t0 = time.perf_counter()
+                for t in threads:
+                    t.start()
+                for t in threads:
+                    t.join(300)
+                wall = time.perf_counter() - t0
+                check(not any(t.is_alive() for t in threads) and not errs,
+                      f"R.d {label}: a client thread failed {errs[:1]!r}")
+                check(len(out) == N_TENANT_LISTS, f"R.d {label}: "
+                      f"{len(out)} masks")
+                rate = N_TENANT_LISTS / wall
+                log(f"phase R.d {label}: {N_TENANT_LISTS} lists from "
+                    f"{N_TENANT_THREADS} client threads over the wire in "
+                    f"{wall * 1e3:.1f} ms: {rate:.1f} lists/s, p50 "
+                    f"{pct(lat, 50):.3f} ms p99 {pct(lat, 99):.3f} ms a list")
+                return out, rate
+
+            b0 = metrics.counter("engine_lookup_batches_total").value
+            with launches:
+                plain, off = tenant_lists("host batching off")
+                e.enable_lookup_batching(window=0.002, max_rows=8)
+                try:
+                    fused, on = tenant_lists("host batching on (window "
+                                             "2 ms, max_rows 8)")
+                finally:
+                    e.disable_lookup_batching()
+            batches = metrics.counter("engine_lookup_batches_total").value \
+                - b0
+        finally:
+            for cl in clients:
+                cl.close()
+        same_masks(plain, ref, "R.d unbatched wire vs in process")
+        same_masks(fused, plain, "R.d batched vs unbatched")
+        check(batches > 0, "R.d: batching on fused no dispatch")
+        log(f"  every batched mask byte-equal to the unbatched one, and "
+            f"those to the in-process engine's; {batches:.0f} fused "
+            f"dispatches; S.a in process from this run: "
+            f"{inproc['tenant']['off']:.1f} lists/s off, "
+            f"{inproc['tenant']['on']:.1f} batched (R.d: {off:.1f} / "
+            f"{on:.1f})")
+    finally:
+        c.close()
+        # drain the connections and join the host's workers: no worker may
+        # still dispatch on this engine once phase 10 releases it
+        lt.run(server.stop())
+        lt.close()
+    torch.cuda.synchronize()
+    log(f"  remote-path launches over R.a-R.d (the host's engine calls "
+        f"only): {launches.n}")
+    for kname, n in launches.n.items():
+        check(n > 0, f"{kname} was not launched on the remote path")
+    return launches.n
+
+
+def host_cli_phase(torch, here: str, data_src: str, schema: str,
+                   users: list, want: dict) -> None:
+    """Phase R.e: ``python -m spicedb_kubeapi_proxy_tpu_torch.engine.remote``
+    as an operator starts it (default flags: the card, the decision cache
+    and the compactor on) on a copy of phase P's data dir, which its owner
+    has closed, under ``schema`` (a data dir holds no schema; the host
+    takes it from ``--bootstrap``): the time to the first answered list,
+    the process on the card, its masks against the writer's, and a
+    SIGTERM shutdown."""
+    import shutil
+    import signal
+    import socket
+
+    from spicedb_kubeapi_proxy_tpu_torch.engine import remote
+    from spicedb_kubeapi_proxy_tpu_torch.engine.store import WriteOp
+    from spicedb_kubeapi_proxy_tpu_torch.models.tuples import Relationship
+    from spicedb_kubeapi_proxy_tpu_torch.ops import kernels
+
+    root = os.path.dirname(data_src)
+    d = os.path.join(root, "r_host")
+    shutil.rmtree(d, ignore_errors=True)
+    shutil.copytree(data_src, d)
+    boot = os.path.join(root, "r_host_bootstrap.yaml")
+    with open(boot, "w") as fh:
+        fh.write("schema: |\n" + "".join(
+            f"  {ln}\n" for ln in schema.strip("\n").splitlines()))
+    so = kernels.library_path("bitprop")
+    so_mtime = os.stat(so).st_mtime_ns
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    log_path = os.path.join(root, "r_host.log")
+
+    def tail() -> str:
+        with open(log_path, errors="replace") as fh:
+            return fh.read()[-3000:]
+
+    def smi_apps() -> str:
+        return subprocess.run(
+            ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60).stdout.strip()
+
+    free0 = torch.cuda.mem_get_info()[0]
+    apps0 = smi_apps().splitlines()
+    with open(log_path, "w") as logf:
+        t0 = time.perf_counter()
+        p = subprocess.Popen(
+            [sys.executable, "-m",
+             "spicedb_kubeapi_proxy_tpu_torch.engine.remote",
+             "--engine-insecure", "--bind-port", str(port),
+             "--bootstrap", boot, "--data-dir", d], cwd=here, stdout=logf,
+            stderr=subprocess.STDOUT)
+    seen: dict = {}  # child log line -> seconds after spawn it appeared
+
+    def note_lines() -> None:
+        for ln in tail().splitlines():
+            for key in ("starting", "engine on", "persistence:",
+                        "engine listening"):
+                if key in ln and key not in seen:
+                    seen[key] = time.perf_counter() - t0
+
+    try:
+        while True:
+            check(p.poll() is None, f"R.e: the engine host exited during "
+                  f"boot ({p.returncode}):\n{tail()}")
+            check(time.perf_counter() - t0 < 300, "R.e: no bind in 300 s")
+            note_lines()
+            try:
+                socket.create_connection(("127.0.0.1", port),
+                                         timeout=1).close()
+                break
+            except OSError:
+                time.sleep(0.05)
+        bind_s = time.perf_counter() - t0
+        note_lines()
+        c = remote.RemoteEngine("127.0.0.1", port)
+        try:
+            m, _ = c.lookup_resources_mask("pod", "view", "user", users[0])
+            first_s = time.perf_counter() - t0
+            apps = smi_apps()
+            used = free0 - torch.cuda.mem_get_info()[0]
+            pids = [ln.split(",")[0].strip() for ln in apps.splitlines()]
+            on_card = "engine on cuda" in tail()
+            log(f"phase R.e the engine-host CLI on a copy of phase P's data "
+                f"dir: log lines at (s after spawn) "
+                + ", ".join(f"{k!r} {v:.2f}" for k, v in seen.items())
+                + f"; bound {bind_s:.2f} s after spawn, first lookup_mask "
+                f"answered {first_s:.2f} s after spawn; nvidia-smi compute "
+                f"apps before the spawn: {'; '.join(apps0)}, with the host "
+                f"up: {apps.replace(chr(10), '; ')} (child pid {p.pid}, "
+                f"this process {os.getpid()}); device memory the card lost "
+                f"meanwhile: {used} bytes; child log says it runs on cuda: "
+                f"{on_card}")
+            # nvidia-smi may report pids of another pid namespace than
+            # this process's: then the compute-app count must rise by the
+            # child (and fall back once it exits, checked below)
+            check(str(p.pid) in pids
+                  or len(apps.splitlines()) == len(apps0) + 1,
+                  f"R.e: the engine host (pid {p.pid}) is not among the "
+                  f"card's compute apps: {apps!r} (before: {apps0!r})")
+            check(on_card, f"R.e: the host did not report a CUDA device:\n"
+                  f"{tail()}")
+            check(np.array_equal(m, want[users[0]]),
+                  f"R.e: {users[0]}'s mask differs from the writer's")
+            got = {u: c.lookup_resources_mask("pod", "view", "user", u)[0]
+                   for u in users}
+            same_masks(got, want, "R.e CLI host vs writer")
+            # one write, so the shutdown has a journal tail to checkpoint
+            t1 = time.perf_counter()
+            rev = c.write_relationships([WriteOp("touch", Relationship(
+                "pod", "ns/p-cli-new", "viewer", "user", users[0]))])
+            w_ms = (time.perf_counter() - t1) * 1e3
+            check("ns/p-cli-new" in c.lookup_resources(
+                "pod", "view", "user", users[0]),
+                "R.e: the host's write does not read back")
+        finally:
+            c.close()
+        t1 = time.perf_counter()
+        p.send_signal(signal.SIGTERM)
+        rc = p.wait(timeout=300)
+        shut_s = time.perf_counter() - t1
+        check(rc == 0, f"R.e: the host exited {rc} on SIGTERM:\n{tail()}")
+        check("persistence closed" in tail() and os.path.exists(
+            os.path.join(d, "snapshots", f"snapshot-{rev:020d}.npz")),
+            f"R.e: no final checkpoint at revision {rev}:\n{tail()}")
+        check(os.stat(so).st_mtime_ns == so_mtime,
+              "R.e: the child rebuilt the kernel library")
+        t1 = time.perf_counter()
+        apps1 = smi_apps().splitlines()
+        while len(apps1) != len(apps0) and time.perf_counter() - t1 < 20:
+            time.sleep(0.2)
+            apps1 = smi_apps().splitlines()
+        check(len(apps1) == len(apps0), f"R.e: compute apps after the "
+              f"host exited: {apps1!r} (before it: {apps0!r})")
+        log(f"  {len(users)} subjects' masks byte-equal to the writer's; "
+            f"a write {w_ms:.3f} ms, read back; SIGTERM -> exit {rc} in "
+            f"{shut_s:.2f} s (drain, compactor stop, final checkpoint at "
+            f"revision {rev}); compute apps back to "
+            f"{len(apps1)}; the child loaded {os.path.basename(so)} as the "
+            "parent built it (no rebuild)")
+        log("  the host's log: " + " | ".join(
+            ln.strip() for ln in tail().splitlines()[-8:]))
+    finally:
+        if p.poll() is None:
+            p.kill()
+            p.wait(30)
+    shutil.rmtree(d, ignore_errors=True)
 
 
 # phase 10's request contexts: the first both stored contexts allow, the
@@ -2608,13 +3196,13 @@ def main(argv=None) -> int:
 
     # -- phase S: the serving front, on the same engine --
     t0 = time.perf_counter()
-    serving_launches, fused_rows = serving_phase(torch, e, subjects, items,
-                                                 args.seed)
+    serving_launches, fused_rows, tenant = serving_phase(
+        torch, e, subjects, items, args.seed)
     log(f"phase S took {time.perf_counter() - t0:.1f} s")
 
     # -- phase P: snapshots, the WAL and crash recovery, on the same engine
     t0 = time.perf_counter()
-    e2, persist_launches, cold = persistence_phase(
+    e2, persist_launches, cold, p_users = persistence_phase(
         torch, e, os.path.join(here, "build", "persist"), subjects,
         args.writes, args.seed, frame_bytes)
     log(f"phase P took {time.perf_counter() - t0:.1f} s")
@@ -2623,7 +3211,22 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     tiered_launches = tiered_phase(torch, e, e2, subjects, items, cold)
     log(f"phase T took {time.perf_counter() - t0:.1f} s")
+    # the recovered engine journals into P's data dir: close it before R.e
+    # copies the dir
+    e2.close_persistence(final_checkpoint=False)
     del e2
+
+    # -- phase R: the engine host, on the headline engine and as the CLI --
+    t0 = time.perf_counter()
+    p_want = list_masks(e, p_users)  # the writer's masks for R.e
+    remote_launches = remote_phase(
+        torch, e, subjects, items, now,
+        {"list_p50": p50, "checks_per_s": float(np.median(rates)),
+         "tenant": tenant}, args.seed)
+    host_cli_phase(torch, here, os.path.join(here, "build", "persist",
+                                             "data"), BENCH_SCHEMA, p_users,
+                   p_want)
+    log(f"phase R took {time.perf_counter() - t0:.1f} s")
 
     # -- phase 10: the caveated mix, on a store of its own --
     del e, cg, d, objs, pods, fut, A, bits
@@ -2647,6 +3250,7 @@ def main(argv=None) -> int:
                     "serving_path_launches": serving_launches[kname],
                     "persistence_path_launches": persist_launches[kname],
                     "tiered_path_launches": tiered_launches[kname],
+                    "remote_path_launches": remote_launches[kname],
                     "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                     "bound_by": r["bound_by"], "library_ms": r["library_ms"],

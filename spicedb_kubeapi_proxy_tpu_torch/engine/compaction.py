@@ -31,6 +31,7 @@ import threading
 import time
 from collections import deque
 
+from ..admission import AdmissionRejected
 from ..utils.metrics import metrics
 
 log = logging.getLogger("sdbkp.torch.engine.compaction")
@@ -60,22 +61,6 @@ def validate_overlay_config(
         raise ValueError("compact-threshold must be in [0, 1] "
                          "(fraction of overlay capacity; 0 disables "
                          "background compaction)")
-
-
-class AdmissionRejected(RuntimeError):
-    """Load shed: the request was refused before any engine dispatch or
-    side effect, so retrying is always safe. The port's copy of the JAX
-    package's ``admission.AdmissionRejected`` (with its
-    ``DependencyUnavailable`` base folded in): ``dependency``,
-    ``retry_after`` (seconds, >= 0), ``op_class`` and ``reason``."""
-
-    def __init__(self, op_class: str, reason: str,
-                 retry_after: float = 1.0, dependency: str = "admission"):
-        super().__init__(f"{op_class}: {reason}")
-        self.dependency = dependency
-        self.retry_after = retry_after
-        self.op_class = op_class
-        self.reason = reason
 
 
 class OverlayBackpressure(AdmissionRejected):

@@ -218,8 +218,13 @@ class DecisionCache:
         """Drop every entry (and fix the gauges) and refuse future fills:
         called when the engine disables the cache so /metrics does not
         report phantom residency — including from a fill that was already
-        in flight when the cache was detached."""
+        in flight when the cache was detached. Its flights go too, and
+        :meth:`flight` on a closed cache joins none: a caller that read
+        this cache just before a restore replaced it must not piggyback
+        on a flight of the replaced lineage."""
         self._closed = True
+        with self._flights_lock:
+            self._flights.clear()
         dropped = 0
         freed = 0
         for sh in self._shards:
@@ -312,6 +317,8 @@ class DecisionCache:
         piggyback (one saved dispatch). A lingering resolved flight whose
         deadline has passed is replaced, never served stale."""
         with self._flights_lock:
+            if self._closed:
+                return True, Flight()  # a private flight: nobody joins it
             f = self._flights.get(key)
             if f is not None and f.done and now >= f.deadline:
                 del self._flights[key]

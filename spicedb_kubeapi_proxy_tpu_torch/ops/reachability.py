@@ -116,6 +116,12 @@ def _fallback(reason: str) -> None:
                     reason=reason).inc()
 
 
+class StateReleased(RuntimeError):
+    """A dispatch reached a graph whose device state a store restore
+    freed (:func:`release_resident`): the query belongs to the replaced
+    lineage, and the caller reads ``compiled()`` again."""
+
+
 class _RWLock:
     """Reader/writer lock with a bounded writer wait. While a writer
     waits, a new reader still enters as long as a reader that entered
@@ -580,7 +586,7 @@ class CompiledGraph:
         if not res.tensors:
             with res.lock.exclusive():
                 if res.released:
-                    raise RuntimeError(
+                    raise StateReleased(
                         "this graph's device state was released by a store "
                         "restore; read the engine's compiled() again")
                 if not res.tensors:

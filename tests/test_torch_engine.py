@@ -301,6 +301,40 @@ assert r.compiled().tier is not None
 r.close_persistence()
 import shutil
 shutil.rmtree(d)
+import asyncio, threading
+from spicedb_kubeapi_proxy_tpu_torch.engine.remote import (
+    EngineServer, RemoteEngine, main)
+g = Engine(device="cpu")
+loop = asyncio.new_event_loop()
+th = threading.Thread(target=loop.run_forever, daemon=True)
+th.start()
+srv = EngineServer(g)
+asyncio.run_coroutine_threadsafe(srv.start(), loop).result(30)
+c = RemoteEngine("127.0.0.1", srv.port)
+stream = c.watch_push_stream(c.revision)
+assert c.check_bulk([CheckItem("pod", "z", "view", "user", "u")]) == [False]
+c.write_relationships([WriteOp("touch", parse_relationship(
+    "pod:z#viewer@user:u"))])
+m, ids = c.lookup_resources_mask("pod", "view", "user", "u")
+assert [ids.string(i) for i in m.nonzero()[0]] == ["z"]
+ev = []
+while not ev:
+    ev = stream.next_batch()
+assert ev[0].relationship.resource_id == "z"
+stream.close()
+c.close()
+asyncio.run_coroutine_threadsafe(srv.stop(), loop).result(60)
+loop.call_soon_threadsafe(loop.stop)
+th.join(30)
+# main's lazy imports, as far as argument validation
+for argv in (["--engine-insecure", "--device", "cpu", "--admission",
+              "--data-dir", tempfile.mkdtemp(), "--wal-fsync", "never"],
+             ["--engine-insecure", "--device", "tpu"]):
+    try:
+        main(argv)
+        raise AssertionError(argv)
+    except SystemExit as ex:
+        assert ex.code == 2, argv
 bad = [m for m in sys.modules if m.split(".")[0] in
        ("jax", "jaxlib", "spicedb_kubeapi_proxy_tpu")]
 assert not bad, bad

@@ -2,10 +2,16 @@
 
 Flattens a JAX ``CompiledGraph`` into the plain-array form that
 ``spicedb_kubeapi_proxy_tpu_torch.convert.from_reference_arrays`` takes,
-so both packages run the very same compiled graph.
+so both packages run the very same compiled graph; generates random
+graphs; and runs either package's engine host on an event loop of its
+own (``serving``), so a test talks to it from plain threads.
 """
 
 from __future__ import annotations
+
+import asyncio
+import contextlib
+import threading
 
 import numpy as np
 
@@ -154,3 +160,26 @@ def random_rels(rng, n_users=9, n_groups=4, n_ns=3, n_pods=12,
             out.append(f"namespace:ns2#viewer@user:u2[expiration:"
                        f"{stamp(now + 3600)}]")
     return out
+
+
+@contextlib.contextmanager
+def serving(server_cls, engine, **kw):
+    """``server_cls(engine, **kw)`` (either package's ``EngineServer``)
+    listening on loopback, driven by an event loop on a thread of its
+    own; yields the started server (``.port`` bound) and stops it, its
+    loop and its thread on exit."""
+    loop = asyncio.new_event_loop()
+    thread = threading.Thread(target=loop.run_forever, daemon=True)
+    thread.start()
+    server = server_cls(engine, **kw)
+    try:
+        asyncio.run_coroutine_threadsafe(server.start(), loop).result(30)
+        yield server
+    finally:
+        try:
+            asyncio.run_coroutine_threadsafe(server.stop(),
+                                             loop).result(60)
+        finally:
+            loop.call_soon_threadsafe(loop.stop)
+            thread.join(30)
+            loop.close()
