@@ -122,6 +122,41 @@ R. the engine host (engine/remote.py) on the headline engine, after T:
    its pid among nvidia-smi's compute apps, P's subjects' masks
    byte-equal to the writer's, and SIGTERM: exit code 0 and the seconds
    its shutdown took (the final checkpoint);
+M. live schema migration (migration/) on the headline engine, after R:
+   (a) an additive migration in process (pod gains ``relation auditor``
+   and ``permission audit = auditor + namespace->admin``), durable (a
+   fresh data dir, so the record is ``<dir>/migration.json``), the
+   decision cache on and warm, a lister (phase 5's subjects, each list
+   dispatched) and a writer (a new pod#viewer grant every 10 ms) on
+   threads of their own throughout, held at dual: the plan time, the dual
+   compile (off the lock), the lists' p50/p99 during the compile, the
+   dual window and the freeze beside phase 5's, ``freeze_ms`` split into
+   drain, the two oracle builds, the probe, the CUT record and the swap,
+   the writer's largest stall (its writes carry a failing precondition
+   once the cut is near, so the revision stays put), ``time_to_cut_ms``,
+   the lists after the cut, device memory before, in the dual window,
+   at its peak across the cut and after the old base's last view; after
+   the cut pod#view lists are cache hits with no launch and equal the
+   columnar reference, and pod#audit masks equal their columnar
+   reference and, on two subjects, OracleEvaluator; (b) a rewriting
+   migration over the wire (an in-process ``EngineServer``, the port's
+   ``RemoteEngine``, the compactor and a fresh data dir on):
+   ``migrate_begin`` of a target that strands namespace#viewer's group
+   rows refused with nothing changed, a held begin aborted at dual (no
+   cut, the record cleared), then namespace#viewer gains ``user with
+   probation``, held at dual and cut by ``migrate_cut``: the backfill's
+   rows/s (the ~2,000 namespace#viewer rows in batches of 512), overlay
+   occupancy, compactor folds, the freeze's split; a push stream opened
+   before the begin receives the post-cut write and no backfill echo;
+   pod#view cache entries retired, pod#edit and namespace#admin ones
+   answering; a caveated namespace#viewer grant's masks under two request
+   contexts equal to OracleEvaluator, and a 64 x 1,024 bulk check over
+   the wire equal to the columnar reference; (c) the engine-host CLI on a
+   copy of R.e's data dir holding a ``migration.json`` at phase ``cut``
+   (M.a's target), booted under the old schema with no write: its log
+   says ``resumed (phase cut)``, pod#audit answers, the record is
+   ``done``, P's subjects' masks equal the writer's, and SIGTERM exits
+   0;
 10. the caveated mix, with phase 3-9's engine released first: bench.py's
     caveated mesh configuration (MESH_SCHEMA, 30% of the flat
     pod#viewer grants carrying an IP allowlist in one of two stored
@@ -158,7 +193,8 @@ the recovered engine's lists in P.3-P.4; ``tiered_path_launches``: the
 tiered engine's calls in T; ``remote_path_launches``: the in-process
 host's engine calls in R.a-R.d, the reference answers computed outside
 the tally; R.e's subprocess proves its device through nvidia-smi and its
-answers). Both kernels must have run on every path
+answers; ``migration_path_launches``: the migrated engine's calls in
+M.a-M.b, its lister's and the host's included). Both kernels must have run on every path
 (the persistence path runs lists only: its bit kernel). The bit kernel's row also carries its readings at the fused
 batch's inputs (``fused_inputs``). Any
 mismatch or error exits non-zero. The last line is the run's JSON
@@ -174,6 +210,7 @@ import argparse
 import gc
 import json
 import os
+import shutil
 import subprocess
 import sys
 import threading
@@ -1722,8 +1759,6 @@ def persistence_phase(torch, e, root: str, subjects: list, n_writes: int,
     bytes. Returns (the recovered engine, both kernels' launches over the
     journaled writer's reads and the recovered engine's lists, its cold
     start for T.a, the subjects whose masks P.4 held)."""
-    import shutil
-
     from spicedb_kubeapi_proxy_tpu_torch.engine import Engine
     from spicedb_kubeapi_proxy_tpu_torch.engine.store import WriteOp
     from spicedb_kubeapi_proxy_tpu_torch.models.tuples import Relationship
@@ -2448,15 +2483,14 @@ def remote_phase(torch, e, subjects: list, items: list, now: float,
 
 
 def host_cli_phase(torch, here: str, data_src: str, schema: str,
-                   users: list, want: dict) -> None:
+                   users: list, want: dict) -> str:
     """Phase R.e: ``python -m spicedb_kubeapi_proxy_tpu_torch.engine.remote``
     as an operator starts it (default flags: the card, the decision cache
     and the compactor on) on a copy of phase P's data dir, which its owner
     has closed, under ``schema`` (a data dir holds no schema; the host
     takes it from ``--bootstrap``): the time to the first answered list,
     the process on the card, its masks against the writer's, and a
-    SIGTERM shutdown."""
-    import shutil
+    SIGTERM shutdown. Returns the host's data dir (M.c boots a copy)."""
     import signal
     import socket
 
@@ -2591,6 +2625,571 @@ def host_cli_phase(torch, here: str, data_src: str, schema: str,
             "parent built it (no rebuild)")
         log("  the host's log: " + " | ".join(
             ln.strip() for ln in tail().splitlines()[-8:]))
+    finally:
+        if p.poll() is None:
+            p.kill()
+            p.wait(30)
+    return d
+
+
+# M.a's target: pod gains an auditor relation and an audit permission
+# (additive: nothing stored is rewritten)
+MIG_A_SCHEMA = BENCH_SCHEMA.replace(
+    "  relation viewer: user | user with expiration\n",
+    "  relation viewer: user | user with expiration\n"
+    "  relation auditor: user\n").replace(
+    "  permission edit = creator\n",
+    "  permission edit = creator\n"
+    "  permission audit = auditor + namespace->admin\n")
+# M.b's target: a caveat on the live namespace#viewer relation (rewriting:
+# its ~2,000 stored rows are re-validated and backfilled)
+MIG_B_SCHEMA = MIG_A_SCHEMA.replace(
+    "definition user {}",
+    "caveat probation(level int) {\n  level < 3\n}\n\ndefinition user {}"
+).replace(
+    "  relation viewer: user | group#member\n",
+    "  relation viewer: user | group#member | user with probation\n")
+# refused: namespace#viewer drops its group#member subjects, stranding rows
+MIG_BAD_SCHEMA = MIG_A_SCHEMA.replace(
+    "  relation viewer: user | group#member\n",
+    "  relation viewer: user\n")
+MIG_CTXS = (("level 1", {"level": 1}), ("level 5", {"level": 5}))
+
+
+def audit_masks(store, users, n: int) -> dict:
+    """pod#audit of MIG_A_SCHEMA for each user, plainly with numpy over
+    the store's rows (auditor + namespace->admin, a namespace's admin
+    being its creator): {user: bool mask over pod object indices}."""
+    snap = store.snapshot()
+    c = snap.cols
+    T, R = snap.types.lookup, snap.relations.lookup
+    t_user, t_ns, t_pod = (T(x) for x in ("user", "namespace", "pod"))
+
+    def rows(rt, rl, st):
+        m = np.flatnonzero((c.rt == rt) & (c.rl == R(rl)) & (c.st == st)
+                           & (c.srl == R("")))
+        return c.rid[m], c.sid[m]
+
+    pa, pn, nc = (rows(t_pod, "auditor", t_user),
+                  rows(t_pod, "namespace", t_ns),
+                  rows(t_ns, "creator", t_user))
+    uid = snap.objects[t_user].id_map()
+    out = {}
+    for u in users:
+        ui = uid[u]
+        pods = np.concatenate([pa[0][pa[1] == ui],
+                               pn[0][np.isin(pn[1], nc[0][nc[1] == ui])]])
+        mask = np.zeros(n, dtype=bool)
+        mask[pods] = True
+        mask[:2] = False
+        out[u] = mask
+    return out
+
+
+def migration_phase(torch, e, here: str, subjects: list, items: list,
+                    bulk_users: list, r_dir: str, r_users: list,
+                    r_want: dict, list_p50: float, seed: int) -> dict:
+    """Phase M (see the module docstring): M.a an additive migration in
+    process under a lister and a writer, M.b a rewriting one over the
+    wire, M.c the CLI's boot resolution of a record at its cut. Returns
+    both kernels' launches over M.a and M.b (the migrated engine's calls
+    only; the host references run outside the tally)."""
+    from spicedb_kubeapi_proxy_tpu_torch.engine import remote
+    from spicedb_kubeapi_proxy_tpu_torch.engine.evaluator import \
+        OracleEvaluator
+    from spicedb_kubeapi_proxy_tpu_torch.engine.store import (
+        Precondition,
+        PreconditionFailed,
+        RelationshipFilter,
+        Snapshot,
+        WriteOp,
+    )
+    from spicedb_kubeapi_proxy_tpu_torch.models.tuples import Relationship
+    from spicedb_kubeapi_proxy_tpu_torch.ops import bitprop
+    from spicedb_kubeapi_proxy_tpu_torch.utils.metrics import metrics
+
+    rng = np.random.default_rng(seed + 130)
+    launches = Launches(bitprop)
+    root = os.path.join(here, "build", "persist", "migration")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    check(e._decision_cache is None and e._compactor is None
+          and e._persistence is None,
+          "M: the engine starts with the cache, compactor and WAL off")
+    hits = metrics.counter("engine_decision_cache_hits_total", kind="lookup")
+    retired = metrics.counter("engine_decision_cache_retired_total")
+    mib = 1 << 20
+
+    # -- M.a: additive, in process, under a lister and a writer --
+    e.enable_decision_cache(max_entries=BIG_CACHE)
+    # durable as a deployment is: the record goes to <data dir>/
+    # migration.json and the writes (the backfill's too) are journaled
+    e.enable_persistence(os.path.join(root, "a"),
+                         wal_fsync="interval:100", auto_checkpoint=False)
+    with launches:
+        list_masks(e, subjects)  # the cache warm with pod#view
+    lat: list = []  # (start, ms) of the lister's lists
+    w_ms: list = []  # (start, ms) of the writer's writes
+    stop, hold = threading.Event(), threading.Event()
+    held = threading.Event()
+    errors: list = []
+    no_such = Precondition(RelationshipFilter(
+        resource_type="pod", resource_id="ns/p-none", relation="viewer"),
+        must_exist=True)
+
+    def lister():
+        # an explicit clock: every list dispatches on the serving graph
+        # (the cache would answer the repeats), so its time compares with
+        # phase 5's
+        k = 0
+        try:
+            while not stop.is_set():
+                t0 = time.perf_counter()
+                e.lookup_resources_mask("pod", "view", "user",
+                                        subjects[k % len(subjects)],
+                                        now=time.time())
+                lat.append((t0, (time.perf_counter() - t0) * 1e3))
+                k += 1
+        except BaseException as ex:  # reported after the join
+            errors.append(ex)
+
+    def writer():
+        # a new pod#viewer grant every 10 ms; once ``hold`` is set, the
+        # same write under a precondition that fails on purpose, so the
+        # revision stays put (the cut's cache check below) while the
+        # writes still meet the freeze
+        try:
+            while not stop.is_set():
+                if hold.is_set():
+                    held.set()
+                op = WriteOp("touch", Relationship(
+                    "pod", f"ns/p{rng.integers(N_PODS)}", "viewer", "user",
+                    f"u{rng.integers(N_USERS)}"))
+                t0 = time.perf_counter()
+                try:
+                    e.write_relationships(
+                        [op], [no_such] if held.is_set() else [])
+                except PreconditionFailed:
+                    pass
+                w_ms.append((t0, (time.perf_counter() - t0) * 1e3))
+                time.sleep(0.01)
+        except BaseException as ex:
+            errors.append(ex)
+
+    threads = [threading.Thread(target=lister, daemon=True),
+               threading.Thread(target=writer, daemon=True)]
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    rec_a = os.path.join(root, "a", "migration.json")
+    with launches:
+        for t in threads:
+            t.start()
+        time.sleep(1.0)  # the window's traffic before the begin
+        t0 = time.perf_counter()
+        e.begin_schema_migration(MIG_A_SCHEMA, hold_at_dual=True)
+        plan_ms = (time.perf_counter() - t0) * 1e3
+        m = e._migrator
+        st = _wait_phase(m.status, "dual", 300)
+        time.sleep(2.0)  # the dual window under load
+        mem_dual = torch.cuda.memory_allocated()
+        with open(rec_a) as fh:
+            check(json.load(fh)["phase"] == "dual",
+                  "M.a: the record is not at dual")
+        hold.set()
+        while not held.is_set():
+            time.sleep(0.001)
+        time.sleep(0.05)  # the last real write returned
+        rev = e.revision
+        list_masks(e, subjects)  # the cache warm at this revision
+        torch.cuda.reset_peak_memory_stats()
+        st = e.cut_schema_migration(wait=True)
+        time.sleep(0.3)
+        stop.set()
+        for t in threads:
+            t.join(60)
+    check(not errors and not any(t.is_alive() for t in threads),
+          f"M.a: a traffic thread failed {errors[:1]!r}")
+    check(st["phase"] == "done" and st["classification"] == "additive",
+          f"M.a: {st}")
+    check(e.revision == rev, "M.a: the cut moved the revision")
+    tl, split = m.timeline, m.cut_split
+    mem_peak = torch.cuda.max_memory_allocated()
+    mem_cut = torch.cuda.memory_allocated()
+
+    def window(a, b):
+        return [ms for t, ms in lat if a <= t < b]
+
+    in_compile = window(tl["compiling"], tl["dual"])
+    in_dual = window(tl["dual"], tl["freeze"])
+    in_freeze = window(tl["freeze"], tl["done"])
+    # the lists that started in the 2 s after the CUT record: the first
+    # one on the new base builds its device state (lazily, as the
+    # reference's first query after a compile does)
+    after_cut = [ms for t, ms in lat if tl["cut"] <= t < tl["cut"] + 2.0]
+    stall = max(ms for _, ms in w_ms)
+    n_writes = sum(1 for t, _ in w_ms if t < tl["done"])
+    # after the cut: pod#view lies outside the diff, so its entries at the
+    # unchanged revision answer, with no device work
+    h0 = hits.value
+    with Launches(bitprop) as quiet:
+        after = list_masks(e, subjects)
+    check(hits.value - h0 == len(subjects)
+          and not any(quiet.n.values()),
+          f"M.a: pod#view after the cut: {hits.value - h0:.0f} hits, "
+          f"launches {quiet.n}")
+    pods = e._objects_by_name()["pod"]
+    same_masks(after, view_masks(e.store, subjects, time.time(),
+                                 len(after[subjects[0]])),
+               "M.a pod#view after the cut vs the columnar reference")
+    # the first list that dispatches after the cut (pod#audit misses):
+    # it builds the new base's device state
+    cg = e.compiled()
+    check(cg.schema is e.schema, "M.a: the published graph is not S''s")
+    unbuilt = not cg.resident.tensors
+    with launches:
+        t0 = time.perf_counter()
+        e.lookup_resources_mask("pod", "audit", "user", subjects[0])
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t0) * 1e3
+    gc.collect()
+    torch.cuda.synchronize()
+    mem_after = torch.cuda.memory_allocated()
+    check(mem_after <= mem0 + 512 * mib,
+          f"M.a: {mem_after} device bytes after the cut, {mem0} before: "
+          "the old base's bytes did not come back")
+    # pod#audit answers under S': grants for a few subjects, then their
+    # masks against the columnar reference and two against the oracle
+    aud, cre = subjects[:3], subjects[3:6]
+    pods_of = [f"ns/p{rng.integers(N_PODS)}" for _ in range(6)]
+    e.write_relationships(
+        [WriteOp("touch", Relationship("pod", p, "auditor", "user", u))
+         for p, u in zip(pods_of, aud + aud)]
+        + [WriteOp("touch", Relationship(
+            "namespace", f"ns{rng.integers(N_NS)}", "creator", "user", u))
+           for u in cre])
+    users = aud + cre + subjects[6:8]
+    with launches:
+        got = {u: e.lookup_resources_mask("pod", "audit", "user", u)[0]
+               for u in users}
+    n = len(next(iter(got.values())))
+    same_masks(got, audit_masks(e.store, users, n), "M.a pod#audit")
+    now = time.time()
+    for u, ids in ((u, o.lookup_resources("pod", "audit", "user", u))
+                   for u, o in user_oracles(
+                       e.store.snapshot(), e.schema, OracleEvaluator,
+                       Snapshot, [aud[0], cre[0]], now).items()):
+        check({pods.string(i) for i in np.flatnonzero(got[u])} == ids,
+              f"M.a: {u}'s pod#audit disagrees with the oracle")
+    log(f"phase M.a additive migration in process (pod gains auditor and "
+        f"audit = auditor + namespace->admin), a lister ({len(lat)} lists "
+        f"of phase 5's subjects) and a writer (a grant every 10 ms, "
+        f"{n_writes} writes) throughout: plan {plan_ms:.2f} ms; dual "
+        f"compile {m.compile_seconds:.2f} s off the lock; time_to_cut_ms "
+        f"{st['time_to_cut_ms']:.1f}; freeze_ms {st['freeze_ms']:.1f} = "
+        + ", ".join(f"{k} {v * 1e3:.1f}" for k, v in split.items())
+        + f" ms; the writer's largest stall {stall:.1f} ms")
+    def spread(xs) -> str:
+        return (f"{len(xs)}, p50 {pct(xs, 50):.3f} ms p99 {pct(xs, 99):.3f} "
+                "ms" if xs else "none")
+
+    log(f"  lists (each dispatched: an explicit clock): during the compile "
+        f"{spread(in_compile)}; during the dual window {spread(in_dual)}; "
+        f"during the freeze {spread(in_freeze)} (phase 5 p50 "
+        f"{list_p50:.3f} ms)")
+    log(f"  after the cut: {len(subjects)} pod#view lists all cache hits, "
+        f"0 launches, masks equal to the columnar reference; the lister's "
+        f"slowest list of the 2 s after the cut "
+        f"{max(after_cut, default=0.0):.1f} ms ({len(after_cut)} lists; "
+        f"the first on the new base builds its device state); the first "
+        f"pod#audit list {first_ms:.1f} ms (the device state "
+        f"{'built by it' if unbuilt else 'built before it'}); device "
+        f"memory allocated before "
+        f"{mem0 / mib:.1f} MiB, in the dual window {mem_dual / mib:.1f} "
+        f"MiB, peak across the cut {mem_peak / mib:.1f} MiB, right after "
+        f"it {mem_cut / mib:.1f} MiB, after the first list and the old "
+        f"base's last view {mem_after / mib:.1f} MiB; {len(users)} pod#audit "
+        "masks equal the columnar reference, 2 the oracle")
+    with open(rec_a) as fh:
+        check(json.load(fh)["phase"] == "done", "M.a: no done marker")
+    e.close_persistence(final_checkpoint=False)
+    e.disable_decision_cache()
+
+    # -- M.b: rewriting, over the wire (in-process host) --
+    ns_rows = len(e.read_relationships(RelationshipFilter(
+        resource_type="namespace", relation="viewer")))
+    lt = LoopThread()
+    server = remote.EngineServer(e)
+    lt.run(server.start())
+    c = remote.RemoteEngine("127.0.0.1", server.port)
+    rec_b = os.path.join(root, "b", "migration.json")
+    e.enable_persistence(os.path.join(root, "b"),
+                         wal_fsync="interval:100", auto_checkpoint=False)
+    e.enable_decision_cache(max_entries=BIG_CACHE)
+    e.enable_compaction()
+    folds = metrics.counter("engine_compactions_total")
+    try:
+        rev0, schema0 = e.revision, e.schema
+        try:
+            c.migrate_begin(MIG_BAD_SCHEMA)
+            check(False, "M.b: an incompatible target was not refused")
+        except remote.SchemaViolation as ex:
+            check("incompatible" in str(ex), f"M.b: refusal {ex}")
+        check(e.revision == rev0 and e.schema is schema0
+              and c.migrate_status()["phase"] == "done",
+              "M.b: the refused begin changed something")
+        # a held begin, then abort: no cut, the record cleared
+        c.migrate_begin(MIG_B_SCHEMA, hold_at_dual=True)
+        _wait_phase(c.migrate_status, "dual", 300)
+        check(os.path.exists(rec_b), "M.b: no record at dual")
+        st = c.migrate_abort()
+        check(st["phase"] == "aborted" and e.schema is schema0
+              and not os.path.exists(rec_b) and e.revision > rev0,
+              f"M.b: abort {st}")
+        log(f"phase M.b over the wire: an incompatible begin refused "
+            f"(SchemaViolation, nothing changed); a held begin aborted at "
+            f"dual (no cut, record cleared, schema unchanged, its "
+            f"{st['backfilled']} backfilled rows idempotent re-writes)")
+        events, stream_errs = [], []
+        stream = c.watch_push_stream(e.revision)
+        done = threading.Event()
+
+        def read():
+            try:
+                while not done.is_set():
+                    events.extend(stream.next_batch())
+            except BaseException as ex:
+                if not done.is_set():
+                    stream_errs.append(ex)
+
+        reader = threading.Thread(target=read, daemon=True)
+        reader.start()
+        f0 = folds.value
+        begin_rev = e.revision
+        c.migrate_begin(MIG_B_SCHEMA, hold_at_dual=True)
+        m = e._migrator
+        st = _wait_phase(c.migrate_status, "dual", 300)
+        occ_old = e._head.n_delta
+        # entries at the cut's revision, on both sides of the diff
+        with launches:
+            for u in subjects[:4]:
+                for rt, perm in (("pod", "view"), ("pod", "edit"),
+                                 ("namespace", "admin")):
+                    c.lookup_resources_mask(rt, perm, "user", u)
+        r0 = retired.value
+        st = c.migrate_cut(wait=True)
+        check(st["phase"] == "done" and st["classification"] == "rewriting"
+              and st["backfilled"] == ns_rows, f"M.b: {st}")
+        with open(rec_b) as fh:
+            check(json.load(fh)["phase"] == "done", "M.b: no done marker")
+        tl, split = m.timeline, m.cut_split
+        bf_s = tl["dual"] - tl["backfill"]
+        occ_new = e._head.n_delta
+        h0 = hits.value
+        with launches:
+            for u in subjects[:4]:
+                for rt, perm in (("pod", "edit"), ("namespace", "admin")):
+                    c.lookup_resources_mask(rt, perm, "user", u)
+            survived = hits.value - h0
+            for u in subjects[:4]:
+                c.lookup_resources_mask("pod", "view", "user", u)
+        check(survived == 8 and hits.value - h0 == 8,
+              f"M.b: {survived:.0f} of 8 unaffected hits, "
+              f"{hits.value - h0 - survived:.0f} pod#view hits after the "
+              "cut")
+        # the caveat VM on the migrated graph: a caveated grant, its masks
+        # under two request contexts against the host reference
+        u = next(f"u{i}" for i in rng.integers(N_USERS, size=64)
+                 if f"u{i}" not in set(subjects) | set(bulk_users))
+        nsid = f"ns{rng.integers(N_NS)}"
+        wrev = c.write_relationships([WriteOp("touch", Relationship(
+            "namespace", nsid, "viewer", "user", u, caveat="probation"))])
+        orc = {}
+        for label, ctx in MIG_CTXS:
+            orc[label] = user_oracles(e.store.snapshot(), e.schema,
+                                      OracleEvaluator, Snapshot, [u],
+                                      time.time(), context=ctx)[u]
+        pods = e._objects_by_name()["pod"]
+        vis = {}
+        with launches:
+            for label, ctx in MIG_CTXS:
+                mask, _ = c.lookup_resources_mask("pod", "view", "user", u,
+                                                  context=ctx)
+                vis[label] = {pods.string(i) for i in np.flatnonzero(mask)}
+                check(vis[label] == orc[label].lookup_resources(
+                    "pod", "view", "user", u),
+                    f"M.b: {u}'s caveated masks under {ctx} differ from "
+                    "the oracle")
+        check(len(vis["level 1"]) > len(vis["level 5"]),
+              f"M.b: the caveated grant moved nothing {vis}")
+        deadline = time.perf_counter() + 30
+        while not any(ev.revision == wrev for ev in events):
+            check(time.perf_counter() < deadline and not stream_errs,
+                  f"M.b: the write's event never arrived {stream_errs[:1]}")
+            time.sleep(0.01)
+        done.set()
+        stream.close()
+        reader.join(30)
+        echoes = set(e._watch_suppress) & {ev.revision for ev in events}
+        check(not echoes and [ev.revision for ev in events] == [wrev],
+              f"M.b: the push stream got {sorted(ev.revision for ev in events)}"
+              f" (echoes {sorted(echoes)}, the write {wrev})")
+        # the dense kernel on the migrated graph, against the columnar
+        # reference of pod#view
+        with launches:
+            verdicts = c.check_bulk(items)
+        ref = view_masks(e.store, bulk_users, time.time(), len(pods))
+        pid = pods.id_map()
+        bad = sum(v != bool(ref[it.subject_id][pid[it.resource_id]])
+                  for v, it in zip(verdicts, items))
+        check(bad == 0, f"M.b: {bad} of {len(items)} bulk verdicts differ "
+              "from the reference")
+        torch.cuda.synchronize()
+        log(f"phase M.b rewriting migration over the wire (namespace#viewer "
+            f"gains `user with probation`), hold_at_dual, migrate_cut: "
+            f"dual compile {m.compile_seconds:.2f} s; backfill "
+            f"{st['backfilled']} rows in {st['suppressed']} batches of 512 "
+            f"in {bf_s * 1e3:.1f} ms ({st['backfilled'] / bf_s:,.0f} "
+            f"rows/s); overlay occupancy at dual {occ_old} of "
+            f"{e._delta_capacity} (serving base), {occ_new} on the new base "
+            f"after the cut; compactor folds {folds.value - f0:.0f}; "
+            f"time_to_cut_ms {st['time_to_cut_ms']:.1f}; freeze_ms "
+            f"{st['freeze_ms']:.1f} = "
+            + ", ".join(f"{k} {v * 1e3:.1f}" for k, v in split.items())
+            + " ms")
+        log(f"  cache: {retired.value - r0:.0f} entries retired at the cut "
+            f"(pod#view; and any fold's), pod#edit and namespace#admin entries answered "
+            f"(8 hits), pod#view missed; the push stream opened at revision "
+            f"{begin_rev} got only the post-cut write (no echo of "
+            f"{st['suppressed']} backfill revisions); {u}'s caveated "
+            f"namespace#viewer grant: pod#view masks under level 1 "
+            f"({len(vis['level 1'])} pods) and level 5 "
+            f"({len(vis['level 5'])}) equal the oracle; the 64 x 1,024 "
+            f"bulk check over the wire equals the columnar reference "
+            f"({sum(verdicts)} allowed)")
+    finally:
+        c.close()
+        lt.run(server.stop())
+        lt.close()
+        e.close_compaction()
+        e.disable_decision_cache()
+        e.close_persistence(final_checkpoint=False)
+    torch.cuda.synchronize()
+    log(f"  migration-path launches over M.a and M.b (the migrated engine's "
+        f"calls only): {launches.n}")
+    for kname, nl in launches.n.items():
+        check(nl > 0, f"{kname} was not launched on the migration path")
+
+    # -- M.c: the CLI resolves a record at its cut at boot --
+    migration_boot(torch, here, r_dir, r_users, r_want)
+    shutil.rmtree(root, ignore_errors=True)
+    return launches.n
+
+
+def _wait_phase(status, phase: str, budget: float) -> dict:
+    deadline = time.perf_counter() + budget
+    while True:
+        st = status()
+        if st is not None and st["phase"] == phase:
+            return st
+        check(st is None or st["phase"] not in ("failed", "aborted"),
+              f"M: the migration ended {st}")
+        check(time.perf_counter() < deadline, f"M: no {phase} in "
+              f"{budget} s: {st}")
+        time.sleep(0.005)
+
+
+def migration_boot(torch, here: str, r_dir: str, users: list,
+                   want: dict) -> None:
+    """Phase M.c: a copy of R.e's data dir with a migration record at
+    phase cut holding M.a's target; the engine-host CLI boots on it under
+    the old schema (no write, so no final checkpoint) and must finish the
+    cut: its log says ``resumed (phase cut)``, pod#audit answers, the
+    record is ``done``, and SIGTERM exits 0."""
+    import signal
+    import socket
+
+    from spicedb_kubeapi_proxy_tpu_torch.engine import remote
+    from spicedb_kubeapi_proxy_tpu_torch.migration import schema_digest
+    from spicedb_kubeapi_proxy_tpu_torch.models.bootstrap import \
+        WORKFLOW_SCHEMA
+
+    root = os.path.dirname(r_dir)
+    d = os.path.join(root, "m_host")
+    shutil.rmtree(d, ignore_errors=True)
+    shutil.copytree(r_dir, d)
+    rec = os.path.join(d, "migration.json")
+    # the target as the proxy sends it: with the workflow definitions
+    # every booted schema carries
+    target = MIG_A_SCHEMA + "\n" + WORKFLOW_SCHEMA
+    with open(rec, "w") as fh:
+        json.dump({"phase": "cut", "to_text": target,
+                   "to_digest": schema_digest(target),
+                   "suppressed_revisions": []}, fh)
+    boot = os.path.join(root, "r_host_bootstrap.yaml")
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    log_path = os.path.join(root, "m_host.log")
+
+    def tail() -> str:
+        with open(log_path, errors="replace") as fh:
+            return fh.read()[-3000:]
+
+    with open(log_path, "w") as logf:
+        t0 = time.perf_counter()
+        p = subprocess.Popen(
+            [sys.executable, "-m",
+             "spicedb_kubeapi_proxy_tpu_torch.engine.remote",
+             "--engine-insecure", "--bind-port", str(port),
+             "--bootstrap", boot, "--data-dir", d], cwd=here, stdout=logf,
+            stderr=subprocess.STDOUT)
+    try:
+        while True:
+            check(p.poll() is None, f"M.c: the engine host exited during "
+                  f"boot ({p.returncode}):\n{tail()}")
+            check(time.perf_counter() - t0 < 300, "M.c: no bind in 300 s")
+            try:
+                socket.create_connection(("127.0.0.1", port),
+                                         timeout=1).close()
+                break
+            except OSError:
+                time.sleep(0.05)
+        bind_s = time.perf_counter() - t0
+        check("schema migration record recovered: resumed (phase cut)"
+              in tail(), f"M.c: no resume in the host's log:\n{tail()}")
+        c = remote.RemoteEngine("127.0.0.1", port)
+        try:
+            t1 = time.perf_counter()
+            mask, _ = c.lookup_resources_mask("pod", "audit", "user",
+                                              users[0])
+            first_s = time.perf_counter() - t1
+            check(mask is not None and not mask.any(),
+                  "M.c: pod#audit does not answer under the new schema "
+                  "(no auditor or creator rows: an empty mask)")
+            # R.e's write (a grant to its first subject) is in this dir
+            check("ns/p-cli-new" in c.lookup_resources(
+                "pod", "view", "user", users[0]), "M.c: R.e's write")
+            got = {u: c.lookup_resources_mask("pod", "view", "user", u)[0]
+                   for u in users[1:]}
+            same_masks(got, {u: want[u] for u in users[1:]},
+                       "M.c migrated CLI host vs the writer")
+        finally:
+            c.close()
+        with open(rec) as fh:
+            phase = json.load(fh)["phase"]
+        check(phase == "done", f"M.c: the record is at {phase}")
+        t1 = time.perf_counter()
+        p.send_signal(signal.SIGTERM)
+        rc = p.wait(timeout=300)
+        check(rc == 0, f"M.c: the host exited {rc} on SIGTERM:\n{tail()}")
+        log(f"phase M.c the engine-host CLI on a copy of R.e's data dir with "
+            f"a record at phase cut (M.a's target), booted under the old "
+            f"schema: bound {bind_s:.2f} s after spawn, its log says "
+            f"'resumed (phase cut)'; the first pod#audit list (compile "
+            f"under S' and device build) {first_s:.2f} s, answered; "
+            f"{len(users) - 1} pod#view masks equal the writer's; the record "
+            f"is done; SIGTERM -> exit 0 in {time.perf_counter() - t1:.2f} s")
     finally:
         if p.poll() is None:
             p.kill()
@@ -3223,10 +3822,16 @@ def main(argv=None) -> int:
         torch, e, subjects, items, now,
         {"list_p50": p50, "checks_per_s": float(np.median(rates)),
          "tenant": tenant}, args.seed)
-    host_cli_phase(torch, here, os.path.join(here, "build", "persist",
-                                             "data"), BENCH_SCHEMA, p_users,
-                   p_want)
+    r_dir = host_cli_phase(torch, here, os.path.join(
+        here, "build", "persist", "data"), BENCH_SCHEMA, p_users, p_want)
     log(f"phase R took {time.perf_counter() - t0:.1f} s")
+
+    # -- phase M: live schema migration, on the headline engine and the CLI
+    t0 = time.perf_counter()
+    migration_launches = migration_phase(
+        torch, e, here, subjects, items, bulk_users, r_dir, p_users, p_want,
+        p50, args.seed)
+    log(f"phase M took {time.perf_counter() - t0:.1f} s")
 
     # -- phase 10: the caveated mix, on a store of its own --
     del e, cg, d, objs, pods, fut, A, bits
@@ -3251,6 +3856,7 @@ def main(argv=None) -> int:
                     "persistence_path_launches": persist_launches[kname],
                     "tiered_path_launches": tiered_launches[kname],
                     "remote_path_launches": remote_launches[kname],
+                    "migration_path_launches": migration_launches[kname],
                     "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                     "bound_by": r["bound_by"], "library_ms": r["library_ms"],

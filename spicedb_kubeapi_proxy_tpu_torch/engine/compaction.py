@@ -216,8 +216,12 @@ class Compactor:
         fresh = e._compile_fresh()
         with e._lock:
             if e._lineage != lineage:
-                # the store was restored during the fold: the fresh base
-                # is of the old contents, and the next read compiles anew
+                # the store was restored during the fold (the fresh base
+                # is of the old contents, and the next read compiles
+                # anew), or a schema migration cut over (the fresh base
+                # was compiled under the old schema: the cut keeps the
+                # revision, so the check below would let it publish;
+                # this races in the reference)
                 return False
             cur = e._head  # writes still applying their patches included
             if cur is not None and cur.revision > fresh.revision:

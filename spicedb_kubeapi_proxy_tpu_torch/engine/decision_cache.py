@@ -1,7 +1,9 @@
 """Revision-keyed authorization decision cache with singleflight dedup.
 
 A copy of the JAX package's ``engine/decision_cache.py`` (it holds no
-JAX), kept here so the port imports nothing of that package.
+JAX), kept here so the port imports nothing of that package, with one
+repair: a schema cut's :meth:`DecisionCache.retire_affected` also
+retires the fills in flight for the affected pairs (see there).
 
 The serving-curve observation (Samyama arxiv 2603.08036, RedisGraph
 arxiv 1905.01294): repeat-heavy traffic — watch fan-out,
@@ -134,6 +136,21 @@ class DecisionCache:
         # must not re-populate (and re-inc the gauges of) a cache nothing
         # will ever clear again
         self._closed = False
+        # the affected-pair sets of every retire_affected so far, in
+        # order: a fill that began before one of them (put's ``since``)
+        # never lands for a pair it retired
+        self._retired: list = []
+
+    def epoch(self) -> int:
+        """The retirement count now: a fill reads it before it picks the
+        graph it dispatches on, and passes it to :meth:`put` as
+        ``since``."""
+        return len(self._retired)
+
+    @staticmethod
+    def _pair(key: tuple) -> tuple:
+        """(resource type, permission) of a check or lookup key."""
+        return (key[2], key[4]) if key[0] == "check" else (key[2], key[3])
 
     # -- LRU -----------------------------------------------------------------
 
@@ -175,10 +192,11 @@ class DecisionCache:
                             kind=kind).inc(n)
 
     def put(self, key: tuple, value, deadline: float, nbytes: int,
-            now: float) -> None:
+            now: float, since: Optional[int] = None) -> None:
         """Insert/refresh an entry. Born-dead entries (deadline already
         passed — a tuple expired while the query was in flight) are not
-        stored."""
+        stored, nor is a fill that began at retirement epoch ``since``
+        when a later :meth:`retire_affected` covered its pair."""
         if deadline <= now:
             return
         nbytes = int(nbytes)
@@ -191,6 +209,9 @@ class DecisionCache:
             # BEFORE draining shards, so a fill can never land in a shard
             # clear() has already passed
             if self._closed:
+                return
+            if since is not None and any(
+                    self._pair(key) in a for a in self._retired[since:]):
                 return
             old = sh.entries.pop(key, None)
             if old is not None:
@@ -276,19 +297,31 @@ class DecisionCache:
         verdicts: the cutover swap preserves the store revision, so
         surviving keys stay exactly probe-valid — and the no-verdict-flap
         invariant depends on them answering identically across the flip.
-        Returns the number of entries dropped."""
+
+        The cut keeps the revision, so a fill that dispatched on the old
+        graph would land under the same key after the entries went (this
+        races in the reference): the affected pairs' flights leave the
+        registry (no caller joins an old-graph flight after this), and
+        :meth:`put` refuses a fill whose ``since`` predates this call.
+        The caller swaps the graph before it retires. Returns the number
+        of entries dropped."""
         affected = frozenset(affected)
         if not affected:
             return 0
+        # recorded before the sweep: a fill either lands before the sweep
+        # reaches its shard (and is swept) or sees the record (and skips)
+        self._retired.append(affected)
+        with self._flights_lock:
+            for k in [k for k in self._flights
+                      if self._pair(k) in affected]:
+                del self._flights[k]
         dropped = 0
         freed = 0
         for sh in self._shards:
             with sh.lock:
                 dead = []
                 for k in sh.entries:
-                    pair = ((k[2], k[4]) if k[0] == "check"
-                            else (k[2], k[3]))
-                    if pair in affected:
+                    if self._pair(k) in affected:
                         dead.append(k)
                 for k in dead:
                     _, _, nb = sh.entries.pop(k)

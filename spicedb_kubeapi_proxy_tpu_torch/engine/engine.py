@@ -12,10 +12,11 @@ the fixpoint: the revision-keyed decision cache with singleflight
 (engine/decision_cache.py) and the cross-request lookup batcher
 (engine/batcher.py); durability (``enable_persistence``: recovery, the
 write-ahead log and checkpoints of persistence/, and the snapshot
-save/load of the store) and tiered block residency under a device byte
+save/load of the store), tiered block residency under a device byte
 budget (``device_graph_budget_bytes``: storage/ and the tiered dispatch
-of ops/reachability.py). The mesh, migration and the engine host come
-with later slices.
+of ops/reachability.py), and live schema migration
+(``begin_schema_migration``: migration/). The mesh comes with a later
+slice.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ import json
 import os
 import threading
 import time
+from contextlib import contextmanager
 from dataclasses import dataclass
 from typing import Optional
 
@@ -51,6 +53,7 @@ from ..ops.reachability import (
     compile_graph,
     incremental_update,
     release_resident,
+    retire_base,
 )
 from ..utils.features import features
 from ..utils.metrics import metrics
@@ -293,9 +296,25 @@ class Engine:
         # them hot while the budget allows; 0/None = all resident
         self._tier_budget = int(device_graph_budget_bytes or 0)
         self._tier_spill_dir = tier_spill_dir
-        # bumped by every restore: a compaction fold compiled from the
-        # store before a restore must not publish after it
+        # bumped by every restore and every schema cut: a compaction fold
+        # compiled from the store, or under the schema, before either must
+        # not publish after it
         self._lineage = 0
+        # live schema migration (migration/migrator.py): the active
+        # SchemaMigrator, the write gate it installs for the cutover's
+        # freeze, and the backfill-echo revisions watch streams suppress
+        # (a journaled backfill TOUCH of identical content still logs a
+        # watch record; replaying it to watchers would break exactly-once
+        # across the cut)
+        self._migrator = None
+        self._write_gate = None
+        self._watch_suppress: frozenset = frozenset()
+        # held by the backfill from before its write until its echo
+        # revision is armed, and taken by every watch read after it
+        # fetched its records: a watcher that sees the echo also sees it
+        # suppressed (the reference arms it after the write returns, so a
+        # push stream woken in between delivers the echo)
+        self._echo_lock = threading.Lock()
         if seed:
             self.write_relationships([WriteOp("touch", r) for r in seed])
 
@@ -460,30 +479,54 @@ class Engine:
     # -- write path ---------------------------------------------------------
 
     def write_relationships(self, ops: list[WriteOp],
-                            preconditions: list[Precondition] = ()) -> int:
-        """Apply a write and fold it into the compiled graph's overlay."""
+                            preconditions: list[Precondition] = (),
+                            *, _headroom: bool = True) -> int:
+        """Apply a write and fold it into the compiled graph's overlay.
+        ``_headroom=False`` skips the compactor's shed check (a migration
+        backfill's last retry)."""
         if self.validate_writes:
             for op in ops:
                 validate_relationship(self.schema, op.rel)
-        self._write_headroom(len(ops))
-        with self._lock:
-            rev = self.store.write(list(ops), list(preconditions))
-            cg = self._advance_incremental()
-        self._apply_and_publish(cg)
+        if _headroom:
+            self._write_headroom(len(ops))
+        with self._gated():
+            with self._lock:
+                rev = self.store.write(list(ops), list(preconditions))
+                cg = self._advance_incremental()
+            self._apply_and_publish(cg)
         return rev
 
     def delete_relationships(self, f: RelationshipFilter,
-                             preconditions: list[Precondition] = ()) -> int:
+                             preconditions: list[Precondition] = (),
+                             *, _headroom: bool = True) -> int:
         """DeleteRelationships by filter; returns the count deleted."""
         # the filter's cardinality is unknown before the scan: charge one
         # record's headroom (a huge filter delete that overflows still
         # falls back to a counted recompile, it is just not shed first)
-        self._write_headroom(1)
-        with self._lock:
-            n = self.store.delete_by_filter(f, list(preconditions))
-            cg = self._advance_incremental()
-        self._apply_and_publish(cg)
+        if _headroom:
+            self._write_headroom(1)
+        with self._gated():
+            with self._lock:
+                n = self.store.delete_by_filter(f, list(preconditions))
+                cg = self._advance_incremental()
+            self._apply_and_publish(cg)
         return n
+
+    @contextmanager
+    def _gated(self):
+        """Hold a migration's write gate (when one is installed) across
+        the whole write, its device half included: once the cutover's
+        freeze returns, every write it admitted has been acknowledged, and
+        none is applied to the old base after the cut."""
+        gate = self._write_gate
+        if gate is None:
+            yield
+            return
+        gate.enter()
+        try:
+            yield
+        finally:
+            gate.exit()
 
     def _write_headroom(self, n_records: int) -> None:
         """Back-pressure before any store mutation: with the compactor on
@@ -554,16 +597,32 @@ class Engine:
     # -- watch --------------------------------------------------------------
 
     def watch_since(self, revision: int) -> list[WatchEvent]:
-        return [WatchEvent(r.revision,
-                           "delete" if r.op == OP_DELETE else "touch", r.rel)
-                for r in self.store.watch_since(revision)]
+        """Watch events past ``revision``, migration-backfill echoes
+        left out."""
+        return self._events(self.store.watch_since(revision))
 
     def wait_events(self, revision: int, timeout: float) -> list[WatchEvent]:
         """Block until events past ``revision`` land (or ``timeout`` —
-        then ``[]``): the push-latency form of :meth:`watch_since`."""
+        then ``[]``): the push-latency form of :meth:`watch_since`.
+        Migration-backfill echoes are left out, and a batch of echoes only
+        keeps the wait going past them (the reference returns ``[]`` at
+        once there, and its push loop asks again at once until the next
+        real write)."""
+        deadline = time.monotonic() + timeout
+        while True:
+            recs = self.store.wait_since(
+                revision, max(deadline - time.monotonic(), 0.0))
+            out = self._events(recs)
+            if out or not recs or time.monotonic() >= deadline:
+                return out
+            revision = recs[-1].revision
+
+    def _events(self, records) -> list[WatchEvent]:
+        with self._echo_lock:
+            sup = self._watch_suppress
         return [WatchEvent(r.revision,
                            "delete" if r.op == OP_DELETE else "touch", r.rel)
-                for r in self.store.wait_since(revision, timeout)]
+                for r in records if r.revision not in sup]
 
     # -- query path ---------------------------------------------------------
 
@@ -605,12 +664,15 @@ class Engine:
             self._publish(fresh)
             return fresh
 
-    def _compile_fresh(self) -> CompiledGraph:
+    def _compile_fresh(self, schema: Optional[Schema] = None
+                       ) -> CompiledGraph:
         """One full compile from the current store snapshot: the serving
-        path's fallback (under the engine lock) and the compactor's fold
-        (off the lock: the old base keeps serving)."""
+        path's fallback (under the engine lock), the compactor's fold and,
+        under the target ``schema``, a migration's dual compile (both off
+        the lock: the old base keeps serving). Every compiled base gets the
+        engine's device, overlay capacity and tier budget."""
         t0 = time.perf_counter()
-        cg = compile_graph(self.schema, self.store.snapshot(),
+        cg = compile_graph(schema or self.schema, self.store.snapshot(),
                            device=self.device,
                            delta_capacity=self._delta_capacity)
         if self._tier_budget:
@@ -641,6 +703,40 @@ class Engine:
         c = self._compactor
         if c is not None:
             c.notify(cg)
+
+    def _install_schema(self, schema: Schema,
+                        cg: Optional[CompiledGraph],
+                        affected: Optional[frozenset] = None) -> None:
+        """Serve ``schema`` from now on, at the unchanged revision: a
+        migration's cut, or its resolution at boot (caller holds the
+        engine lock). ``cg``, the new schema's graph caught up to the
+        store, becomes the head and the published view; None leaves the
+        next read to compile under ``schema``. The old base stops serving:
+        its device state goes when its last view does, as after a
+        compaction fold (queries still dispatching on it finish, none
+        fails), its TierStore's prefetch workers with it; the lineage
+        moves, so a fold compiled under the old schema never publishes.
+        Decision-cache entries of the ``affected`` pairs are retired (their
+        in-flight fills with them); with no ``affected`` set, all are."""
+        old = self._head
+        self.schema = schema
+        self._head = cg
+        self._compiled = None
+        self._incremental_declined = None
+        self._lineage += 1
+        if cg is not None:
+            self._publish(cg)
+        if old is not None:
+            retire_base(old)
+        cache = self._decision_cache
+        if cache is not None:
+            if affected is None:
+                cache.clear()
+                self._decision_cache = DecisionCache(
+                    max_entries=cache.max_entries,
+                    max_mask_bytes=cache.max_mask_bytes)
+            else:
+                cache.retire_affected(affected)
 
     def _replay_onto(self, fresh: CompiledGraph
                      ) -> Optional[CompiledGraph]:
@@ -836,6 +932,8 @@ class Engine:
         cache = self._decision_cache
         if cache is None or now is not None or not items:
             return self._check_bulk_dispatch(items, now, context=context)
+        # read before the graph: a schema cut in between retires the fill
+        since = cache.epoch()
         cg = self.compiled()
         now0 = time.time()
         digest = self._digest(cg, context)
@@ -858,7 +956,7 @@ class Engine:
             deadline = self._cache_deadline(cg, now0, context)
             for j, i in enumerate(miss_idx):
                 v = bool(got[j])
-                cache.put(keys[i], v, deadline, 0, now0)
+                cache.put(keys[i], v, deadline, 0, now0, since=since)
                 out[i] = v
             return list(out)
 
@@ -991,6 +1089,8 @@ class Engine:
             return self._lookup_submit(resource_type, permission,
                                        subject_type, subject_id,
                                        subject_relation, now, context)
+        # read before the graph: a schema cut in between retires the fill
+        since = cache.epoch()
         cg = self.compiled()
         key = lookup_key(cg.revision, resource_type, permission,
                          subject_type, subject_id, subject_relation,
@@ -1028,7 +1128,8 @@ class Engine:
             deadline = self._cache_deadline(cg, now0, context)
             flight.deadline = deadline
             cache.put(key, (mask, interner), deadline,
-                      0 if mask is None else int(mask.nbytes), now0)
+                      0 if mask is None else int(mask.nbytes), now0,
+                      since=since)
             cache.release(key, flight)
             return value
 
@@ -1151,6 +1252,89 @@ class Engine:
             return m, interner
 
         return EngineFuture(fut, fin)
+
+    # -- live schema migration (migration/migrator.py) -----------------------
+
+    def begin_schema_migration(self, schema_text: str,
+                               record_path: Optional[str] = None,
+                               wait: bool = False, **cfg) -> dict:
+        """Start a zero-downtime migration of this engine to the schema
+        in ``schema_text``: diff-classify, dual-compile, journaled
+        backfill, and a revision-preserving cutover. Returns the initial
+        status dict; ``wait=True`` blocks until done/failed. Raises
+        :class:`~..models.schema.IncompatibleSchemaChange` (a
+        ``SchemaError``) before any state changes when the transition is
+        not performable online."""
+        from ..migration import SchemaMigrator
+
+        with self._lock:
+            if self._migrator is not None and self._migrator.active:
+                raise StoreError("a schema migration is already running")
+            prev = self._migrator
+            m = SchemaMigrator(self, schema_text,
+                               record_path=record_path
+                               or self._default_migration_record(), **cfg)
+            self._migrator = m
+        try:
+            m.start()
+        except BaseException:
+            # a refused plan (e.g. an incompatible diff) must not leave a
+            # never-started migrator installed as active: that would
+            # refuse every later begin
+            with self._lock:
+                if self._migrator is m:
+                    self._migrator = prev
+            raise
+        if wait:
+            m.join()
+        return m.status()
+
+    def _default_migration_record(self) -> Optional[str]:
+        """Persist the migration phase machine beside the WAL when the
+        engine is durable; memory-only engines migrate without a record
+        (a crash loses the store anyway)."""
+        p = self._persistence
+        d = getattr(p, "data_dir", None) if p is not None else None
+        if d is None:
+            return None
+        return os.path.join(d, "migration.json")
+
+    def migration_status(self) -> Optional[dict]:
+        """Phase/lag status of the running (or last) migration, or
+        ``None`` when this engine never migrated."""
+        m = self._migrator
+        return None if m is None else m.status()
+
+    def abort_schema_migration(self) -> dict:
+        """Abort the running migration (refused once its cut persisted)."""
+        m = self._migrator
+        if m is None:
+            raise StoreError("no schema migration to abort")
+        return m.abort()
+
+    def cut_schema_migration(self, wait: bool = True) -> dict:
+        """Release a migration holding at the dual phase into its cutover
+        (the coordinated-cut hook). Idempotent: a migration already cut
+        (or done) returns its status."""
+        m = self._migrator
+        if m is None:
+            raise StoreError("no schema migration to cut")
+        m.request_cut()
+        if wait:
+            m.join()
+        return m.status()
+
+    def recover_schema_migration(self,
+                                 record_path: Optional[str] = None
+                                 ) -> Optional[dict]:
+        """Boot-time crash matrix: consult the persisted migration record
+        (if any) and either abort cleanly (no cut persisted) or finish the
+        cutover (cut persisted). Returns the outcome dict, or ``None``
+        when there was nothing to recover."""
+        from ..migration import recover
+
+        return recover(self, record_path
+                       or self._default_migration_record())
 
     # -- debugging ----------------------------------------------------------
 

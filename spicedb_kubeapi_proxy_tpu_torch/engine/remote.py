@@ -31,10 +31,11 @@ within a store epoch; a snapshot restore mints a new epoch and
 invalidates client caches).
 
 Ops whose engine half the port does not have yet (the multi-host mirror,
-the rebalance mover's slice ops, frontier exchange, live schema
-migration, the chaos plane) answer ``kind: "store"`` with a message that
-names the ROADMAP item that brings them; the clients' methods for those
-ops come with the same items. ``python -m
+the rebalance mover's slice ops, frontier exchange, the chaos plane)
+answer ``kind: "store"`` with a message that names the ROADMAP item that
+brings them; the clients' methods for those ops come with the same items.
+The live schema migration ops (``migrate_begin/status/cut/abort``) are
+served, and the CLI resolves a data dir's migration record at boot. ``python -m
 spicedb_kubeapi_proxy_tpu_torch.engine.remote`` runs a standalone host
 (``main``) on ``--device`` (``cuda`` by default).
 """
@@ -823,15 +824,40 @@ class EngineServer:
         self._chaos_gate()
 
     # -- live schema migration control plane (migration/migrator.py) ---------
+    # Admission-classed `rebalance` (admission/classes.py): a migration is
+    # operator-driven bulk work, sheddable beneath tenant traffic. begin
+    # is NOT idempotent (a replay would race the active-migration
+    # refusal); status/cut/abort are.
 
-    _op_migrate_begin = _refused("migrate_begin", "A.4",
-                                 "live schema migration")
-    _op_migrate_status = _refused("migrate_status", "A.4",
-                                  "live schema migration")
-    _op_migrate_cut = _refused("migrate_cut", "A.4",
-                               "live schema migration")
-    _op_migrate_abort = _refused("migrate_abort", "A.4",
-                                 "live schema migration")
+    def _op_migrate_begin(self, req: dict):
+        """Start a live migration to the supplied schema text. The diff
+        classification (and a typed incompatible refusal) happens on this
+        call's stack, before any state change, so the caller gets the
+        refusal reasons synchronously; the phase machine then runs on a
+        background thread of this host."""
+        kwargs = {}
+        for k in ("batch", "parity_samples"):
+            if req.get(k) is not None:
+                kwargs[k] = int(req[k])
+        if req.get("hold_at_dual") is not None:
+            kwargs["hold_at_dual"] = bool(req["hold_at_dual"])
+        if req.get("backfill_pause") is not None:
+            kwargs["backfill_pause"] = float(req["backfill_pause"])
+        return self.engine.begin_schema_migration(
+            req["schema_text"], wait=bool(req.get("wait")), **kwargs)
+
+    def _op_migrate_status(self, req: dict):
+        return self.engine.migration_status()
+
+    def _op_migrate_cut(self, req: dict):
+        """Release a ``hold_at_dual`` migration into its cut; idempotent:
+        re-requesting the cut of an already-cut (or done) migration just
+        reports its status."""
+        return self.engine.cut_schema_migration(
+            wait=bool(req.get("wait", True)))
+
+    def _op_migrate_abort(self, req: dict):
+        return self.engine.abort_schema_migration()
 
 
 # -- client ------------------------------------------------------------------
@@ -1366,6 +1392,36 @@ class RemoteEngine:
         except RemoteEngineError:
             return []
 
+    # live schema migration control plane (migration/migrator.py)
+
+    def migrate_begin(self, schema_text: str, *,
+                      hold_at_dual: Optional[bool] = None,
+                      batch: Optional[int] = None,
+                      backfill_pause: Optional[float] = None,
+                      parity_samples: Optional[int] = None,
+                      wait: bool = False) -> dict:
+        """Begin a live schema migration on the host. Single-attempt (NOT
+        idempotent: a replay would race the host's single-active-migration
+        refusal); an incompatible change surfaces as the host's typed
+        schema error (``SchemaViolation``) before any state change."""
+        return self._call(
+            "migrate_begin", schema_text=schema_text,
+            hold_at_dual=hold_at_dual, batch=batch,
+            backfill_pause=backfill_pause,
+            parity_samples=parity_samples, wait=wait)
+
+    def migrate_status(self) -> Optional[dict]:
+        return self._call("migrate_status")
+
+    def migrate_cut(self, wait: bool = True) -> dict:
+        """Release a ``hold_at_dual`` migration into its cut
+        (idempotent: a coordinator may retry it)."""
+        return self._call("migrate_cut", wait=wait)
+
+    def migrate_abort(self) -> dict:
+        return self._call("migrate_abort")
+
+
 # -- client-side engine failover ----------------------------------------------
 
 
@@ -1658,6 +1714,23 @@ class FailoverEngine:
     def watch_gate(self, resource_type: str, name: str):
         return self._invoke(lambda c: c.watch_gate(resource_type, name))
 
+    # migration control plane: begin follows the WRITE discipline (no
+    # re-issue after an ambiguous death — a replay races the host's
+    # single-active-migration refusal); status/cut/abort are
+    # level-triggered and re-aim like reads
+    def migrate_begin(self, schema_text: str, **kw) -> dict:
+        return self._invoke(lambda c: c.migrate_begin(schema_text, **kw),
+                            write=True)
+
+    def migrate_status(self) -> Optional[dict]:
+        return self._invoke(lambda c: c.migrate_status())
+
+    def migrate_cut(self, wait: bool = True) -> dict:
+        return self._invoke(lambda c: c.migrate_cut(wait=wait))
+
+    def migrate_abort(self) -> dict:
+        return self._invoke(lambda c: c.migrate_abort())
+
     def fetch_traces(self, limit: int = 64) -> list:
         """Trace fragments from EVERY reachable endpoint (a re-aimed
         request leaves spans on more than one host); per-endpoint
@@ -1745,10 +1818,6 @@ _REFUSED_FLAGS = (
     ("--failover-boot-grace", "A.5", "leader failover"),
     ("--enable-chaos-ops", "A.7", "the chaos plane"),
 )
-
-# the live-migration record a JAX host resolves at boot
-# (migration/migrator.py recover); the port resolves none until A.4
-MIGRATION_RECORD = "migration.json"
 
 
 def main(argv=None) -> int:
@@ -1937,14 +2006,6 @@ def main(argv=None) -> int:
             parse_fsync_policy(args.wal_fsync)
         except WalError as e:
             ap.error(str(e))
-        if os.path.exists(os.path.join(args.data_dir, MIGRATION_RECORD)):
-            # a JAX host resolves this record at boot (abort, or finish
-            # the cut under the new schema); serving the store without
-            # resolving it could answer under the wrong schema
-            ap.error(f"{args.data_dir} holds a live schema migration "
-                     f"record ({MIGRATION_RECORD}): the PyTorch engine "
-                     "host cannot resolve it until ROADMAP A.4 lands; "
-                     "finish or abort the migration on a JAX host first")
     from ..device import resolve_device
 
     try:
@@ -1970,6 +2031,13 @@ def main(argv=None) -> int:
                  "records replayed)", args.data_dir,
                  persistence.recovery.revision,
                  persistence.recovery.replayed_records)
+        # boot crash matrix for a live schema migration killed mid-flight
+        # (migration/migrator.py): no persisted cut -> clean abort, cut
+        # persisted -> finish the cutover under the new schema
+        mig = engine.recover_schema_migration()
+        if mig is not None:
+            log.info("schema migration record recovered: %s (phase %s)",
+                     mig.get("action"), mig.get("phase"))
     if args.lookup_batch_window > 0:
         engine.enable_lookup_batching(args.lookup_batch_window)
     if args.authz_cache:

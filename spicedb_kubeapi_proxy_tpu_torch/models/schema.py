@@ -1,10 +1,12 @@
 """Parser + IR for the Zanzibar-style schema DSL.
 
-A copy of the JAX package's ``models/schema.py`` parser and IR (the port
-imports nothing of that package). It produces the typed IR the port's
-graph compiler (ops/reachability.py) consumes, caveat definitions
-(``caveat name(param type, ...) { expr }``, typed and checked at parse
-time) and ``with <caveat>`` grants included.
+A copy of the JAX package's ``models/schema.py`` parser, IR and schema
+diff classifier (the port imports nothing of that package). It produces
+the typed IR the port's graph compiler (ops/reachability.py) consumes,
+caveat definitions (``caveat name(param type, ...) { expr }``, typed and
+checked at parse time) and ``with <caveat>`` grants included, and
+classifies an S -> S' change for a live migration (:func:`diff_schemas`,
+:func:`ir_digest`; migration/).
 
 Supported surface:
 
@@ -627,3 +629,270 @@ def relevant_resource_types(schema: Schema, resource_type: str,
 def parse_schema(text: str) -> Schema:
     """Parse schema DSL text into a validated :class:`Schema`."""
     return _Parser(text).parse()
+
+
+# ---------------------------------------------------------------------------
+# Schema diff classifier (live schema migration, migration/)
+# ---------------------------------------------------------------------------
+
+# transition classes, ordered by how much work the migrator must do
+ADDITIVE = "additive"  # no tuple rewrites: swap graphs at a revision
+REWRITING = "rewriting"  # affected tuples re-validated + journaled backfill
+INCOMPATIBLE = "incompatible"  # refused before any state changes
+
+
+class IncompatibleSchemaChange(SchemaError):
+    """Typed refusal: the S -> S' transition cannot be performed online
+    (or at all) without operator intervention. Raised BEFORE any engine
+    state changes; ``reasons`` carries one line per blocking change."""
+
+    def __init__(self, reasons: "tuple[str, ...]"):
+        self.reasons = tuple(reasons)
+        super().__init__(
+            "incompatible schema change: " + "; ".join(self.reasons))
+
+
+@dataclass(frozen=True)
+class SchemaDiff:
+    """The classified S -> S' transition.
+
+    ``changed`` is the core set of ``(definition, member)`` pairs whose
+    own declaration differs between the schemas (member = relation or
+    permission name; a changed caveat body contributes every relation
+    that allows it). ``affected`` is the reachability closure over S':
+    every ``(definition, member)`` whose verdict CAN change — i.e. whose
+    walk (the same conservative walk `watch_relevance` uses) touches a
+    changed element. Everything outside ``affected`` must keep its
+    cached decisions and never flap mid-migration; the chaos invariant
+    machine-checks that. All members are frozensets, so the diff is
+    order-independent by construction: permuting S' definitions yields
+    an equal SchemaDiff."""
+
+    classification: str  # ADDITIVE | REWRITING | INCOMPATIBLE
+    changed: frozenset  # core {(def, member)} that differ
+    affected: frozenset  # closure {(def, member)} whose verdicts may move
+    # relations whose TUPLES need re-validation/backfill: the subset of
+    # `changed` where the allowed-subject set itself moved
+    rewrite_relations: frozenset  # {(def, relation)}
+    reasons: tuple = ()  # human-readable, one per contributing change
+
+    def is_affected(self, definition: str, member: str) -> bool:
+        return (definition, member) in self.affected
+
+
+def _allowed_key(a: AllowedSubject) -> tuple:
+    return (a.type, a.relation, a.wildcard, a.expiration, a.caveat)
+
+
+def _member_reach(schema: Schema, dname: str, member: str) -> frozenset:
+    """All (definition, relation-or-permission) pairs reachable from
+    ``dname#member`` — the same conservative walk as watch_relevance,
+    but at MEMBER granularity so the affected closure can spare
+    unrelated relations on a shared definition."""
+    seen: set = set()
+
+    def visit(t: str, r: str) -> None:
+        if (t, r) in seen:
+            return
+        seen.add((t, r))
+        d = schema.definitions.get(t)
+        if d is None:
+            return
+        if r in d.permissions:
+            walk(t, d.permissions[r].expr, d)
+        elif r in d.relations:
+            for a in d.relations[r].allowed:
+                if a.relation:
+                    visit(a.type, a.relation)
+
+    def walk(t: str, expr: Expr, d: Definition) -> None:
+        if isinstance(expr, RelationRef):
+            visit(t, expr.name)
+        elif isinstance(expr, Arrow):
+            visit(t, expr.tupleset)
+            rel = d.relations.get(expr.tupleset)
+            for a in (rel.allowed if rel else ()):
+                visit(a.type, expr.target)
+        elif isinstance(expr, (Union, Intersect)):
+            for o in expr.operands:
+                walk(t, o, d)
+        elif isinstance(expr, Exclude):
+            walk(t, expr.base, d)
+            walk(t, expr.subtract, d)
+
+    visit(dname, member)
+    return frozenset(seen)
+
+
+def diff_schemas(old: Schema, new: Schema) -> SchemaDiff:
+    """Classify the ``old`` -> ``new`` transition for live migration.
+
+    - **additive**: new definitions/relations/permissions/caveats, or a
+      permission expression change — nothing stored needs rewriting, the
+      new graph swaps in at a revision.
+    - **rewriting**: an existing relation's allowed-subject set changed
+      compatibly (entries gained, or traits attached — e.g. a caveat on
+      a live relation) or a declared caveat's definition changed: every
+      stored tuple on those relations is re-validated and backfilled
+      through the journaled write path before the cut.
+    - **incompatible**: removals or kind flips (definition dropped,
+      relation/permission dropped, relation<->permission flip, an
+      allowed-subject entry dropped, a referenced caveat dropped) —
+      stored tuples could be stranded, so the transition is refused
+      with :class:`IncompatibleSchemaChange` before any state changes.
+
+    Comparison is purely name-keyed + frozenset-based, so definition
+    order in either schema text never changes the result.
+    """
+    changed: set = set()
+    rewrite_relations: set = set()
+    reasons: list = []
+    fatal: list = []
+
+    # --- caveat declarations -------------------------------------------
+    changed_caveats: set = set()
+    for cname, cdef in old.caveat_defs.items():
+        if cname not in new.caveat_defs:
+            # dropping a caveat still allowed by some OLD relation means
+            # live conditional tuples lose their evaluator
+            used = [f"{d.name}#{r.name}"
+                    for d in old.definitions.values()
+                    for r in d.relations.values()
+                    if any(a.caveat == cname for a in r.allowed)]
+            if used:
+                fatal.append(
+                    f"caveat {cname!r} removed while still allowed by "
+                    + ", ".join(sorted(used)))
+            else:
+                changed_caveats.add(cname)
+                reasons.append(f"caveat {cname!r} removed (unused)")
+        elif new.caveat_defs[cname] != cdef:
+            changed_caveats.add(cname)
+            reasons.append(f"caveat {cname!r} definition changed")
+    for cname in new.caveat_defs:
+        if cname not in old.caveat_defs:
+            reasons.append(f"caveat {cname!r} added")
+
+    # --- definitions and members ---------------------------------------
+    for dname, od in old.definitions.items():
+        nd = new.definitions.get(dname)
+        if nd is None:
+            fatal.append(f"definition {dname!r} removed")
+            continue
+        for rname, orel in od.relations.items():
+            if rname in nd.permissions:
+                fatal.append(
+                    f"{dname}#{rname} changed kind relation->permission")
+                continue
+            nrel = nd.relations.get(rname)
+            if nrel is None:
+                fatal.append(f"relation {dname}#{rname} removed")
+                continue
+            old_allowed = frozenset(map(_allowed_key, orel.allowed))
+            new_allowed = frozenset(map(_allowed_key, nrel.allowed))
+            lost = old_allowed - new_allowed
+            gained = new_allowed - old_allowed
+            # trait attach/detach shows up as lost+gained on the same
+            # (type, relation, wildcard) base; losing the BASE subject
+            # entirely strands its tuples -> incompatible
+            base = lambda k: k[:3]  # noqa: E731 - local key projection
+            lost_bases = {base(k) for k in lost}
+            kept_bases = {base(k) for k in new_allowed}
+            stranded = lost_bases - kept_bases
+            if stranded:
+                fatal.append(
+                    f"relation {dname}#{rname} dropped subject type(s) "
+                    + ", ".join(sorted(str(b[0]) for b in stranded)))
+                continue
+            if lost or gained:
+                changed.add((dname, rname))
+                rewrite_relations.add((dname, rname))
+                reasons.append(
+                    f"relation {dname}#{rname} allowed-subject set "
+                    "changed (tuples re-validated)")
+            elif any(a.caveat in changed_caveats for a in orel.allowed):
+                changed.add((dname, rname))
+                rewrite_relations.add((dname, rname))
+                reasons.append(
+                    f"relation {dname}#{rname} rides a changed caveat")
+        for pname, operm in od.permissions.items():
+            if pname in nd.relations:
+                fatal.append(
+                    f"{dname}#{pname} changed kind permission->relation")
+                continue
+            nperm = nd.permissions.get(pname)
+            if nperm is None:
+                fatal.append(f"permission {dname}#{pname} removed")
+                continue
+            if nperm.expr != operm.expr:
+                changed.add((dname, pname))
+                reasons.append(
+                    f"permission {dname}#{pname} expression changed")
+    for dname, nd in new.definitions.items():
+        od = old.definitions.get(dname)
+        if od is None:
+            reasons.append(f"definition {dname!r} added")
+            for m in list(nd.relations) + list(nd.permissions):
+                changed.add((dname, m))
+            continue
+        for rname in nd.relations:
+            if rname not in od.relations and rname not in od.permissions:
+                changed.add((dname, rname))
+                reasons.append(f"relation {dname}#{rname} added")
+        for pname in nd.permissions:
+            if pname not in od.permissions and pname not in od.relations:
+                changed.add((dname, pname))
+                reasons.append(f"permission {dname}#{pname} added")
+
+    if fatal:
+        return SchemaDiff(INCOMPATIBLE, frozenset(changed),
+                          frozenset(changed), frozenset(),
+                          tuple(sorted(fatal)))
+
+    # --- affected closure over S' --------------------------------------
+    changed_f = frozenset(changed)
+    affected: set = set(changed_f)
+    if changed_f:
+        for dname, nd in new.definitions.items():
+            for m in list(nd.relations) + list(nd.permissions):
+                if (dname, m) in affected:
+                    continue
+                if _member_reach(new, dname, m) & changed_f:
+                    affected.add((dname, m))
+
+    cls = REWRITING if rewrite_relations else ADDITIVE
+    return SchemaDiff(cls, changed_f, frozenset(affected),
+                      frozenset(rewrite_relations), tuple(sorted(reasons)))
+
+
+def ir_digest(schema: Schema) -> str:
+    """Order-independent structural digest of a schema's IR — the
+    migration layer's identity test ("did this boot's bootstrap already
+    catch up to S'?"). Two schema texts that parse to the same
+    definitions/caveats digest identically regardless of declaration
+    order or formatting."""
+    import hashlib
+
+    parts = []
+    for dname in sorted(schema.definitions):
+        d = schema.definitions[dname]
+        for rname in sorted(d.relations):
+            allowed = sorted(map(_allowed_key, d.relations[rname].allowed),
+                             key=repr)
+            parts.append(f"R {dname}#{rname}:{allowed!r}")
+        for pname in sorted(d.permissions):
+            parts.append(f"P {dname}#{pname}={d.permissions[pname].expr}")
+    for cname in sorted(schema.caveat_defs):
+        parts.append(f"C {cname}:{schema.caveat_defs[cname]!r}")
+    parts.append(f"use_expiration={schema.use_expiration}")
+    return hashlib.sha256("\n".join(parts).encode()).hexdigest()[:16]
+
+
+def require_compatible(old: Schema, new: Schema) -> SchemaDiff:
+    """diff_schemas, but raise :class:`IncompatibleSchemaChange` (with
+    every blocking reason) instead of returning an incompatible diff —
+    the migrator's front door."""
+    diff = diff_schemas(old, new)
+    if diff.classification == INCOMPATIBLE:
+        raise IncompatibleSchemaChange(diff.reasons)
+    return diff

@@ -49,6 +49,7 @@ from __future__ import annotations
 
 import threading
 import time
+import weakref
 from collections import deque
 from contextlib import contextmanager, nullcontext
 from dataclasses import dataclass, field, replace
@@ -199,7 +200,8 @@ class _Resident:
     (:func:`release_resident`)."""
 
     __slots__ = ("tensors", "blocks", "lock", "pending", "committed",
-                 "applied", "_plock", "tier", "tier_coo", "released")
+                 "applied", "_plock", "tier", "tier_coo", "released",
+                 "__weakref__")
 
     def __init__(self, blocks: list):
         self.tensors: dict = {}
@@ -1357,6 +1359,18 @@ def release_resident(cg: CompiledGraph) -> None:
         if res.tier is not None:
             res.tier.close()
             res.tier = None
+
+
+def retire_base(cg: CompiledGraph) -> None:
+    """The engine stopped serving this base (a schema cut replaced it).
+    Unlike a restore (:func:`release_resident`), nothing is freed now: a
+    query still dispatching on one of its views finishes on it. Its device
+    state goes when its last view does, as a base a compaction fold
+    replaced does, and its TierStore's prefetch workers are shut down
+    then."""
+    res = cg.resident
+    if res.tier is not None:
+        weakref.finalize(res, res.tier.close)
 
 
 def _apply_program(V: torch.Tensor, programs) -> torch.Tensor:

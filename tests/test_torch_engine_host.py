@@ -7,8 +7,9 @@ mutual TLS, the push watch; the JAX client over TLS to a port host; the
 tlsconf errors. The CLI (``python -m
 spicedb_kubeapi_proxy_tpu_torch.engine.remote``): serving TLS, refusing
 plaintext without the opt-out, half TLS, the data-dir flags
-(test_persistence.py's CLI test), the flags and the data dir it refuses
-until their ROADMAP items land, ``--device`` (cuda unless asked, never a
+(test_persistence.py's CLI test), the flags it refuses until their
+ROADMAP items land, a data dir's migration record resolved at boot (an
+abort before the cut, the cut finished after it), ``--device`` (cuda unless asked, never a
 silent fallback), and a boot with ``--device cpu --data-dir`` that
 recovers a store the JAX engine wrote, answers a JAX client as the JAX
 engine does, and checkpoints on SIGTERM into a dir the JAX engine reads
@@ -425,14 +426,80 @@ def test_engine_host_cli_refuses_unported_flags(capsys, flag, value, item):
     assert flag in err and f"ROADMAP {item}" in err
 
 
-def test_engine_host_cli_refuses_a_migrating_data_dir(tmp_path, capsys):
-    (tmp_path / "migration.json").write_text('{"phase": "dual"}')
-    with pytest.raises(SystemExit) as exc:
-        remote.main(["--engine-insecure", "--device", "cpu",
-                     "--data-dir", str(tmp_path)])
-    assert exc.value.code == 2
-    err = capsys.readouterr().err
-    assert "migration.json" in err and "ROADMAP A.4" in err
+def test_engine_host_cli_refuses_a_migrating_data_dir(tmp_path):
+    """The CLI used to refuse a data dir holding a migration record; it
+    now resolves it at boot as the JAX host does: a record from before the
+    cut (here the dual window) aborts, and the host serves the booted
+    schema."""
+    d = tmp_path / "data"
+    d.mkdir()
+    (d / "migration.json").write_text(
+        '{"phase": "dual", "suppressed_revisions": [3]}')
+    port = _free_port()
+    proc = _spawn(["--engine-insecure", "--bind-port", str(port),
+                   "--data-dir", str(d)])
+    try:
+        _wait_bound(proc, port)
+        jc = jremote.RemoteEngine("127.0.0.1", port)
+        try:
+            assert jc.migrate_status() is None
+            assert jc.revision == 0
+        finally:
+            jc.close()
+        assert not (d / "migration.json").exists()
+    finally:
+        rc, out = _stop(proc)
+    assert rc == 0, out[-3000:]
+    assert "schema migration record recovered: aborted (phase dual)" in out
+
+
+def test_engine_host_cli_resumes_a_cut_migration_record(tmp_path):
+    """A data dir the JAX engine journaled, holding a migration record
+    persisted at its cut: the port's CLI boots with the old schema,
+    finishes the cut (log ``resumed (phase cut)``), answers under the new
+    schema, marks the record done, and exits 0 on SIGTERM."""
+    import json
+
+    from spicedb_kubeapi_proxy_tpu_torch.models.bootstrap import (
+        DEFAULT_BOOTSTRAP,
+        parse_bootstrap,
+    )
+
+    old = parse_bootstrap(DEFAULT_BOOTSTRAP).schema_text
+    target = old.replace("  permission no_one_at_all = nil\n",
+                         "  permission no_one_at_all = nil\n"
+                         "  permission audit = viewer\n")
+    assert target != old
+    d = tmp_path / "data"
+    je = JEngine()
+    je.enable_persistence(str(d), wal_fsync="always")
+    je.write_relationships([JWriteOp("touch", jparse_rel(r)) for r in (
+        "namespace:n1#viewer@user:u1", "namespace:n2#creator@user:u2")])
+    je.close_persistence(final_checkpoint=False)
+    (d / "migration.json").write_text(json.dumps(
+        {"phase": "cut", "to_text": target, "to_digest": "t",
+         "suppressed_revisions": []}))
+    port = _free_port()
+    proc = _spawn(["--engine-insecure", "--bind-port", str(port),
+                   "--data-dir", str(d)])
+    try:
+        _wait_bound(proc, port)
+        jc = jremote.RemoteEngine("127.0.0.1", port)
+        try:
+            assert jc.check(JCheckItem("namespace", "n1", "audit", "user",
+                                       "u1")) is True
+            assert jc.check(JCheckItem("namespace", "n2", "audit", "user",
+                                       "u2")) is False
+            assert jc.check(JCheckItem("namespace", "n2", "view", "user",
+                                       "u2")) is True
+        finally:
+            jc.close()
+        assert json.loads((d / "migration.json").read_text())[
+            "phase"] == "done"
+    finally:
+        rc, out = _stop(proc)
+    assert rc == 0, out[-3000:]
+    assert "schema migration record recovered: resumed (phase cut)" in out
 
 
 @pytest.mark.skipif(torch.cuda.is_available(),

@@ -967,8 +967,6 @@ REFUSED = {
     "slice_drop": "A.7", "slice_watch": "A.7",
     "frontier_pairs": "A.7", "frontier_expand": "A.7",
     "chaos_arm": "A.7", "chaos_reset": "A.7", "chaos_status": "A.7",
-    "migrate_begin": "A.4", "migrate_status": "A.4", "migrate_cut": "A.4",
-    "migrate_abort": "A.4",
 }
 
 
