@@ -157,6 +157,28 @@ M. live schema migration (migration/) on the headline engine, after R:
    says ``resumed (phase cut)``, pod#audit answers, the record is
    ``done``, P's subjects' masks equal the writer's, and SIGTERM exits
    0;
+K. the proxy itself (the port's rules/, authz/, dtx/ and proxy/) on the
+   headline engine after M, a port ``Server`` over loopback HTTP with
+   deploy/rules.yaml's pod rules (the list rule is the reference's
+   proxy-path rule: split_name/split_namespace over pod ids ``ns/p{i}``):
+   (a) ``GET /api/v1/pods`` for phase 5's 31 subjects over a fixed
+   100k-item PodList the upstream returns (built once): wall p50/p99,
+   the server's share, the upstream's, the write-out, and each stage
+   alone (the engine's call, the prefilter with its id mapping, the
+   native body filter; the Python filter beside it on 3 users); each
+   user's kept names equal the columnar reference's, the kept items are
+   the upstream's bytes, and a spy shows the native scanner served every
+   list; (b) single-pod gets through pod-get's check, allow and deny
+   against the reference; (c) creates through the dual write
+   (pod-create, pessimistic lock) into a port ``InMemoryKube``: p50, the
+   creator's next list showing each, both relationships in the store, a
+   delete removing both halves; (d) a filtered watch for one user while
+   grants are written: the buffered events released in grant order,
+   against the reference, write -> delivery latency; (e) 256 namespaced
+   lists from 32 client threads, batching off and on: lists/s; (f) the
+   proxy CLI as a subprocess with no ``--device`` (cuda) over a port
+   ``InMemoryKube`` this script serves: alice creates and lists a
+   namespace, mallory gets [] and a 403, SIGTERM -> exit 0;
 10. the caveated mix, with phase 3-9's engine released first: bench.py's
     caveated mesh configuration (MESH_SCHEMA, 30% of the flat
     pod#viewer grants carrying an IP allowlist in one of two stored
@@ -181,7 +203,10 @@ M. live schema migration (migration/) on the headline engine, after R:
     entries equal to (b)'s, contexted lists bypassing the batcher, a
     context differing only in undeclared keys hitting the declared
     entry, and 8 context-free lists fused into one dispatch counting
-    their missing-context denials once.
+    their missing-context denials once. (i), run after (d): phase 5's
+    lists through the port's proxy under two ``X-Forwarded-For`` chains
+    whose last hops are (b)'s allow-both and allow-first addresses, the
+    kept names equal to (b)'s masks under those contexts.
 
 Launch counts are zeroed just before phase 5 and read just after phase 6
 (the kernels JSON's ``launches``), and again around phases 9b-9c
@@ -194,8 +219,11 @@ tiered engine's calls in T; ``remote_path_launches``: the in-process
 host's engine calls in R.a-R.d, the reference answers computed outside
 the tally; R.e's subprocess proves its device through nvidia-smi and its
 answers; ``migration_path_launches``: the migrated engine's calls in
-M.a-M.b, its lister's and the host's included). Both kernels must have run on every path
-(the persistence path runs lists only: its bit kernel). The bit kernel's row also carries its readings at the fused
+M.a-M.b, its lister's and the host's included; ``proxy_path_launches``:
+the proxy's requests in K.a-K.e and 10i, the stages timed alone
+outside them). Both kernels must have run on every path
+(the persistence path runs lists only, and a check of the proxy path
+takes the engine's push or pull choice: their bit kernel). The bit kernel's row also carries its readings at the fused
 batch's inputs (``fused_inputs``). Any
 mismatch or error exits non-zero. The last line is the run's JSON
 verdict.
@@ -2693,10 +2721,15 @@ def migration_phase(torch, e, here: str, subjects: list, items: list,
     process under a lister and a writer, M.b a rewriting one over the
     wire, M.c the CLI's boot resolution of a record at its cut. Returns
     both kernels' launches over M.a and M.b (the migrated engine's calls
-    only; the host references run outside the tally)."""
+    only; the host references run outside the tally). The targets carry
+    the workflow definitions, as a proxy sends them (the headline engine
+    was built without them), so phase K's dual writes have their lock
+    and idempotency-key types."""
     from spicedb_kubeapi_proxy_tpu_torch.engine import remote
     from spicedb_kubeapi_proxy_tpu_torch.engine.evaluator import \
         OracleEvaluator
+    from spicedb_kubeapi_proxy_tpu_torch.models.bootstrap import \
+        WORKFLOW_SCHEMA
     from spicedb_kubeapi_proxy_tpu_torch.engine.store import (
         Precondition,
         PreconditionFailed,
@@ -2786,7 +2819,8 @@ def migration_phase(torch, e, here: str, subjects: list, items: list,
             t.start()
         time.sleep(1.0)  # the window's traffic before the begin
         t0 = time.perf_counter()
-        e.begin_schema_migration(MIG_A_SCHEMA, hold_at_dual=True)
+        e.begin_schema_migration(MIG_A_SCHEMA + "\n" + WORKFLOW_SCHEMA,
+                                 hold_at_dual=True)
         plan_ms = (time.perf_counter() - t0) * 1e3
         m = e._migrator
         st = _wait_phase(m.status, "dual", 300)
@@ -2930,7 +2964,7 @@ def migration_phase(torch, e, here: str, subjects: list, items: list,
     try:
         rev0, schema0 = e.revision, e.schema
         try:
-            c.migrate_begin(MIG_BAD_SCHEMA)
+            c.migrate_begin(MIG_BAD_SCHEMA + "\n" + WORKFLOW_SCHEMA)
             check(False, "M.b: an incompatible target was not refused")
         except remote.SchemaViolation as ex:
             check("incompatible" in str(ex), f"M.b: refusal {ex}")
@@ -2938,7 +2972,8 @@ def migration_phase(torch, e, here: str, subjects: list, items: list,
               and c.migrate_status()["phase"] == "done",
               "M.b: the refused begin changed something")
         # a held begin, then abort: no cut, the record cleared
-        c.migrate_begin(MIG_B_SCHEMA, hold_at_dual=True)
+        c.migrate_begin(MIG_B_SCHEMA + "\n" + WORKFLOW_SCHEMA,
+                        hold_at_dual=True)
         _wait_phase(c.migrate_status, "dual", 300)
         check(os.path.exists(rec_b), "M.b: no record at dual")
         st = c.migrate_abort()
@@ -2965,7 +3000,8 @@ def migration_phase(torch, e, here: str, subjects: list, items: list,
         reader.start()
         f0 = folds.value
         begin_rev = e.revision
-        c.migrate_begin(MIG_B_SCHEMA, hold_at_dual=True)
+        c.migrate_begin(MIG_B_SCHEMA + "\n" + WORKFLOW_SCHEMA,
+                        hold_at_dual=True)
         m = e._migrator
         st = _wait_phase(c.migrate_status, "dual", 300)
         occ_old = e._head.n_delta
@@ -3197,6 +3233,677 @@ def migration_boot(torch, here: str, r_dir: str, users: list,
     shutil.rmtree(d, ignore_errors=True)
 
 
+# -- phase K: the proxy itself on the card ------------------------------------
+
+# K.c's creates through the dual write: each costs the next read a
+# recompile of the 10M graph (the overlay declines a dual write's lock
+# and idempotency-key rows, in both packages), so two suffice
+N_CREATES = 2
+
+
+def k_rules(here: str) -> str:
+    """deploy/rules.yaml's pod rules (pod-create, pod-get, pod-list-watch,
+    pod-delete)."""
+    with open(os.path.join(here, "deploy", "rules.yaml")) as fh:
+        docs = fh.read().split("\n---\n")
+    return "\n---\n".join(d for d in docs if "resource: pods" in d)
+
+
+def pod_list_body(n_pods: int) -> tuple:
+    """The upstream's all-namespaces PodList (pods ``ns/p{i}``), built
+    once as the reference's proxy-path bench builds it: (body, head, the
+    items' bytes, tail), the body being head + ", ".join(items) + tail."""
+    head = (b'{"kind": "PodList", "apiVersion": "v1", "metadata": '
+            b'{"resourceVersion": "1"}, "items": [')
+    items = [json.dumps({"apiVersion": "v1", "kind": "Pod", "metadata": {
+        "name": f"p{i}", "namespace": "ns"}}).encode()
+        for i in range(n_pods)]
+    tail = b"]}"
+    return head + b", ".join(items) + tail, head, items, tail
+
+
+class KUpstream:
+    """Phase K's upstream: ``GET /api/v1/pods`` answers the fixed PodList
+    (the apiserver's own serialization is out of scope); every other
+    request (single pods, namespaced lists, creates, deletes, watches)
+    goes to a port ``InMemoryKube``."""
+
+    def __init__(self, kube, body: bytes):
+        from spicedb_kubeapi_proxy_tpu_torch.proxy.types import \
+            ProxyResponse
+
+        self.kube, self.body, self.resp = kube, body, ProxyResponse
+
+    async def __call__(self, req):
+        if (req.method == "GET" and req.path == "/api/v1/pods"
+                and "watch" not in req.query):
+            return self.resp(status=200, headers={
+                "Content-Type": "application/json"}, body=self.body)
+        return await self.kube(req)
+
+
+class KStack:
+    """A port proxy ``Server`` over ``e`` on loopback (a loop thread of
+    its own), wired as ``Options.complete()`` wires it, around an engine
+    that exists already."""
+
+    def __init__(self, e, rules: str, upstream, db: Optional[str] = None):
+        from spicedb_kubeapi_proxy_tpu_torch.authz import AuthzDeps
+        from spicedb_kubeapi_proxy_tpu_torch.dtx import (
+            ActivityHandler,
+            WorkflowEngine,
+            register_workflows,
+        )
+        from spicedb_kubeapi_proxy_tpu_torch.proxy.authn import \
+            HeaderAuthenticator
+        from spicedb_kubeapi_proxy_tpu_torch.proxy.server import Server
+        from spicedb_kubeapi_proxy_tpu_torch.rules.matcher import MapMatcher
+
+        self.workflow = None
+        if db is not None:
+            for f in (db, db + "-wal", db + "-shm"):
+                if os.path.exists(f):
+                    os.unlink(f)
+            self.workflow = WorkflowEngine(db_path=db)
+            register_workflows(self.workflow)
+            ActivityHandler(e, upstream).register(self.workflow)
+        self.deps = AuthzDeps(matcher=MapMatcher.from_yaml(rules), engine=e,
+                              upstream=upstream, workflow=self.workflow)
+        self.server = Server(self.deps, HeaderAuthenticator(), port=0)
+        self.lt = LoopThread()
+        if self.workflow is not None:
+            self.lt.run(self.workflow.resume_pending())
+        self.port = self.lt.run(self.server.start())
+
+    def conn(self):
+        import http.client
+
+        return http.client.HTTPConnection("127.0.0.1", self.port,
+                                          timeout=120)
+
+    def close(self) -> None:
+        self.lt.run(self.server.stop(grace=1.0))
+        if self.workflow is not None:
+            self.lt.run(self.workflow.shutdown())
+        self.lt.close()
+
+
+def k_call(conn, method: str, path: str, user: str, body=None,
+           headers=None) -> tuple:
+    """One request on a kept-alive connection: (status, body bytes)."""
+    h = {"X-Remote-User": user}
+    if body is not None:
+        h["Content-Type"] = "application/json"
+    h.update(headers or {})
+    conn.request(method, path, headers=h, body=None if body is None
+                 else json.dumps(body).encode())
+    r = conn.getresponse()
+    return r.status, r.read()
+
+
+def names_of(body: bytes) -> list:
+    return [i["metadata"]["name"] for i in json.loads(body)["items"]]
+
+
+def uncaveated_view_masks(store, users, now: float, n: int,
+                          pods: Optional[list] = None) -> dict:
+    """view_masks over the store's rows without a caveat: what a request
+    whose context lacks a caveat's parameters is granted (a caveated
+    grant fails closed; the proxy's requests carry no ``level``, the
+    parameter of M.b's probation caveat). ``pods`` (object ids) keeps
+    only those pods' rows: their bits are exact, the rest are 0."""
+    from spicedb_kubeapi_proxy_tpu_torch.engine.store import Snapshot
+
+    snap = store.snapshot()
+    c = snap.cols
+    keep = c.cav == 0
+    if pods is not None:
+        pid = snap.objects[snap.types.lookup("pod")].id_map()
+        keep &= ((c.rt != snap.types.lookup("pod"))
+                 | np.isin(c.rid, [pid[p] for p in pods if p in pid]))
+    keep = np.flatnonzero(keep)
+    plain = Snapshot(snap.revision, snap.cols.take(keep), snap.types,
+                     snap.relations, snap.objects, snap.caveat_instances)
+
+    class _Store:
+        def snapshot(self):
+            return plain
+
+    return view_masks(_Store(), users, now, n)
+
+
+def kept_from(mask, pods, n_list: int) -> list:
+    """Indices into the upstream PodList (``ns/p{i}``) a mask keeps."""
+    pid = pods.id_map()
+    idx = np.array([pid.get(f"ns/p{i}", 0) for i in range(n_list)])
+    return np.flatnonzero(mask[idx] & (idx > 1)).tolist()
+
+
+class ScanSpy:
+    """The port's native list scans and their bails, and the filter's
+    Python-path fallbacks, inside its ``with`` block."""
+
+    def __init__(self):
+        from spicedb_kubeapi_proxy_tpu_torch import native
+        from spicedb_kubeapi_proxy_tpu_torch.utils.metrics import metrics
+
+        self.native = native
+        self.py = metrics.counter("proxy_filter_python_path_total",
+                                  format="json")
+        self.scans = self.bails = 0
+        self.fallbacks = 0.0
+
+    def __enter__(self):
+        real = self.real = self.native.json_list_spans
+
+        def spy(*a, **kw):
+            out = real(*a, **kw)
+            self.scans += 1
+            self.bails += out is None
+            return out
+
+        self.native.json_list_spans = spy
+        self.py0 = self.py.value
+        return self
+
+    def __exit__(self, *exc):
+        self.native.json_list_spans = self.real
+        self.fallbacks += self.py.value - self.py0
+        return False
+
+
+def proxy_phase(torch, e, here: str, subjects: list, seed: int) -> dict:
+    """Phase K: the port's proxy (rules, authz middleware, dual write,
+    native list filter, HTTP server) in front of the headline engine
+    (see the module docstring). Returns both kernels' launches over the
+    proxy's requests in K.a-K.e."""
+    import socket
+
+    from spicedb_kubeapi_proxy_tpu_torch import native
+    from spicedb_kubeapi_proxy_tpu_torch.authz import filterer
+    from spicedb_kubeapi_proxy_tpu_torch.authz.lookups import \
+        run_prefilter_sync
+    from spicedb_kubeapi_proxy_tpu_torch.engine import RelationshipFilter
+    from spicedb_kubeapi_proxy_tpu_torch.engine.store import WriteOp
+    from spicedb_kubeapi_proxy_tpu_torch.models.tuples import Relationship
+    from spicedb_kubeapi_proxy_tpu_torch.ops import bitprop
+    from spicedb_kubeapi_proxy_tpu_torch.proxy.inmemkube import InMemoryKube
+    from spicedb_kubeapi_proxy_tpu_torch.proxy.requestinfo import \
+        parse_request_info
+    from spicedb_kubeapi_proxy_tpu_torch.rules.input import (
+        ResolveInput,
+        UserInfo,
+    )
+    from spicedb_kubeapi_proxy_tpu_torch.rules.matcher import RequestMeta
+    from spicedb_kubeapi_proxy_tpu_torch.utils.metrics import metrics
+
+    check(native.available(), "K: the native list scanner did not build")
+    rng = np.random.default_rng(seed + 11)
+    n_type = e.compiled().type_sizes["pod"]
+    n_list = min(n_type - 2, N_PODS)
+    t0 = time.perf_counter()
+    body, head, item_b, tail = pod_list_body(n_list)
+    body_s = time.perf_counter() - t0
+    kube = InMemoryKube()
+    up = KUpstream(kube, body)
+    root = os.path.join(here, "build", "proxy")
+    os.makedirs(root, exist_ok=True)
+    stack = KStack(e, k_rules(here), up, os.path.join(root, "dtx.sqlite"))
+    launches = Launches(bitprop)
+    pods = e._objects_by_name()["pod"]
+    pf = [p for r in stack.deps.matcher.match(RequestMeta(
+        "list", "", "v1", "pods")) for p in r.pre_filters][0]
+    try:
+        conn = stack.conn()
+        k_call(conn, "GET", "/api/v1/pods", subjects[0])  # warm-up
+
+        # -- K.a: GET /api/v1/pods over the 100k-item body --
+        want = uncaveated_view_masks(e.store, subjects, time.time(), n_type)
+        h_req = metrics.histogram("proxy_request_seconds")
+        h_up = metrics.histogram("proxy_upstream_seconds")
+        wall, handle, upst, kept_n = [], [], [], []
+        with ScanSpy() as spy:
+            for u in subjects:
+                r0, u0 = h_req.total, h_up.total
+                with launches:
+                    t0 = time.perf_counter()
+                    st, out = k_call(conn, "GET", "/api/v1/pods", u)
+                    wall.append((time.perf_counter() - t0) * 1e3)
+                handle.append((h_req.total - r0) * 1e3)
+                upst.append((h_up.total - u0) * 1e3)
+                check(st == 200, f"K.a: {u}'s list answered {st}")
+                keep = kept_from(want[u], pods, n_list)
+                exp = (head + b",".join(item_b[i] for i in keep) + tail
+                       if len(keep) < n_list else body)
+                check(out == exp, f"K.a: {u}'s list is not the upstream's "
+                      f"{len(keep)} kept items byte for byte")
+                kept_n.append(len(keep))
+        check(spy.scans == len(subjects) and spy.bails == 0
+              and spy.fallbacks == 0,
+              f"K.a: native scans {spy.scans}, bails {spy.bails}, Python "
+              f"path {spy.fallbacks} for {len(subjects)} lists")
+        # where a list's time goes: each stage alone, outside the request
+        eng_ms, pre_ms, filt_ms = [], [], []
+        info = parse_request_info("GET", "/api/v1/pods", {})
+        for u in subjects:
+            inp = ResolveInput.create(info, UserInfo(name=u))
+            t0 = time.perf_counter()
+            e.lookup_resources_mask("pod", "view", "user", u)
+            eng_ms.append((time.perf_counter() - t0) * 1e3)
+            t0 = time.perf_counter()
+            allowed = run_prefilter_sync(e, pf, inp)
+            pre_ms.append((time.perf_counter() - t0) * 1e3)
+            t0 = time.perf_counter()
+            filterer.filter_body(body, allowed, inp)
+            filt_ms.append((time.perf_counter() - t0) * 1e3)
+        py_ms = []
+        wire = filterer._filter_list_wire
+        filterer._filter_list_wire = lambda *a: None
+        try:
+            for u in subjects[:3]:
+                inp = ResolveInput.create(info, UserInfo(name=u))
+                allowed = run_prefilter_sync(e, pf, inp)
+                t0 = time.perf_counter()
+                _, py_out = filterer.filter_body(body, allowed, inp)
+                py_ms.append((time.perf_counter() - t0) * 1e3)
+                check(names_of(py_out) == [f"p{i}" for i in kept_from(
+                    want[u], pods, n_list)],
+                      f"K.a: the Python filter keeps other items for {u}")
+        finally:
+            filterer._filter_list_wire = wire
+        wo = [w - h for w, h in zip(wall, handle)]
+        log(f"phase K.a GET /api/v1/pods through the port's proxy over "
+            f"loopback HTTP (pod-list-watch's prefilter; an upstream "
+            f"PodList of {n_list} items, {len(body)} bytes, built once in "
+            f"{body_s:.2f} s): {len(subjects)} users, wall p50 "
+            f"{pct(wall, 50):.3f} ms, p99 {pct(wall, 99):.3f} ms; in the "
+            f"server p50 {pct(handle, 50):.3f} ms (upstream p50 "
+            f"{pct(upst, 50):.4f} ms), write-out and client read p50 "
+            f"{pct(wo, 50):.3f} ms; each stage alone, p50: the engine's "
+            f"call {pct(eng_ms, 50):.3f} ms, the prefilter (the engine's "
+            f"call + id mapping) {pct(pre_ms, 50):.3f} ms, the native body "
+            f"filter {pct(filt_ms, 50):.3f} ms, the Python filter "
+            f"{pct(py_ms, 50):.3f} ms ({len(py_ms)} users); kept "
+            f"{min(kept_n)}-{max(kept_n)} items a user, each list the "
+            f"upstream's items byte for byte and the columnar reference's "
+            f"names; native scans {spy.scans}, bails 0, Python path 0")
+
+        # -- K.b: single pods through pod-get's check --
+        pairs = []
+        for u in subjects[:16]:
+            keep = set(kept_from(want[u], pods, n_list))
+            no = next(i for i in rng.integers(n_list, size=64).tolist()
+                      if i not in keep)
+            pairs += [(u, min(keep), True), (u, no, False)]
+        for _, i, _ in pairs:
+            kube.put("pods", f"p{i}", "ns")
+        get_ms = []
+        with launches:
+            for u, i, allow in pairs:
+                t0 = time.perf_counter()
+                st, _ = k_call(conn, "GET",
+                               f"/api/v1/namespaces/ns/pods/p{i}", u)
+                get_ms.append((time.perf_counter() - t0) * 1e3)
+                check(st == (200 if allow else 403),
+                      f"K.b: {u} GET ns/p{i} answered {st}; the reference "
+                      f"says {'allow' if allow else 'deny'}")
+        log(f"phase K.b GET of single pods (pod-get's check): {len(pairs)} "
+            f"gets, p50 {pct(get_ms, 50):.3f} ms, p99 {pct(get_ms, 99):.3f} "
+            f"ms; {len(pairs) // 2} allowed and {len(pairs) // 2} denied, "
+            f"as the columnar reference says")
+
+        # -- K.c: creates through the dual write --
+        cu = c_ns = None
+        for u in subjects:
+            nss = sorted(e.lookup_resources("namespace", "view", "user", u))
+            if nss:
+                cu, c_ns = u, nss[0]
+                break
+        check(cu is not None, "K.c: no subject views a namespace")
+        st, _ = k_call(conn, "POST", f"/api/v1/namespaces/{c_ns}/pods",
+                       "u-nobody", {"apiVersion": "v1", "kind": "Pod",
+                                    "metadata": {"name": "x"}})
+        check(st == 403, f"K.c: a user without view of {c_ns} created a "
+              f"pod ({st})")
+        c_ms, raw_ms = [], []
+        compiles = metrics.counter("engine_graph_compiles_total")
+
+        def declines() -> dict:  # overlay fallbacks by reason
+            return {k[1][1]: c.value for k, c in metrics._counters.items()
+                    if k[0] == "engine_graph_incremental_fallback_total"}
+
+        n0, d0 = compiles.value, declines()
+        with launches:
+            for i in range(N_CREATES):
+                t0 = time.perf_counter()
+                st, out = k_call(
+                    conn, "POST", f"/api/v1/namespaces/{c_ns}/pods", cu,
+                    {"apiVersion": "v1", "kind": "Pod",
+                     "metadata": {"name": f"k{i}"}})
+                c_ms.append((time.perf_counter() - t0) * 1e3)
+                check(st == 201, f"K.c: create k{i} answered {st}: {out!r}")
+                t0 = time.perf_counter()
+                st, out = k_call(conn, "GET",
+                                 f"/api/v1/namespaces/{c_ns}/pods", cu)
+                raw_ms.append((time.perf_counter() - t0) * 1e3)
+                check(st == 200 and f"k{i}" in names_of(out),
+                      f"K.c: the creator's list after create k{i} lacks it")
+        for i in range(N_CREATES):
+            pid = f"{c_ns}/k{i}"
+            check(e.store.exists(RelationshipFilter(
+                "pod", pid, "creator", "user", cu)) and e.store.exists(
+                RelationshipFilter("pod", pid, "namespace", "namespace",
+                                   c_ns)),
+                  f"K.c: {pid}'s relationships are not in the store")
+        check(not e.store.exists(RelationshipFilter(resource_type="lock")),
+              "K.c: a dual-write lock was left behind")
+        with launches:
+            t0 = time.perf_counter()
+            st, _ = k_call(conn, "DELETE",
+                           f"/api/v1/namespaces/{c_ns}/pods/k0", cu)
+            del_ms = (time.perf_counter() - t0) * 1e3
+            check(st == 200, f"K.c: the delete answered {st}")
+            st, out = k_call(conn, "GET", f"/api/v1/namespaces/{c_ns}/pods",
+                             cu)
+        check("k0" not in names_of(out), "K.c: the deleted pod is listed")
+        check(not e.store.exists(RelationshipFilter("pod", f"{c_ns}/k0")),
+              "K.c: the delete left a relationship")
+        declined = {r: v - d0.get(r, 0.0) for r, v in declines().items()
+                    if v > d0.get(r, 0.0)}
+        log(f"phase K.c creates through the dual write (pod-create, "
+            f"pessimistic lock) into the port's InMemoryKube: {N_CREATES} "
+            f"creates by {cu} in {c_ns}, p50 {pct(c_ms, 50):.3f} ms, max "
+            f"{max(c_ms):.3f} ms; the creator's next list shows each (p50 "
+            f"{pct(raw_ms, 50):.3f} ms: {compiles.value - n0:.0f} graph "
+            f"compiles over K.c, overlay declines {declined}); both "
+            f"relationships of each in the engine's store, no lock left; a "
+            f"delete ({del_ms:.3f} ms) removed both halves; a user without "
+            f"view of the namespace refused (403)")
+
+        # -- K.d: a filtered watch while grants are written --
+        w = subjects[1]
+        for i in range(7):
+            kube.put("pods", f"a{i}", "kw")
+        s = socket.create_connection(("127.0.0.1", stack.port), timeout=60)
+        s.sendall(f"GET /api/v1/namespaces/kw/pods?watch=true HTTP/1.1\r\n"
+                  f"Host: x\r\nX-Remote-User: {w}\r\n\r\n".encode())
+        rf = s.makefile("rb")
+        check(b" 200 " in rf.readline(), "K.d: the watch was refused")
+        while rf.readline() not in (b"\r\n", b""):
+            pass
+        frames, arrived = [], []
+
+        def reader():
+            try:
+                while True:
+                    size = int(rf.readline().strip() or b"0", 16)
+                    if size == 0:
+                        return
+                    frames.append(json.loads(rf.read(size)))
+                    arrived.append(time.perf_counter())
+                    rf.readline()
+            except (OSError, ValueError):
+                return
+
+        th = threading.Thread(target=reader, daemon=True)
+        th.start()
+        time.sleep(0.5)
+        check(not frames, f"K.d: {w} got {len(frames)} frames before any "
+              "grant")
+        lat = []
+        with launches:
+            for i in range(5):
+                t0 = time.perf_counter()
+                e.write_relationships([WriteOp("touch", Relationship(
+                    "pod", f"kw/a{i}", "viewer", "user", w))])
+                while len(frames) <= i and time.perf_counter() < t0 + 30:
+                    time.sleep(0.0005)
+                check(len(frames) > i, f"K.d: no frame for kw/a{i} within "
+                      "30 s of its grant")
+                lat.append((arrived[i] - t0) * 1e3)
+            time.sleep(0.5)
+        s.close()
+        th.join(10)
+        got = [(f["type"], f["object"]["metadata"]["name"]) for f in frames]
+        ref = uncaveated_view_masks(
+            e.store, [w], time.time(), e.compiled().type_sizes["pod"],
+            pods=[f"kw/a{i}" for i in range(7)])[w]
+        pid = e._objects_by_name()["pod"].id_map()
+        vis = [f"a{i}" for i in range(7)
+               if pid.get(f"kw/a{i}", 0) > 1 and ref[pid[f"kw/a{i}"]]]
+        check(vis == [f"a{i}" for i in range(5)]
+              and got == [("ADDED", n) for n in vis],
+              f"K.d: delivered {got}, the reference allows {vis}")
+        log(f"phase K.d filtered watch on the pods of kw for {w} while 5 "
+            f"grants are written: frames {[n for _, n in got]} (each "
+            f"buffered ADDED event released by its grant, in grant order; "
+            f"the 2 ungranted pods never), as the columnar reference "
+            f"allows; write -> delivery p50 {pct(lat, 50):.3f} ms, max "
+            f"{max(lat):.3f} ms")
+
+        # -- K.e: 256 namespaced lists from 32 client threads --
+        pool = [f"u{x}" for x in rng.choice(N_USERS, N_TENANT_LISTS,
+                                              replace=False)]
+        seeded = sorted(n for (r, ns_, n) in kube.objects
+                        if r == "pods" and ns_ == "ns")
+        ref = uncaveated_view_masks(
+            e.store, pool, time.time(), e.compiled().type_sizes["pod"],
+            pods=[f"ns/{n}" for n in seeded])
+        exp = {u: sorted(n for n in seeded if ref[u][pid[f"ns/{n}"]])
+               for u in pool}
+
+        def burst(label):
+            res, lat2 = {}, []
+            lock = threading.Lock()
+
+            def worker(chunk):
+                c2 = stack.conn()
+                for u in chunk:
+                    t1 = time.perf_counter()
+                    r = k_call(c2, "GET", "/api/v1/namespaces/ns/pods", u)
+                    with lock:
+                        lat2.append((time.perf_counter() - t1) * 1e3)
+                        res[u] = r
+                c2.close()
+
+            ths = [threading.Thread(target=worker, args=(pool[i::32],))
+                   for i in range(32)]
+            with launches:
+                t1 = time.perf_counter()
+                for t in ths:
+                    t.start()
+                for t in ths:
+                    t.join(300)
+                el = time.perf_counter() - t1
+            for u in pool:
+                st, out = res[u]
+                check(st == 200 and sorted(names_of(out)) == exp[u],
+                      f"K.e {label}: {u}'s namespaced list differs")
+            log(f"phase K.e {label}: {len(pool)} namespaced pod lists "
+                f"(GET /api/v1/namespaces/ns/pods, distinct users) from 32 "
+                f"client threads over HTTP: {len(pool) / el:.1f} lists/s, "
+                f"p50 {pct(lat2, 50):.3f} ms, p99 {pct(lat2, 99):.3f} ms; "
+                f"every list equal to the columnar reference")
+
+        burst("batching off")
+        e.enable_lookup_batching(window=0.002, max_rows=8)
+        try:
+            burst("batching on (window 2 ms, max_rows 8)")
+        finally:
+            e.disable_lookup_batching()
+        conn.close()
+    finally:
+        stack.close()
+    torch.cuda.synchronize()
+    log(f"  proxy-path launches over K.a-K.e (the requests only): "
+        f"{launches.n}")
+    check(launches.n["bit_or_matmul"] > 0,
+          "bit_or_matmul was not launched on the proxy path")
+    return launches.n
+
+
+def proxy_cli_phase(torch, here: str) -> None:
+    """Phase K.f: ``python -m spicedb_kubeapi_proxy_tpu_torch.proxy.cli``
+    with no ``--device`` (so cuda), the repo's bootstrap and rules, and
+    ``--upstream-url`` at a port ``InMemoryKube`` this script serves on
+    loopback: alice creates a namespace and lists it, mallory gets []
+    and a 403, and SIGTERM ends it with exit 0."""
+    import asyncio
+    import http.client
+    import signal
+    import socket
+
+    from spicedb_kubeapi_proxy_tpu_torch.proxy.inmemkube import InMemoryKube
+    from spicedb_kubeapi_proxy_tpu_torch.proxy.server import (
+        _read_request,
+        _write_response,
+    )
+
+    kube = InMemoryKube()
+
+    async def conn_handler(reader, writer):
+        try:
+            while True:
+                req = await _read_request(reader)
+                if req is None:
+                    return
+                await _write_response(writer, await kube(req))
+        except (asyncio.IncompleteReadError, ConnectionResetError):
+            pass
+        finally:
+            writer.close()
+
+    lt = LoopThread()
+    srv = lt.run(asyncio.start_server(conn_handler, "127.0.0.1", 0))
+    up_port = srv.sockets[0].getsockname()[1]
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    root = os.path.join(here, "build", "proxy")
+    os.makedirs(root, exist_ok=True)
+    db = os.path.join(root, "cli-dtx.sqlite")
+    for f in (db, db + "-wal", db + "-shm"):
+        if os.path.exists(f):
+            os.unlink(f)
+    log_path = os.path.join(root, "cli.log")
+
+    def tail() -> str:
+        with open(log_path, errors="replace") as fh:
+            return fh.read()[-3000:]
+
+    with open(log_path, "w") as logf:
+        t0 = time.perf_counter()
+        p = subprocess.Popen(
+            [sys.executable, "-m", "spicedb_kubeapi_proxy_tpu_torch.proxy.cli",
+             "--rule-file", os.path.join(here, "deploy", "rules.yaml"),
+             "--bootstrap", os.path.join(here, "deploy", "bootstrap.yaml"),
+             "--upstream-url", f"http://127.0.0.1:{up_port}",
+             "--bind-port", str(port), "--workflow-database-path", db],
+            cwd=here, stdout=logf, stderr=subprocess.STDOUT)
+    try:
+        while True:
+            check(p.poll() is None, f"K.f: the proxy CLI exited during boot "
+                  f"({p.returncode}):\n{tail()}")
+            check(time.perf_counter() - t0 < 300, "K.f: no bind in 300 s")
+            try:
+                socket.create_connection(("127.0.0.1", port),
+                                         timeout=1).close()
+                break
+            except OSError:
+                time.sleep(0.05)
+        bind_s = time.perf_counter() - t0
+        c = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+        t1 = time.perf_counter()
+        st, out = k_call(c, "POST", "/api/v1/namespaces", "alice", {
+            "apiVersion": "v1", "kind": "Namespace",
+            "metadata": {"name": "k-team"}})
+        create_ms = (time.perf_counter() - t1) * 1e3
+        check(st == 201, f"K.f: alice's create answered {st}: {out!r}")
+        t1 = time.perf_counter()
+        st, out = k_call(c, "GET", "/api/v1/namespaces", "alice")
+        list_ms = (time.perf_counter() - t1) * 1e3
+        check(st == 200 and names_of(out) == ["k-team"],
+              f"K.f: alice's list {st} {out!r}")
+        st, out = k_call(c, "GET", "/api/v1/namespaces", "mallory")
+        check(st == 200 and names_of(out) == [],
+              f"K.f: mallory's list {st} {out!r}")
+        st, _ = k_call(c, "GET", "/api/v1/namespaces/k-team", "mallory")
+        check(st == 403, f"K.f: mallory's get answered {st}")
+        c.close()
+        check("engine on cuda" in tail(),
+              f"K.f: the CLI's engine is not on the card:\n{tail()}")
+        t1 = time.perf_counter()
+        p.send_signal(signal.SIGTERM)
+        rc = p.wait(120)
+        check(rc == 0, f"K.f: SIGTERM -> exit {rc}:\n{tail()}")
+        log(f"phase K.f the proxy CLI (no --device, so cuda; its log says "
+            f"engine on cuda) over a port InMemoryKube served on loopback: "
+            f"bind {bind_s:.2f} s after spawn; alice's namespace create "
+            f"{create_ms:.1f} ms and her first list {list_ms:.3f} ms (the "
+            f"graph's first compile and device build); mallory's list [] "
+            f"and get 403; SIGTERM -> exit 0 in "
+            f"{time.perf_counter() - t1:.2f} s")
+    finally:
+        if p.poll() is None:
+            p.kill()
+            p.wait(30)
+        srv.close()
+        lt.close()
+
+
+def proxy_caveat_lists(torch, e, here: str, subjects: list,
+                       masks: dict) -> dict:
+    """Phase 10i: phase 5's lists through the port's proxy on the
+    caveated cell under two ``X-Forwarded-For`` chains whose last hops
+    are 10b's allow-both and allow-first addresses; the kept names equal
+    10b's masks under the matching contexts. Returns both kernels'
+    launches over the requests."""
+    from spicedb_kubeapi_proxy_tpu_torch.ops import bitprop
+    from spicedb_kubeapi_proxy_tpu_torch.proxy.inmemkube import InMemoryKube
+
+    pods = e._objects_by_name()["pod"]
+    n_list = min(e.compiled().type_sizes["pod"] - 2, N_PODS)
+    body = pod_list_body(n_list)[0]
+    stack = KStack(e, k_rules(here), KUpstream(InMemoryKube(), body))
+    launches = Launches(bitprop)
+    hops = (("allow-both", "203.0.113.9, 10.1.2.3"),
+            ("allow-first", "10.1.2.3, 192.168.1.1"))
+    try:
+        conn = stack.conn()
+        k_call(conn, "GET", "/api/v1/pods", subjects[0])  # warm-up
+        for label, xff in hops:
+            ms = []
+            with ScanSpy() as spy, launches:
+                for u in subjects:
+                    t0 = time.perf_counter()
+                    st, out = k_call(conn, "GET", "/api/v1/pods", u,
+                                     headers={"X-Forwarded-For": xff})
+                    ms.append((time.perf_counter() - t0) * 1e3)
+                    check(st == 200, f"10i: {u}'s list answered {st}")
+                    want = [f"p{i}" for i in kept_from(masks[(label, u)],
+                                                       pods, n_list)]
+                    check(names_of(out) == want, f"10i: {u}'s list under "
+                          f"X-Forwarded-For {xff!r} differs from 10b's "
+                          f"{label} mask")
+            check(spy.scans == len(subjects) and spy.bails == 0
+                  and spy.fallbacks == 0, f"10i: native scans {spy.scans}, "
+                  f"bails {spy.bails}, Python path {spy.fallbacks}")
+            log(f"phase 10i caveated lists through the port's proxy, "
+                f"X-Forwarded-For {xff!r} (its last hop is 10b's {label} "
+                f"address): {len(subjects)} users, wall p50 "
+                f"{pct(ms, 50):.3f} ms, p99 {pct(ms, 99):.3f} ms; the kept "
+                f"names equal 10b's {label} masks; native scans "
+                f"{spy.scans}")
+        conn.close()
+    finally:
+        stack.close()
+    torch.cuda.synchronize()
+    check(launches.n["bit_or_matmul"] > 0,
+          "bit_or_matmul was not launched on 10i's proxy path")
+    return launches.n
+
+
 # phase 10's request contexts: the first both stored contexts allow, the
 # second only the first allows, and without one every caveated grant
 # fails closed (two instances, so two missing-context denials a call)
@@ -3239,9 +3946,10 @@ def vm_cost(torch, cg, context) -> dict:
 
 
 def caveat_phase(torch, dev, n_rels: int, subjects: list, items: list,
-                 bulk_users: list) -> dict:
+                 bulk_users: list, here: str) -> tuple:
     """Phase 10: the caveated mix at full width (see the module
-    docstring). Returns both kernels' launches over 10b-10c."""
+    docstring). Returns both kernels' launches over 10b-10c, and over
+    10i's proxy requests."""
     from spicedb_kubeapi_proxy_tpu_torch.engine import CheckItem, Engine
     from spicedb_kubeapi_proxy_tpu_torch.engine.evaluator import \
         OracleEvaluator
@@ -3377,6 +4085,9 @@ def caveat_phase(torch, dev, n_rels: int, subjects: list, items: list,
                       f"10d: forced pull differs for {u} under {label}")
     log(f"phase 10d forced pull: {3 * len(subjects)} masks identical to "
         "10b")
+
+    # -- 10i: the same lists through the port's proxy --
+    proxy_launches = proxy_caveat_lists(torch, e, here, subjects, masks)
 
     # -- 10e: the caveated oracle --
     t0 = time.perf_counter()
@@ -3576,7 +4287,7 @@ def caveat_phase(torch, dev, n_rels: int, subjects: list, items: list,
         {"bit_or_matmul_kernel": ("bit_or_matmul_kernel",),
          "its small-dual stream kernel": ("bit_or_matmul_stream_kernel",)},
         annotations=("caveat_vm",))
-    return launches
+    return launches, proxy_launches
 
 
 def main(argv=None) -> int:
@@ -3833,6 +4544,12 @@ def main(argv=None) -> int:
         p50, args.seed)
     log(f"phase M took {time.perf_counter() - t0:.1f} s")
 
+    # -- phase K: the proxy itself, on the headline engine and as the CLI
+    t0 = time.perf_counter()
+    proxy_launches = proxy_phase(torch, e, here, subjects, args.seed)
+    proxy_cli_phase(torch, here)
+    log(f"phase K took {time.perf_counter() - t0:.1f} s")
+
     # -- phase 10: the caveated mix, on a store of its own --
     del e, cg, d, objs, pods, fut, A, bits
     gc.collect()
@@ -3840,8 +4557,8 @@ def main(argv=None) -> int:
     log(f"  phase 3-9's engine released: {torch.cuda.memory_allocated()} "
         "device bytes still allocated")
     t0 = time.perf_counter()
-    caveat_launches = caveat_phase(torch, dev, args.n_rels, subjects, items,
-                                   bulk_users)
+    caveat_launches, proxy_cav_launches = caveat_phase(
+        torch, dev, args.n_rels, subjects, items, bulk_users, here)
     log(f"phase 10 took {time.perf_counter() - t0:.1f} s")
 
     out = []
@@ -3857,6 +4574,8 @@ def main(argv=None) -> int:
                     "tiered_path_launches": tiered_launches[kname],
                     "remote_path_launches": remote_launches[kname],
                     "migration_path_launches": migration_launches[kname],
+                    "proxy_path_launches": proxy_launches[kname]
+                    + proxy_cav_launches[kname],
                     "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                     "bound_by": r["bound_by"], "library_ms": r["library_ms"],

@@ -5,7 +5,8 @@ The same slot-space reachability fixpoint as ``spicedb_kubeapi_proxy_tpu``
 NVIDIA GPU: its two Pallas TPU kernels are hand-written CUDA kernels
 (``csrc/bitprop.cu``), everything else is plain tensor code. The layout
 mirrors the JAX package (``models/``, ``engine/``, ``ops/``, ``native/``,
-``utils/``) so each module's counterpart is easy to find.
+``utils/``, and the proxy in front of the engine: ``rules/``, ``authz/``,
+``dtx/``, ``proxy/``) so each module's counterpart is easy to find.
 
 This package imports ``torch`` and ``numpy`` and never ``jax`` or any
 module of the JAX package. Entry points run on ``cuda`` unless the

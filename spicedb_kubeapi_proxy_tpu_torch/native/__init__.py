@@ -1,7 +1,8 @@
 """ctypes loader for the native graph-builder core (graphcore.cpp).
 
 Host code, not a device kernel: it keeps a 10M-relationship bulk load and
-graph compile at tens of seconds. The shared library is built on first use
+graph compile at tens of seconds, and scans kube list bodies for the
+proxy's response filter (``authz/filterer.py``) without ``json.loads``. The shared library is built on first use
 with the system toolchain into the git-ignored ``build/native/`` directory.
 Every entry point degrades to a numpy fallback when the toolchain or
 library is unavailable, and ``SDBKP_NATIVE=0`` disables the native path
@@ -33,7 +34,7 @@ _load_failed = False
 
 # bumped together with graphcore_abi_version() in graphcore.cpp on ANY
 # exported-signature change; _bind refuses a mismatching cached .so
-_ABI_VERSION = 1
+_ABI_VERSION = 2
 
 
 def _build() -> bool:
@@ -83,6 +84,21 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         ctypes.c_int64,
         ctypes.POINTER(ctypes.c_uint64), ctypes.POINTER(ctypes.c_int64),
     ]
+    lib.json_list_spans.restype = ctypes.c_int64
+    lib.json_list_spans.argtypes = [
+        ctypes.c_char_p, ctypes.c_int64, ctypes.c_char_p,
+        ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int64),
+        ctypes.POINTER(ctypes.c_int64), ctypes.c_char_p,
+        ctypes.POINTER(ctypes.c_int64), ctypes.c_int64, ctypes.c_int64,
+    ]
+    lib.proto_list_spans.restype = ctypes.c_int64
+    lib.proto_list_spans.argtypes = [
+        ctypes.c_char_p, ctypes.c_int64,
+        ctypes.POINTER(ctypes.c_int64), ctypes.c_char_p,
+        ctypes.POINTER(ctypes.c_int64), ctypes.c_int64,
+    ]
+    lib.proto_table_spans.restype = ctypes.c_int64
+    lib.proto_table_spans.argtypes = lib.proto_list_spans.argtypes
     return lib
 
 
@@ -164,6 +180,91 @@ def index_build(rt, rid, rl, st, sid, srl):
         order.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
     )
     return hashes, order
+
+
+def json_list_spans(body: bytes, items_key: bytes = b"items",
+                    nested: bool = False):
+    """One-pass scan of a kube List response body (graphcore.cpp
+    json_list_spans): returns ``(kind, arr_span, item_spans, keys)`` —
+    kind as bytes (b"" when absent), spans as int64 arrays of byte
+    offsets into ``body`` (``arr_span[0] < 0`` when ``items_key`` is
+    absent), and ``keys`` as one packed bytes buffer of per-item records
+    ``[esc '0'|'1'] ns_raw 0x1f name_raw 0x1e`` (raw = undecoded string
+    content; JSON forbids unescaped control bytes, so the separators
+    cannot collide) — or None when the native path does not apply or the
+    scanner bailed (caller falls back to json.loads; the scanner is
+    strictly conservative). ``nested`` reads each item's metadata from
+    ``item["object"]`` instead of the item itself (Table rows)."""
+    lib = _load()
+    if lib is None or not isinstance(body, bytes) or not body:
+        return None
+    # every object item contains at least one '{': a cheap upper bound
+    max_items = body.count(b"{") + 1
+    kind_span = np.empty(2, dtype=np.int64)
+    arr_span = np.empty(2, dtype=np.int64)
+    item_spans = np.empty(2 * max_items, dtype=np.int64)
+    key_buf = ctypes.create_string_buffer(len(body) + 3 * max_items + 16)
+    key_len = ctypes.c_int64(0)
+    p64 = ctypes.POINTER(ctypes.c_int64)
+    count = lib.json_list_spans(
+        body, len(body), items_key,
+        kind_span.ctypes.data_as(p64), arr_span.ctypes.data_as(p64),
+        item_spans.ctypes.data_as(p64), key_buf,
+        ctypes.byref(key_len), 1 if nested else 0, max_items)
+    if count < 0:
+        return None
+    kind = body[kind_span[0]:kind_span[1]] if kind_span[0] >= 0 else b""
+    return (kind, arr_span, item_spans[:2 * count].reshape(-1, 2),
+            ctypes.string_at(key_buf, key_len.value))
+
+
+def proto_list_spans(raw: bytes):
+    """One-pass scan of a kube-protobuf *List MESSAGE (the Unknown
+    envelope's raw field): returns ``(item_spans, keys)`` — full-chunk
+    spans (tag included) of every repeated ``items`` element, and the
+    same packed key-record buffer the JSON scanner emits
+    (``'0' ns 0x1f name 0x1e``; first-occurrence field semantics like
+    kubeproto._field) — or None when the native path does not apply or
+    the scanner bailed (truncated wire data, control bytes or invalid
+    utf-8 in a name: the Python walker keeps authority)."""
+    return _proto_spans(raw, "proto_list_spans")
+
+
+def proto_table_spans(raw: bytes):
+    """Like :func:`proto_list_spans` but for a meta.k8s.io Table MESSAGE:
+    spans of repeated ``rows`` (field 3), keys from each row's
+    ``object`` RawExtension (nested magic-prefixed Unknown or bare
+    PartialObjectMetadata — kubeproto.table_row_meta semantics). Bails
+    when any row has no keyable object or an empty name (the Python
+    walker raises ProtoError there and keeps authority)."""
+    return _proto_spans(raw, "proto_table_spans")
+
+
+def _proto_spans(raw: bytes, fn_name: str):
+    lib = _load()
+    if lib is None or not isinstance(raw, bytes) or not raw:
+        return None
+    # start with a realistic bound (items are tens of bytes) and grow on
+    # the scanner's overflow code — a degenerate body of 2-byte items
+    # would otherwise force a huge upfront allocation
+    max_items = len(raw) // 64 + 1024
+    p64 = ctypes.POINTER(ctypes.c_int64)
+    fn = getattr(lib, fn_name)
+    while True:
+        item_spans = np.empty(2 * max_items, dtype=np.int64)
+        key_buf = ctypes.create_string_buffer(
+            len(raw) + 3 * max_items + 16)
+        key_len = ctypes.c_int64(0)
+        count = fn(
+            raw, len(raw), item_spans.ctypes.data_as(p64), key_buf,
+            ctypes.byref(key_len), max_items)
+        if count == -2 and max_items < len(raw) // 2 + 2:
+            max_items = min(max_items * 4, len(raw) // 2 + 2)
+            continue
+        if count < 0:
+            return None
+        return (item_spans[:2 * count].reshape(-1, 2),
+                ctypes.string_at(key_buf, key_len.value))
 
 
 def sort_perm(keys: np.ndarray) -> Optional[np.ndarray]:

@@ -335,6 +335,28 @@ for argv in (["--engine-insecure", "--device", "cpu", "--admission",
         raise AssertionError(argv)
     except SystemExit as ex:
         assert ex.code == 2, argv
+# the proxy (rules, authz, dtx, obs) on the port's engine: one dual-write
+# create and one prefiltered list through proxy/inmemory.py
+import json
+from spicedb_kubeapi_proxy_tpu_torch.proxy.options import Options
+from spicedb_kubeapi_proxy_tpu_torch.proxy.inmemkube import InMemoryKube
+from spicedb_kubeapi_proxy_tpu_torch.proxy.inmemory import InMemoryClient
+cfg = Options(rule_content=open("deploy/rules.yaml").read(), device="cpu",
+              upstream=InMemoryKube(), audit_log="stderr",
+              workflow_database_path=tempfile.mkdtemp() + "/dtx.sqlite"
+              ).complete()
+async def serve():
+    await cfg.workflow.resume_pending()
+    a = InMemoryClient(cfg.server.handle, user="alice")
+    r = await a.post("/api/v1/namespaces", {"metadata": {"name": "g"}})
+    assert r.status == 201, r.body
+    r = await a.get("/api/v1/namespaces")
+    assert [i["metadata"]["name"] for i in json.loads(r.body)["items"]] \
+        == ["g"], r.body
+    await cfg.workflow.shutdown()
+asyncio.run(serve())
+cfg.deps.audit.close()
+cfg.engine.close_compaction()
 bad = [m for m in sys.modules if m.split(".")[0] in
        ("jax", "jaxlib", "spicedb_kubeapi_proxy_tpu")]
 assert not bad, bad

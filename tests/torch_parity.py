@@ -183,3 +183,39 @@ def serving(server_cls, engine, **kw):
             loop.call_soon_threadsafe(loop.stop)
             thread.join(30)
             loop.close()
+
+
+def fake_kube_class(pkg: str):
+    """``tests/fake_kube.FakeKube`` over ``pkg``'s own ``InMemoryKube``
+    (that module subclasses the JAX package's; the port's tests need the
+    port's): failure injection and request recording, the same code."""
+    import importlib
+    from typing import Optional
+
+    base = importlib.import_module(pkg + ".proxy.inmemkube").InMemoryKube
+    types = importlib.import_module(pkg + ".proxy.types")
+
+    class FakeKube(base):
+        def __init__(self):
+            super().__init__()
+            self._fail_next: list = []  # (method | None, status, exc)
+            self.requests: list = []
+
+        def fail_next(self, n: int = 1, status: int = 500,
+                      exception: Optional[Exception] = None,
+                      method: Optional[str] = None):
+            for _ in range(n):
+                self._fail_next.append((method, status, exception))
+
+        async def __call__(self, req):
+            self.requests.append(req)
+            if self._fail_next:
+                method, status, exc = self._fail_next[0]
+                if method is None or method == req.method:
+                    self._fail_next.pop(0)
+                    if exc is not None:
+                        raise exc
+                    return types.kube_status(status, "injected failure")
+            return await super().__call__(req)
+
+    return FakeKube
