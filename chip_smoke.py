@@ -207,6 +207,36 @@ K. the proxy itself (the port's rules/, authz/, dtx/ and proxy/) on the
     lists through the port's proxy under two ``X-Forwarded-For`` chains
     whose last hops are (b)'s allow-both and allow-first addresses, the
     kept names equal to (b)'s masks under those contexts.
+X. scale-out (scaleout/, autoscale/), after phase 10's engine is released:
+   phase 3's rows with pod i re-keyed ``{its namespace}/p{i}`` (the shard
+   map partitions by an id's namespace part) over G engine groups, each
+   an ``Engine`` on the card behind an in-process ``EngineServer`` on
+   loopback, reached through ``RemoteEngine`` clients, with a
+   ``ShardedEngine`` and a ``SplitJournal`` in front. (a) G=2: phase
+   5's 31 subjects and 33 more listed through ``lookup_resources_mask``
+   (the gathered ids, mapped back, equal to their masks at phase 5's
+   state), 1,024 routed single checks (the scatter counter still) and
+   phase 6's 64 x 1,024 bulk check scatter-gathered (its verdicts),
+   device bytes a group; (b) on the reference bench's 10x shard point
+   with a quarter of its namespaces (5,000 x 12 pods, 512 users; the
+   compactor and the 4,096-slot overlay of the engine host's defaults on
+   each group), a live 2 -> 4 rebalance under a lister
+   (every list exact) and a writer every 10 ms (pod grants and
+   namespace grants, the latter journaled splits to every group): time
+   to commit, rows copied and GC'd, folds and recompiles by reason,
+   lists during the move, every acknowledged write read back from its
+   owning group; then (a) again at G=4 over the 10M store; (e) the
+   port's proxy from ``Options(shard_map=..., shard_journal_path=...)``
+   over those four hosts: 11 ``GET /api/v1/pods`` over the 100k-item
+   body re-keyed like the pods, each the planner's ids' items byte for
+   byte, and /readyz's sharding line; (c) groups re-keyed
+   ``gh{j}/g{j}`` so group#member partitions, the planner's frontier
+   exchange (max_rounds 8): the 64 lists equal to phase 5's, rounds,
+   boundary tuples and wire bytes; (d), run after (b) on its fleet: the
+   ``AutoscaleController`` in apply mode (max_groups=3, hysteresis 2,
+   no cooldown) proposing and driving 4 -> 3 under the lister and the
+   writer, list goodput with the mover paused and running, no
+   acknowledged write lost.
 
 Launch counts are zeroed just before phase 5 and read just after phase 6
 (the kernels JSON's ``launches``), and again around phases 9b-9c
@@ -221,7 +251,8 @@ the tally; R.e's subprocess proves its device through nvidia-smi and its
 answers; ``migration_path_launches``: the migrated engine's calls in
 M.a-M.b, its lister's and the host's included; ``proxy_path_launches``:
 the proxy's requests in K.a-K.e and 10i, the stages timed alone
-outside them). Both kernels must have run on every path
+outside them; ``scaleout_path_launches``: every group engine's calls in
+X.a-X.e). Both kernels must have run on every path
 (the persistence path runs lists only, and a check of the proxy path
 takes the engine's push or pull choice: their bit kernel). The bit kernel's row also carries its readings at the fused
 batch's inputs (``fused_inputs``). Any
@@ -337,7 +368,8 @@ def log(msg: str) -> None:
 
 
 def build_rows(n_pods: int, n_users: int, n_ns: int, n_groups: int,
-               n_rels: int, seed: int, cav_share: float = 0.0) -> dict:
+               n_rels: int, seed: int, cav_share: float = 0.0,
+               part_out: Optional[dict] = None) -> dict:
     """The headline rows, generated as bench.py's build_engine does:
     ~20 users per group, 2 group viewer grants per namespace, every pod
     in a namespace, and the rest flat pod#viewer@user. Unlike
@@ -347,12 +379,20 @@ def build_rows(n_pods: int, n_users: int, n_ns: int, n_groups: int,
     edge. ``cav_share`` > 0 is build_engine's caveated mesh mix (for
     MESH_SCHEMA): a nested chain of 6 groups (g1 in g0, ...) and that
     share of the flat grants carrying ``ip_allowlist``, alternating the
-    two MESH_CTXS stored contexts."""
+    two MESH_CTXS stored contexts.
+
+    ``part_out`` (a dict) receives what phase X re-keys the rows by
+    (``x_rows``, ``x_rekey_groups``): the pods' namespace indices
+    (``pod_ns``), each row's partition key (``key``: -1 for a global row,
+    k < n_ns for ``("ns{k}", "pod")``), the counts of the leading
+    group#member and namespace#viewer rows (``n_gm``, ``n_nv``) and the
+    pod index of each pod row after them (``pod_row``)."""
     rng = np.random.default_rng(seed)
     pods = np.char.add("ns/p", np.arange(n_pods).astype(str))
     users = np.char.add("u", np.arange(n_users).astype(str))
     groups = np.char.add("g", np.arange(n_groups).astype(str))
     nss = np.char.add("ns", np.arange(n_ns).astype(str))
+    part: list = []
     keys = ["resource_type", "resource_id", "relation",
             "subject_type", "subject_id", "subject_relation"]
     if cav_share > 0:
@@ -381,6 +421,7 @@ def build_rows(n_pods: int, n_users: int, n_ns: int, n_groups: int,
     g, u = first_draws(rng.integers(n_groups, size=gm),
                        rng.integers(n_users, size=gm), n_users)
     add("group", groups[g], "member", "user", users[u])
+    part.append(np.full(len(g), -1))
     if cav_share > 0:
         # a short nested-group chain: a cyclic-core range too sparse for
         # the dense-closure peel, so the fixpoint iterates a few hops
@@ -391,9 +432,12 @@ def build_rows(n_pods: int, n_users: int, n_ns: int, n_groups: int,
     n, g = first_draws(rng.integers(n_ns, size=nv),
                        rng.integers(n_groups, size=nv), n_groups)
     add("namespace", nss[n], "viewer", "group", groups[g], "member")
+    part.append(np.full(len(n), -1))
     gm, nv = len(u), len(n)
-    pod_ns = np.char.add("ns", rng.integers(n_ns, size=n_pods).astype(str))
+    pod_ns_idx = rng.integers(n_ns, size=n_pods)
+    pod_ns = np.char.add("ns", pod_ns_idx.astype(str))
     add("pod", pods, "namespace", "namespace", pod_ns)
+    part.append(pod_ns_idx)
     n_flat = n_rels - gm - nv - n_pods
     pair = rng.integers(0, n_pods * n_users, size=int(n_flat * 1.01),
                         dtype=np.int64)
@@ -408,6 +452,14 @@ def build_rows(n_pods: int, n_users: int, n_ns: int, n_groups: int,
                        "")
     add("pod", pods[pair // n_users], "viewer", "user",
         users[pair % n_users], cav=cav, ctx=ctx)
+    part.append(pod_ns_idx[pair // n_users])
+    if part_out is not None:
+        check(cav_share == 0, "partition keys of the uncaveated rows only")
+        part_out["pod_ns"] = pod_ns_idx
+        part_out["key"] = np.concatenate(part).astype(np.int64)
+        part_out["n_gm"], part_out["n_nv"] = gm, nv
+        part_out["pod_row"] = np.concatenate([np.arange(n_pods),
+                                              pair // n_users])
     return {k: np.concatenate(v) for k, v in cols.items()}
 
 
@@ -4290,6 +4342,805 @@ def caveat_phase(torch, dev, n_rels: int, subjects: list, items: list,
     return launches, proxy_launches
 
 
+# -- phase X: scale-out on the card -------------------------------------------
+
+# X.b and X.d's store: the reference bench's 10x shard point
+# (bench.py:2428-2433: 20,000 namespaces x 12 pods, 512 users, generated
+# as _shard_phase_at_scale does) with a quarter of its namespaces: moving
+# the whole point took X.b and X.d 195-238 s on the H100 (700 W), past
+# the ~150 s phase X is given in all
+X10_NS, X10_PODS_PER_NS, X10_USERS = 5_000, 12, 512
+X_VNODES = 64
+X_SUBJECTS = 64  # X.a and X.c's list subjects (phase 5's 31 and 33 more)
+X_PROXY_LISTS = 11  # X.e's GET /api/v1/pods
+X_LIST_GAP = 0.05  # X.b and X.d's lister: one list, then 50 ms
+
+
+def x_key_name(k: int) -> tuple:
+    """A partition key id of ``build_rows(part_out=...)`` as the shard
+    map's ``(namespace, resource type)``."""
+    return (f"ns{k}", "pod") if k < N_NS else (f"gh{k - N_NS}", "group")
+
+
+def pod_index(pid: str) -> int:
+    return int(pid.rsplit("/p", 1)[1])
+
+
+class Fleet:
+    """G engine groups on the card, each an ``Engine`` behind its own
+    in-process ``EngineServer`` on loopback (one loop thread for all),
+    reached through the port's ``RemoteEngine`` clients, and a port
+    ``ShardedEngine`` over them with a ``SplitJournal`` in ``root``.
+    ``cols`` holds each group's rows (a group with none starts empty)."""
+
+    def __init__(self, torch, dev, cols: list, schema: str, root: str,
+                 frontier=None, compaction: bool = False, spare: int = 0):
+        from concurrent.futures import ThreadPoolExecutor
+
+        from spicedb_kubeapi_proxy_tpu_torch.engine import Engine, remote
+        from spicedb_kubeapi_proxy_tpu_torch.models import parse_schema
+        from spicedb_kubeapi_proxy_tpu_torch.scaleout import (
+            ShardedEngine,
+            ShardMap,
+            SplitJournal,
+        )
+
+        torch.cuda.synchronize()
+        self.mem0 = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+
+        def build(c):
+            e = Engine(schema=parse_schema(schema), device=dev)
+            if c is not None and len(c["resource_id"]):
+                e.bulk_load(c)
+                e.compiled()._dev()
+            if compaction:
+                e.enable_compaction()
+            return e
+
+        # the groups' loads and compiles overlap (numpy releases the GIL)
+        with ThreadPoolExecutor(max_workers=len(cols)) as pool:
+            self.engines = list(pool.map(build, cols))
+        torch.cuda.synchronize()
+        self.build_s = time.perf_counter() - t0
+        self.mem1 = torch.cuda.memory_allocated()
+        self.lt = LoopThread()
+        self.servers, self.clients = [], []
+        for e in self.engines:
+            srv = remote.EngineServer(e)
+            self.lt.run(srv.start())
+            self.servers.append(srv)
+            self.clients.append(remote.RemoteEngine(
+                "127.0.0.1", srv.port, timeout=600))
+        n = len(cols) - spare
+        self.map = ShardMap(version=1, groups=tuple(
+            (("127.0.0.1", s.port),) for s in self.servers[:n]),
+            virtual_nodes=X_VNODES)
+        if os.path.isdir(root):
+            shutil.rmtree(root)
+        os.makedirs(root)
+        self.journal = SplitJournal(os.path.join(root, "sj.sqlite"))
+        self.planner = ShardedEngine(self.map, self.clients[:n],
+                                     journal=self.journal,
+                                     frontier=frontier)
+
+    def endpoints(self, n: int) -> tuple:
+        return tuple((("127.0.0.1", s.port),) for s in self.servers[:n])
+
+    def device_bytes(self) -> list:
+        return [e.compiled().device_bytes() for e in self.engines]
+
+    def close(self, torch) -> None:
+        self.planner.close()
+        for c in self.clients:
+            c.close()
+        for s in self.servers:
+            self.lt.run(s.stop())
+        self.lt.close()
+        for e in self.engines:
+            if e.compactor is not None:
+                e.close_compaction()
+        self.engines.clear()
+        self.servers.clear()
+        self.clients.clear()
+        self.planner = self.journal = None
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def x_partition(rows: dict, key: np.ndarray, smap) -> list:
+    """Each group's rows under ``smap``: the global rows (key -1) on
+    every group, the rest on their key's owner."""
+    owner = np.array([smap.shard_for(*x_key_name(k))
+                      for k in range(N_NS + N_GROUPS)], dtype=np.int64)
+    row_owner = np.where(key < 0, -1, owner[np.maximum(key, 0)])
+    out = []
+    for gi in range(smap.n_groups):
+        sel = np.flatnonzero((row_owner == -1) | (row_owner == gi))
+        out.append({k: v[sel] for k, v in rows.items()})
+    return out
+
+
+def x_rows(rows: dict, part: dict) -> dict:
+    """Phase 3's rows with pod i re-keyed ``ns{k}/p{i}`` (its namespace
+    k; the shard map partitions by an id's namespace part): the same
+    graph under a bijection of ids."""
+    pods = np.char.add(np.char.add(np.char.add(
+        "ns", part["pod_ns"].astype(str)), "/p"),
+        np.arange(len(part["pod_ns"])).astype(str))
+    start = part["n_gm"] + part["n_nv"]
+    rid = rows["resource_id"].astype(
+        f"U{max(16, rows['resource_id'].dtype.itemsize // 4)}")
+    rid[start:] = pods[part["pod_row"]]
+    return dict(rows, resource_id=rid)
+
+
+def x_rekey_groups(rows: dict, part: dict) -> tuple:
+    """``rows`` with group j named ``gh{j}/g{j}`` (group#member rows and
+    the namespace#viewer rows' subjects; a namespaced id, so group#member
+    partitions instead of replicating), and the partition keys that go
+    with it (n_ns + j for ``("gh{j}", "group")``)."""
+    n_gm, n_nv = part["n_gm"], part["n_nv"]
+    out = dict(rows)
+    rid = rows["resource_id"].copy()
+    width = max(10, rows["subject_id"].dtype.itemsize // 4)
+    sid = rows["subject_id"].astype(f"U{width}")
+    g_member = np.array([int(x[1:]) for x in rid[:n_gm]], dtype=np.int64)
+    g_viewer = np.array([int(x[1:]) for x in sid[n_gm:n_gm + n_nv]],
+                        dtype=np.int64)
+
+    def named(j):
+        return np.char.add(np.char.add(np.char.add("gh", j.astype(str)),
+                                       "/g"), j.astype(str))
+
+    rid[:n_gm] = named(g_member)
+    sid[n_gm:n_gm + n_nv] = named(g_viewer)
+    out["resource_id"], out["subject_id"] = rid, sid
+    key = part["key"].copy()
+    key[:n_gm] = N_NS + g_member
+    return out, key
+
+
+def x_headline_fleet(torch, dev, here: str, rows: dict, key: np.ndarray,
+                     n_groups: int, frontier=None, tag: str = "") -> tuple:
+    """The re-keyed headline rows partitioned over ``n_groups`` groups:
+    (fleet, rows a group)."""
+    from spicedb_kubeapi_proxy_tpu_torch.scaleout import ShardMap
+
+    t0 = time.perf_counter()
+    probe = ShardMap(version=1, groups=tuple(
+        (("127.0.0.1", 1 + gi),) for gi in range(n_groups)),
+        virtual_nodes=X_VNODES)  # ring points are keyed by group index
+    cols = x_partition(rows, key, probe)
+    part_s = time.perf_counter() - t0
+    fleet = Fleet(torch, dev, cols, BENCH_SCHEMA,
+                  os.path.join(here, "build", "scaleout", tag),
+                  frontier=frontier)
+    per_group = [len(c["resource_id"]) for c in cols]
+    del cols
+    gc.collect()
+    log(f"  {tag}: {n_groups} groups, rows {per_group} (the global rows "
+        f"on every group), partition {part_s:.2f} s, bulk_load + compile "
+        f"+ device build {fleet.build_s:.2f} s (the groups in parallel); "
+        f"device bytes held by the graphs {fleet.device_bytes()}, "
+        f"allocated {fleet.mem0} -> {fleet.mem1}")
+    return fleet, per_group
+
+
+def x_ops(metrics, op: str, mode: str) -> float:
+    return sum(metrics.counter("scaleout_ops_total", group=str(gi), op=op,
+                               mode=mode).value for gi in range(8))
+
+
+def x_mix(torch, fleet, label: str, ref: dict, pod_ns, launches) -> dict:
+    """X.a's mix on a fleet: the list filters of ``ref``'s 64 subjects
+    (gathered ids mapped back to pod indices, equal to phase 5's masks),
+    1,024 routed single checks (no scatter) and the 64 x 1,024 bulk
+    check scatter-gathered (equal to phase 6's verdicts)."""
+    from spicedb_kubeapi_proxy_tpu_torch.engine import CheckItem
+    from spicedb_kubeapi_proxy_tpu_torch.utils.metrics import metrics
+
+    p = fleet.planner
+
+    def rekey(it):
+        i = pod_index(it.resource_id)
+        return CheckItem("pod", f"ns{pod_ns[i]}/p{i}", it.permission,
+                         it.subject_type, it.subject_id)
+
+    items = [rekey(it) for it in ref["items"]]
+    p.lookup_resources_mask("pod", "view", "user", ref["subjects"][0])
+    p.check_bulk(items[:64])
+    lat = []
+    with launches:
+        for u in ref["subjects"]:
+            t0 = time.perf_counter()
+            mask, ids = p.lookup_resources_mask("pod", "view", "user", u)
+            lat.append((time.perf_counter() - t0) * 1e3)
+            got = np.sort(np.array([pod_index(ids.string(i))
+                                    for i in np.flatnonzero(mask)],
+                                   dtype=np.int64))
+            check(np.array_equal(got, ref["masks"][u]),
+                  f"{label}: {u}'s gathered list differs from phase 5's "
+                  f"mask ({len(got)} ids, {len(ref['masks'][u])} wanted)")
+    sc0 = x_ops(metrics, "check_bulk", "scatter")
+    single = []
+    with launches:
+        for k, it in enumerate(items[:1024]):
+            t0 = time.perf_counter()
+            v = p.check(it)
+            single.append((time.perf_counter() - t0) * 1e3)
+            check(v == ref["verdicts"][k],
+                  f"{label}: routed check {k} disagrees with phase 6")
+    check(x_ops(metrics, "check_bulk", "scatter") == sc0,
+          f"{label}: a routed single check scattered")
+    rates = []
+    with launches:
+        for _ in range(3):
+            t0 = time.perf_counter()
+            got = p.check_bulk(items)
+            rates.append(len(items) / (time.perf_counter() - t0))
+            check(got == ref["verdicts"],
+                  f"{label}: the scatter-gathered bulk check differs from "
+                  "phase 6's verdicts")
+    out = {"list_p50": pct(lat, 50), "list_p99": pct(lat, 99),
+           "check_p50": pct(single, 50), "checks_per_s": float(
+               np.median(rates))}
+    log(f"  {label} lists: {len(lat)} subjects, "
+        f"lookup_resources_mask scatter-gathered over "
+        f"{len(p.groups)} groups: p50 {out['list_p50']:.3f} ms, p99 "
+        f"{out['list_p99']:.3f} ms; every list equal to phase 5's mask "
+        f"under the re-key; 1,024 routed single checks p50 "
+        f"{out['check_p50']:.3f} ms (scatter counter unchanged, verdicts "
+        f"equal phase 6's); bulk 64 x 1,024 scatter-gathered "
+        f"{out['checks_per_s']:,.0f} checks/s (median of 3, min "
+        f"{min(rates):,.0f}), equal to phase 6's verdicts")
+    return out
+
+
+def x10_rows() -> tuple:
+    """The reference bench's 10x shard point: ``(ns_viewer, pod_rows)``,
+    drawn as bench.py's _shard_phase_at_scale draws them (seed 7)."""
+    rng = np.random.default_rng(7)
+    ns_viewer = [(f"ns{i}", f"u{int(rng.integers(X10_USERS))}")
+                 for i in range(X10_NS)]
+    pod_rows = []
+    for i in range(X10_NS):
+        for p in range(X10_PODS_PER_NS):
+            pod_rows.append((f"ns{i}/p{p}", f"ns{i}",
+                             f"u{int(rng.integers(X10_USERS))}"))
+    return ns_viewer, pod_rows
+
+
+def x10_cols(ns_viewer, pod_rows, smap, gi) -> dict:
+    cols = {k: [] for k in ("resource_type", "resource_id", "relation",
+                            "subject_type", "subject_id",
+                            "subject_relation")}
+
+    def add(rt, rid, rl, st, sid):
+        for k, v in zip(cols, (rt, rid, rl, st, sid, "")):
+            cols[k].append(v)
+
+    for ns, u in ns_viewer:
+        add("namespace", ns, "viewer", "user", u)
+    for pid, ns, u in pod_rows:
+        if smap.shard_of("pod", pid) == gi:
+            add("pod", pid, "namespace", "namespace", ns)
+            add("pod", pid, "viewer", "user", u)
+    return {k: np.asarray(v) for k, v in cols.items()}
+
+
+class XTraffic:
+    """X.b and X.d's load: a lister (its subjects' lists held exact
+    against the reference on every call, latencies kept; 50 ms between
+    lists) and a writer
+    that writes every 10 ms, alternating a pod grant (one group) and a
+    namespace grant (every group: a journaled split), for fresh subjects
+    ``xw{n}``; acknowledged writes are kept, a write shed by the overlay's
+    back-pressure is retried, and one that raised a type in ``race_ok``
+    (X.d: the IndexError of a split write whose later leg a shrink's
+    commit took out of the planner's groups) is kept as never
+    acknowledged, for ``verify`` to hold all-or-none; any other error
+    fails the phase."""
+
+    def __init__(self, planner, want: dict, ns_pods: dict, tag: str,
+                 seed: int, race_ok: tuple = ()):
+        from spicedb_kubeapi_proxy_tpu_torch.engine.store import WriteOp
+        from spicedb_kubeapi_proxy_tpu_torch.models.tuples import \
+            Relationship
+
+        self.p, self.want, self.ns_pods, self.tag = (planner, want,
+                                                     ns_pods, tag)
+        self.WriteOp, self.Rel = WriteOp, Relationship
+        self.rng = np.random.default_rng(seed)
+        self.stop = threading.Event()
+        self.lat: list = []
+        self.lists = 0
+        self.bad: list = []
+        self.acked: list = []  # (kind, namespace, pod id or None, subject)
+        self.rejected = 0
+        self.race_ok = race_ok
+        self.failed: list = []  # as ``acked``, and the error
+        self.errors: list = []
+        self.n = 0
+        self.threads = [threading.Thread(target=self._guard, args=(f,),
+                                         daemon=True)
+                        for f in (self._lister, self._writer)]
+
+    def start(self) -> "XTraffic":
+        for t in self.threads:
+            t.start()
+        return self
+
+    def _guard(self, fn) -> None:
+        try:
+            fn()
+        except BaseException as ex:  # noqa: BLE001 - surfaced by finish
+            self.errors.append(repr(ex))
+
+    def _lister(self) -> None:
+        users = sorted(self.want)
+        k = 0
+        while not self.stop.is_set():
+            u = users[k % len(users)]
+            t0 = time.perf_counter()
+            got = self.p.lookup_resources("pod", "view", "user", u)
+            self.lat.append((time.perf_counter() - t0) * 1e3)
+            if sorted(got) != self.want[u]:
+                g, w = set(got), set(self.want[u])
+                self.bad.append((u, sorted(g - w)[:3], sorted(w - g)[:3]))
+            self.lists += 1
+            k += 1
+            self.stop.wait(X_LIST_GAP)
+
+    def _writer(self) -> None:
+        from spicedb_kubeapi_proxy_tpu_torch.admission import \
+            AdmissionRejected
+
+        nss = sorted(self.ns_pods)
+        while not self.stop.is_set():
+            n = self.n
+            ns = nss[int(self.rng.integers(len(nss)))]
+            subj = f"xw{self.tag}{n}"
+            if n % 2 == 0:
+                pid = self.ns_pods[ns][int(self.rng.integers(
+                    len(self.ns_pods[ns])))]
+                rel = self.Rel("pod", pid, "viewer", "user", subj)
+            else:
+                pid = None
+                rel = self.Rel("namespace", ns, "viewer", "user", subj)
+            try:
+                self.p.write_relationships([self.WriteOp("touch", rel)])
+            except AdmissionRejected as ex:
+                # the overlay's back-pressure (the compactor folds): not
+                # acknowledged, retried as the next write
+                self.rejected += 1
+                self.stop.wait(min(1.0, ex.retry_after or 0.05))
+                continue
+            except self.race_ok as ex:
+                self.failed.append(("pod" if pid else "namespace", ns, pid,
+                                    subj, repr(ex)))
+                self.n += 1
+                continue
+            self.acked.append(("pod" if pid else "namespace", ns, pid,
+                               subj))
+            self.n += 1
+            self.stop.wait(0.01)
+
+    def finish(self) -> None:
+        self.stop.set()
+        for t in self.threads:
+            t.join(300)
+            check(not t.is_alive(), f"X.{self.tag}: a traffic thread hung")
+        check(not self.errors, f"X.{self.tag}: traffic failed: "
+              f"{self.errors[:2]}")
+        check(not self.bad, f"X.{self.tag}: {len(self.bad)} of "
+              f"{self.lists} lists were not exact (first {self.bad[:3]})")
+
+    def held(self, kind: str, ns: str, pid, subj: str) -> list:
+        """Whether each owning group (every group for a namespace grant)
+        holds the write."""
+        from spicedb_kubeapi_proxy_tpu_torch.engine import \
+            RelationshipFilter
+
+        p = self.p
+        if kind == "pod":
+            f = RelationshipFilter(resource_type="pod", resource_id=pid,
+                                   relation="viewer", subject_id=subj)
+            owners = [p.map.shard_for(ns, "pod")]
+        else:
+            f = RelationshipFilter(resource_type="namespace",
+                                   resource_id=ns, relation="viewer",
+                                   subject_id=subj)
+            owners = range(len(p.groups))
+        return [bool(p.groups[gi].read_relationships(f)) for gi in owners]
+
+    def verify(self) -> None:
+        """Every acknowledged write read back from its owning group (a
+        namespace grant from every group), and its subject's list exact;
+        after the journal's replay of any split left pending, each
+        unacknowledged write on all of its owners or on none."""
+        p = self.p
+        replayed = p.recover_splits() if self.failed else 0
+        check(not p.journal.pending_count(),
+              f"X.{self.tag}: {p.journal.pending_count()} splits still "
+              "pending after the journal's replay")
+        for kind, ns, pid, subj in self.acked:
+            held = self.held(kind, ns, pid, subj)
+            check(all(held), f"X.{self.tag}: acknowledged write {kind} "
+                  f"{ns} {subj} is missing on groups "
+                  f"{[gi for gi, h in enumerate(held) if not h]}")
+        for kind, ns, pid, subj, err in self.failed:
+            held = self.held(kind, ns, pid, subj)
+            check(all(held) or not any(held), f"X.{self.tag}: the "
+                  f"unacknowledged write {kind} {ns} {subj} ({err}) is on "
+                  f"groups {held} after {replayed} replays: half applied")
+        for kind, ns, pid, subj in self.acked[-24:]:
+            want = [pid] if kind == "pod" else sorted(self.ns_pods[ns])
+            check(sorted(p.lookup_resources("pod", "view", "user", subj))
+                  == sorted(want), f"X.{self.tag}: {subj}'s list after "
+                  "the commit is not exact")
+
+
+def x_engine_counts(metrics) -> dict:
+    reasons = ("overflow", "stratification-inversion", "closured-expiry",
+               "closured-caveat", "caveat", "history-trimmed", "unlogged",
+               "layout", "unstratified")
+    return {"compiles": metrics.counter("engine_graph_compiles_total").value,
+            "folds": metrics.counter("engine_compactions_total").value,
+            "incremental": metrics.counter(
+                "engine_graph_incremental_updates_total").value,
+            **{f"fallback:{r}": metrics.counter(
+                "engine_graph_incremental_fallback_total",
+                reason=r).value for r in reasons}}
+
+
+def x_delta(after: dict, before: dict) -> dict:
+    return {k: after[k] - before[k] for k in after
+            if after[k] - before[k]}
+
+
+def x_rebalance(torch, dev, here: str, seed: int, launches) -> None:
+    """X.b (a live 2 -> 4 grow) and X.d (the autoscaler's 4 -> 3 shrink)
+    on the 10x shard point, under a lister and a writer."""
+    from spicedb_kubeapi_proxy_tpu_torch.autoscale import (
+        AutoscaleController,
+        AutoscalePolicy,
+        parse_policy,
+    )
+    from spicedb_kubeapi_proxy_tpu_torch.engine import remote
+    from spicedb_kubeapi_proxy_tpu_torch.scaleout import ShardMap
+    from spicedb_kubeapi_proxy_tpu_torch.utils.metrics import metrics
+
+    t0 = time.perf_counter()
+    ns_viewer, pod_rows = x10_rows()
+    want_sets: dict = {}
+    ns_pods: dict = {}
+    for pid, ns, u in pod_rows:
+        ns_pods.setdefault(ns, []).append(pid)
+        want_sets.setdefault(u, set()).add(pid)
+    for ns, u in ns_viewer:
+        want_sets.setdefault(u, set()).update(ns_pods[ns])
+    lister_users = [f"u{k}" for k in range(16)]
+    want = {u: sorted(want_sets.get(u, ())) for u in lister_users}
+    probe = ShardMap(version=1, groups=tuple(
+        (("127.0.0.1", 1 + gi),) for gi in range(2)),
+        virtual_nodes=X_VNODES)
+    cols = [x10_cols(ns_viewer, pod_rows, probe, gi) for gi in range(2)]
+    cols += [None, None]  # groups 2 and 3 start empty
+    gen_s = time.perf_counter() - t0
+    fleet = Fleet(torch, dev, cols, BENCH_SCHEMA,
+                  os.path.join(here, "build", "scaleout", "x10"),
+                  compaction=True, spare=2)
+    p = fleet.planner
+    n_rows = len(ns_viewer) + 2 * len(pod_rows)
+    log(f"phase X.b the 10x shard point (bench.py:2428-2433) with a "
+        f"quarter of its namespaces: {X10_NS} "
+        f"namespaces x {X10_PODS_PER_NS} pods, {X10_USERS} users, "
+        f"{n_rows} relationships), groups 0-1 loaded (rows "
+        f"{[len(c['resource_id']) for c in cols[:2]]}), groups 2-3 empty, "
+        f"the compactor on each and overlays of "
+        f"{fleet.engines[0]._delta_capacity} slots (the engine host's "
+        f"defaults: the mover writes at most "
+        f"{remote.mover_chunk_cap(fleet.engines[0])} rows at a time "
+        f"into a compiled group); rows "
+        f"{gen_s:.2f} s, build {fleet.build_s:.2f} s")
+    del cols
+    for u in lister_users[:2]:
+        check(sorted(p.lookup_resources("pod", "view", "user", u))
+              == want[u], f"X.b: {u}'s list before the move")
+    target = ShardMap(version=2, groups=fleet.endpoints(4),
+                      virtual_nodes=X_VNODES)
+    c0 = x_engine_counts(metrics)
+    m0 = {k: metrics.counter(k).value for k in (
+        "scaleout_rebalance_copied_rows_total",
+        "scaleout_rebalance_gc_rows_total",
+        "scaleout_rebalance_replayed_events_total",
+        "scaleout_rebalance_dual_writes_total",
+        "scaleout_rebalance_shed_backoff_total",
+        "scaleout_split_writes_total")}
+    traffic = XTraffic(p, want, ns_pods, "b", seed + 700).start()
+    time.sleep(0.5)  # the traffic's baseline before the move
+    base_lists = traffic.lists
+    with launches:
+        t1 = time.perf_counter()
+        coord = p.begin_rebalance(target, new_clients={
+            2: fleet.clients[2], 3: fleet.clients[3]})
+        lat0 = len(traffic.lat)
+        check(coord.wait(900), "X.b: the move did not finish")
+        commit_s = time.perf_counter() - t1
+        move_lat = traffic.lat[lat0:]
+        traffic.finish()
+    check(coord.error is None, f"X.b: the mover failed: {coord.error}")
+    check(not traffic.failed, f"X.b: writes failed during the grow: "
+          f"{traffic.failed[:2]}")
+    check(p.map.version == 2 and len(p.groups) == 4,
+          "X.b: the planner did not commit the 4-group map")
+    moved = {k: metrics.counter(k).value - v for k, v in m0.items()}
+    counts = x_delta(x_engine_counts(metrics), c0)
+    traffic.verify()
+    doc = fleet.journal.load_transition()
+    check(doc is not None and doc["phase"] == "done",
+          f"X.b: the journal's transition is {doc and doc['phase']}")
+    log(f"  X.b online rebalance 2 -> 4 (map v1 -> v2, "
+        f"{len(p._archived_transitions[-1].slices)} slices): commit "
+        f"{commit_s:.2f} s after begin_rebalance, rows copied "
+        f"{moved['scaleout_rebalance_copied_rows_total']:.0f}, GC'd "
+        f"{moved['scaleout_rebalance_gc_rows_total']:.0f}, catch-up "
+        f"events {moved['scaleout_rebalance_replayed_events_total']:.0f}, "
+        f"dual writes {moved['scaleout_rebalance_dual_writes_total']:.0f}, "
+        f"mover back-offs "
+        f"{moved['scaleout_rebalance_shed_backoff_total']:.0f}; engine "
+        f"counts over the move (all groups) {counts}")
+    log(f"  X.b traffic during the move: {len(move_lat)} lists p50 "
+        f"{pct(move_lat, 50):.3f} ms p99 {pct(move_lat, 99):.3f} ms (before "
+        f"it: {base_lists} lists in 0.5 s), every list exact; the writer: "
+        f"{len(traffic.acked)} acknowledged writes "
+        f"({sum(a[0] == 'namespace' for a in traffic.acked)} namespace "
+        f"grants as journaled splits, "
+        f"{moved['scaleout_split_writes_total']:.0f} splits journaled), "
+        f"{traffic.rejected} shed by the overlay's back-pressure and "
+        f"retried, 0 failed; every "
+        f"acknowledged write read back from its owning "
+        f"group(s) after the commit, the last 24 writers' lists exact; "
+        f"journal phase {doc['phase']}")
+
+    # -- X.d: the autoscaler shrinks 4 -> 3 under load --
+    ctl = AutoscaleController(p, AutoscalePolicy(parse_policy(
+        "max_groups=3,hysteresis_ticks=2,cooldown_seconds=0")),
+        mode="apply", coordinator_cfg={"pace_seconds": 0.02})
+    c0 = x_engine_counts(metrics)
+    traffic = XTraffic(p, want, ns_pods, "d", seed + 701,
+                       race_ok=(IndexError,)).start()
+    time.sleep(0.3)
+    paused, running = [], []
+    with launches:
+        sig = ctl.collect_signals()
+        check(ctl.tick(now=0.0) is None, "X.d: a proposal on the first tick "
+              "(hysteresis 2)")
+        prop = ctl.tick(now=1.0)
+        check(prop is not None and (prop.action, prop.target_groups)
+              == ("shrink", 3), f"X.d: the proposal was {prop}")
+        coord = p._coordinator
+        t1 = time.perf_counter()
+
+        def window(sec=2.0) -> float:
+            n0, w0 = traffic.lists, time.perf_counter()
+            time.sleep(sec)
+            return (traffic.lists - n0) / (time.perf_counter() - w0)
+
+        for _ in range(3):
+            if coord._done.is_set():
+                break
+            coord.pause()
+            time.sleep(0.1)
+            paused.append(window())
+            coord.resume()
+            if coord._done.is_set():
+                break
+            running.append(window())
+        coord.resume()
+        check(coord.wait(900), "X.d: the shrink did not finish")
+        shrink_s = time.perf_counter() - t1
+        traffic.finish()
+    check(coord.error is None, f"X.d: the shrink failed: {coord.error}")
+    check(p.map.version == 3 and len(p.groups) == 3,
+          "X.d: the planner did not commit the 3-group map")
+    traffic.verify()
+    st = ctl.status()
+    counts = x_delta(x_engine_counts(metrics), c0)
+    log(f"phase X.d the autoscaler, apply mode, policy max_groups=3,"
+        f"hysteresis_ticks=2,cooldown_seconds=0: signals {sig}; tick 1 "
+        f"nothing, tick 2 proposed {prop.action} -> {prop.target_groups} "
+        f"({prop.reason}); the transition committed map v3 with 3 groups "
+        f"{shrink_s:.2f} s later (status {st}); list goodput paused "
+        f"{[round(x, 1) for x in paused]} vs running "
+        f"{[round(x, 1) for x in running]} lists/s; "
+        f"{len(traffic.acked)} acknowledged writes, none lost "
+        f"({traffic.rejected} shed and retried, {len(traffic.failed)} "
+        f"split writes caught by the commit, each on all of its groups "
+        f"or none after the journal's replay {traffic.failed[:2]}); "
+        f"every list exact; "
+        f"engine counts {counts}")
+    fleet.close(torch)
+
+
+def x_frontier(torch, dev, here: str, rows: dict, part: dict, ref: dict,
+               launches) -> None:
+    """X.c: groups re-keyed ``gh{j}/g{j}`` so group#member partitions;
+    the planner's frontier exchange (max_rounds 8) closes each subject's
+    memberships across the groups."""
+    from spicedb_kubeapi_proxy_tpu_torch.scaleout import FrontierConfig
+    from spicedb_kubeapi_proxy_tpu_torch.utils.metrics import metrics
+
+    t0 = time.perf_counter()
+    rows_c, key_c = x_rekey_groups(rows, part)
+    log(f"  X.c: groups re-keyed in {time.perf_counter() - t0:.2f} s")
+    fleet, _ = x_headline_fleet(
+        torch, dev, here, rows_c, key_c, 2,
+        frontier=FrontierConfig(max_rounds=8), tag="X.c")
+    del rows_c, key_c
+    p = fleet.planner
+    p.lookup_resources("pod", "view", "user", ref["subjects"][0])
+
+    def counters():
+        h = metrics.hist_snapshot("scaleout_frontier_rounds") or {}
+        return {"rounds": h.get("total", 0.0), "exchanges": h.get("n", 0),
+                "boundary": metrics.counter(
+                    "scaleout_frontier_boundary_tuples_total").value,
+                "scatter_bytes": metrics.counter(
+                    "scaleout_frontier_wire_bytes_total",
+                    direction="scatter").value,
+                "gather_bytes": metrics.counter(
+                    "scaleout_frontier_wire_bytes_total",
+                    direction="gather").value,
+                "exhausted": metrics.counter(
+                    "scaleout_frontier_exchanges_total",
+                    outcome="budget-exhausted").value}
+
+    c0 = counters()
+    lat = []
+    with launches:
+        for u in ref["subjects"]:
+            t0 = time.perf_counter()
+            mask, ids = p.lookup_resources_mask("pod", "view", "user", u)
+            lat.append((time.perf_counter() - t0) * 1e3)
+            got = np.sort(np.array([pod_index(ids.string(i))
+                                    for i in np.flatnonzero(mask)],
+                                   dtype=np.int64))
+            check(np.array_equal(got, ref["masks"][u]),
+                  f"X.c: {u}'s list through the frontier exchange differs "
+                  f"from phase 5's mask ({len(got)} ids, "
+                  f"{len(ref['masks'][u])} wanted)")
+    d = {k: v - c0[k] for k, v in counters().items()}
+    check(d["exhausted"] == 0 and d["exchanges"] >= len(ref["subjects"]),
+          f"X.c: frontier counters {d}")
+    log(f"phase X.c frontier exchange (groups as gh{{j}}/g{{j}}: "
+        f"group#member on one group each; FrontierConfig(max_rounds=8)): "
+        f"{len(lat)} lists p50 {pct(lat, 50):.3f} ms p99 "
+        f"{pct(lat, 99):.3f} ms, every list equal to phase 5's mask; "
+        f"{d['exchanges']} exchanges, {d['rounds']:.0f} rounds "
+        f"({d['rounds'] / max(1, d['exchanges']):.2f} an exchange), "
+        f"{d['boundary']:.0f} boundary tuples, wire bytes scatter "
+        f"{d['scatter_bytes']:.0f} / gather {d['gather_bytes']:.0f}, 0 "
+        f"budget-exhausted")
+    fleet.close(torch)
+
+
+def x_proxy(torch, here: str, fleet, pod_ns, ref: dict, launches) -> None:
+    """X.e: the port's proxy built by ``Options.complete()`` with
+    ``shard_map`` and ``shard_journal_path`` over the four hosts,
+    ``GET /api/v1/pods`` over a 100k-item body re-keyed like the pods."""
+    from spicedb_kubeapi_proxy_tpu_torch.proxy.inmemkube import InMemoryKube
+    from spicedb_kubeapi_proxy_tpu_torch.proxy.options import Options
+
+    head = (b'{"kind": "PodList", "apiVersion": "v1", "metadata": '
+            b'{"resourceVersion": "1"}, "items": [')
+    items = [json.dumps({"apiVersion": "v1", "kind": "Pod", "metadata": {
+        "name": f"p{i}", "namespace": f"ns{pod_ns[i]}"}}).encode()
+        for i in range(N_PODS)]
+    tail = b"]}"
+    body = head + b", ".join(items) + tail
+    root = os.path.join(here, "build", "scaleout", "X.e")
+    smap = json.dumps({"version": 1, "groups": [
+        [f"{h}:{pt}" for h, pt in g] for g in fleet.map.groups],
+        "virtual_nodes": X_VNODES})
+    cfg = Options(shard_map=smap,
+                  shard_journal_path=os.path.join(root, "sj.sqlite"),
+                  engine_insecure=True, rule_content=k_rules(here),
+                  upstream=KUpstream(InMemoryKube(), body),
+                  workflow_database_path=os.path.join(root, "dtx.sqlite"),
+                  bind_port=0).complete()
+    lt = LoopThread()
+    try:
+        lt.run(cfg.run())
+        import http.client
+
+        conn = http.client.HTTPConnection("127.0.0.1", cfg.server.port,
+                                          timeout=300)
+        st, ready = k_call(conn, "GET", "/readyz?verbose=1", "x")
+        line = next((ln for ln in ready.decode().splitlines()
+                     if "sharding:" in ln), None)
+        check(st == 200 and line is not None
+              and "groups=4 map_version=1" in line,
+              f"X.e: /readyz answered {st} without the sharding line")
+        k_call(conn, "GET", "/api/v1/pods", ref["subjects"][0])  # warm-up
+        wall = []
+        for u in ref["subjects"][:X_PROXY_LISTS]:
+            with launches:
+                t0 = time.perf_counter()
+                st, out = k_call(conn, "GET", "/api/v1/pods", u)
+                wall.append((time.perf_counter() - t0) * 1e3)
+            check(st == 200, f"X.e: {u}'s list answered {st}")
+            ids = fleet.planner.lookup_resources("pod", "view", "user", u)
+            keep = sorted(pod_index(x) for x in ids)
+            check(keep == ref["masks"][u].tolist(),
+                  f"X.e: the planner's ids for {u} are not phase 5's")
+            exp = head + b",".join(items[i] for i in keep) + tail
+            check(out == exp, f"X.e: {u}'s list is not the upstream's "
+                  f"{len(keep)} kept items byte for byte")
+        conn.close()
+        log(f"phase X.e the port's proxy with --shard-map over the 4 hosts "
+            f"(Options.complete(): a ShardedEngine of RemoteEngine clients "
+            f"and a SplitJournal): {X_PROXY_LISTS} GET /api/v1/pods over "
+            f"a {len(body)}-byte {N_PODS}-item body re-keyed like the "
+            f"pods, wall p50 {pct(wall, 50):.3f} ms p99 "
+            f"{pct(wall, 99):.3f} ms; each list the planner's ids' items "
+            f"byte for byte; /readyz: {line.strip()}")
+    finally:
+        lt.run(cfg.server.stop(grace=1.0))
+        lt.run(cfg.workflow.shutdown())
+        cfg.engine.close()
+        lt.close()
+
+
+def scaleout_phase(torch, dev, here: str, seed: int, base: tuple,
+                   ref: dict) -> dict:
+    """Phase X: scale-out on the card (see the module docstring).
+    ``base``: phase 3's rows and their ``build_rows`` partition keys;
+    ``ref``: the 64 subjects, their phase-5 masks as pod indices, phase
+    6's items and verdicts. Returns both kernels' launches over X's
+    calls."""
+    from spicedb_kubeapi_proxy_tpu_torch.ops import bitprop
+
+    part = base[1]
+    launches = Launches(bitprop)
+    t_all = time.perf_counter()
+    t0 = time.perf_counter()
+    log(f"phase X scale-out: device bytes allocated before it "
+        f"{torch.cuda.memory_allocated()}")
+    rows = x_rows(*base)
+    pod_ns = part["pod_ns"]
+    log(f"  the re-keyed headline rows ({len(rows['resource_id'])}) in "
+        f"{time.perf_counter() - t0:.2f} s")
+    fleet, _ = x_headline_fleet(torch, dev, here, rows, part["key"], 2,
+                                tag="X.a")
+    x_mix(torch, fleet, "X.a (G=2)", ref, pod_ns, launches)
+    fleet.close(torch)
+    log(f"  X.a took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    x_rebalance(torch, dev, here, seed, launches)
+    log(f"  X.b + X.d took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    fleet, _ = x_headline_fleet(torch, dev, here, rows, part["key"], 4,
+                                tag="X.a4")
+    x_mix(torch, fleet, "X.a (G=4)", ref, pod_ns, launches)
+    log(f"  X.a at G=4 took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    x_proxy(torch, here, fleet, pod_ns, ref, launches)
+    fleet.close(torch)
+    log(f"  X.e took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    x_frontier(torch, dev, here, rows, part, ref, launches)
+    del rows
+    log(f"  X.c took {time.perf_counter() - t0:.1f} s")
+    log(f"  scale-out path launches (X.a-X.e): {launches.n}")
+    for kname, n in launches.n.items():
+        check(n > 0, f"{kname} was not launched on the scale-out path")
+    log(f"phase X took {time.perf_counter() - t_all:.1f} s; device bytes "
+        f"allocated after it {torch.cuda.memory_allocated()}")
+    return launches.n
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4302,6 +5153,7 @@ def main(argv=None) -> int:
     if args.writes < 50:
         ap.error("--writes must be at least 50")
 
+    t_run = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -4348,8 +5200,9 @@ def main(argv=None) -> int:
     if args.n_rels != HEADLINE_RELS:
         log(f"  n_rels cut: {args.n_rels} of the headline {HEADLINE_RELS}")
     t0 = time.perf_counter()
+    x_part: dict = {}
     rows = build_rows(N_PODS, N_USERS, N_NS, N_GROUPS, args.n_rels,
-                      args.seed)
+                      args.seed, part_out=x_part)
     total = len(rows["resource_id"])
     gen_s = time.perf_counter() - t0
     e = Engine(schema=parse_schema(BENCH_SCHEMA), device=dev)
@@ -4360,6 +5213,7 @@ def main(argv=None) -> int:
     frame_bytes = sum(v.nbytes for v in rows.values())
     samples = base_samples(rows, N_PODS, N_NS, N_GROUPS, args.n_rels,
                            args.seed)
+    x_base = (rows, x_part)  # phase X re-keys these rows
     del rows
     t0 = time.perf_counter()
     cg = e.compiled()
@@ -4438,6 +5292,26 @@ def main(argv=None) -> int:
     log(f"  main-path launches: {launches}")
     for kname, n in launches.items():
         check(n > 0, f"{kname} was not launched on the main path")
+    # phase X's reference (outside the count): 64 subjects' lists at the
+    # base state as pod indices, and phase 6's items and verdicts
+    pod_num = np.full(cg.type_sizes["pod"], -1, dtype=np.int64)
+    for pid, i in objs["pod"].id_map().items():
+        if pid.startswith("ns/p"):
+            pod_num[i] = int(pid[4:])
+    x_subjects = list(dict.fromkeys(subjects))
+    for u in rng.permutation(N_USERS).tolist():
+        if len(x_subjects) == X_SUBJECTS:
+            break
+        if f"u{u}" not in x_subjects:
+            x_subjects.append(f"u{u}")
+    x_ref = {"subjects": x_subjects, "masks": {}, "items": items,
+             "verdicts": verdicts}
+    for u in x_subjects:
+        m = masks[u] if u in masks else e.lookup_resources_mask(
+            "pod", "view", "user", u)[0]
+        got = np.sort(pod_num[np.flatnonzero(m)])
+        check(len(got) == 0 or got[0] >= 0, "X: a visible slot without a pod")
+        x_ref["masks"][u] = got
 
     # -- phase 7: forced pull, same subjects --
     with semiring.force_mode("pull"):
@@ -4561,6 +5435,13 @@ def main(argv=None) -> int:
         torch, dev, args.n_rels, subjects, items, bulk_users, here)
     log(f"phase 10 took {time.perf_counter() - t0:.1f} s")
 
+    # -- phase X: scale-out, with phase 10's engine released --
+    gc.collect()
+    torch.cuda.empty_cache()
+    scaleout_launches = scaleout_phase(torch, dev, here, args.seed,
+                                       x_base, x_ref)
+    del x_base
+
     out = []
     for kname in ("bit_or_matmul", "dense_or_matmul"):
         r = krows[kname]
@@ -4576,6 +5457,7 @@ def main(argv=None) -> int:
                     "migration_path_launches": migration_launches[kname],
                     "proxy_path_launches": proxy_launches[kname]
                     + proxy_cav_launches[kname],
+                    "scaleout_path_launches": scaleout_launches[kname],
                     "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                     "bound_by": r["bound_by"], "library_ms": r["library_ms"],
@@ -4589,6 +5471,7 @@ def main(argv=None) -> int:
                             "sparse_max_live")}
                         for nb, fr in fused_rows.items()}
                     if kname == "bit_or_matmul" else None})
+    log(f"the whole run took {time.perf_counter() - t_run:.1f} s")
     log("kernels: " + ", ".join(
         f"{k['name']} launches={k['launches']} matched_plain="
         f"{k['max_abs_err'] == 0}" for k in out))

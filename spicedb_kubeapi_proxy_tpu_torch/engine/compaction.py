@@ -33,6 +33,7 @@ from collections import deque
 
 from ..admission import AdmissionRejected
 from ..utils.metrics import metrics
+from .store import StoreError
 
 log = logging.getLogger("sdbkp.torch.engine.compaction")
 
@@ -79,6 +80,22 @@ class OverlayBackpressure(AdmissionRejected):
         self.occupancy = occupancy
         self.capacity = capacity
         self.what = what
+
+
+class WriteTooLarge(StoreError):
+    """The write's records need more slots than the whole overlay (or
+    dead ledger) holds: no fold makes room for it, so it is refused for
+    good, not shed with a Retry-After (a retry would be shed forever).
+    The writer splits it into writes of at most ``limit`` records, as
+    the rebalance mover does (engine/remote.py ``mover_chunk_cap``)."""
+
+    def __init__(self, n_records: int, limit: int):
+        super().__init__(
+            f"write of {n_records} records is larger than the delta "
+            f"overlay can ever absorb; split it into writes of at most "
+            f"{limit} records")
+        self.n_records = n_records
+        self.limit = limit
 
 
 class Compactor:
@@ -151,15 +168,28 @@ class Compactor:
             d = 0.2  # no fold observed yet: a compile-sized guess
         return min(max(d, MIN_RETRY_AFTER), MAX_RETRY_AFTER)
 
+    @staticmethod
+    def max_write_records(cg) -> "int | None":
+        """The most records one write may carry into ``cg``'s overlay:
+        what an empty overlay and dead ledger absorb. None when the
+        graph has no overlay (nothing to shed against)."""
+        if cg is None or cg.delta_pos is None or not cg.delta_cap:
+            return None
+        return min(cg.delta_cap, len(cg.dead_buf)) // EDGES_PER_RECORD
+
     def check_headroom(self, cg, n_records: int) -> None:
         """Write-path back-pressure: raise :class:`OverlayBackpressure`
         when the current overlay cannot absorb ``n_records`` more write
         records (conservatively ``EDGES_PER_RECORD`` slots each), and kick
-        the worker once occupancy crosses the threshold. Called before the
-        store mutation, so a shed write leaves no trace."""
+        the worker once occupancy crosses the threshold; refuse a write
+        no fold could make room for (:class:`WriteTooLarge`). Called
+        before the store mutation, so a shed write leaves no trace."""
         if cg is None or cg.delta_pos is None or not cg.delta_cap:
             return
         need = EDGES_PER_RECORD * max(int(n_records), 1)
+        limit = self.max_write_records(cg)
+        if n_records > limit:
+            raise WriteTooLarge(int(n_records), limit)
         slots_full = cg.n_delta + need > cg.delta_cap
         ledger_full = cg.n_dead + need > len(cg.dead_buf)
         if (slots_full or ledger_full

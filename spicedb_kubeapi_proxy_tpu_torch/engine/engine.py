@@ -381,6 +381,12 @@ class Engine:
     def compactor(self):
         return self._compactor
 
+    def max_write_records(self) -> Optional[int]:
+        """The most records one write may carry while the compactor's
+        back-pressure is on (what an empty overlay absorbs), else None."""
+        c = self._compactor
+        return None if c is None else c.max_write_records(self._head)
+
     # -- durability ---------------------------------------------------------
 
     def enable_persistence(self, data_dir: str, **kw):

@@ -30,12 +30,16 @@ table synced INCREMENTALLY via ``object_ids`` (interners are append-only
 within a store epoch; a snapshot restore mints a new epoch and
 invalidates client caches).
 
-Ops whose engine half the port does not have yet (the multi-host mirror,
-the rebalance mover's slice ops, frontier exchange, the chaos plane)
-answer ``kind: "store"`` with a message that names the ROADMAP item that
-brings them; the clients' methods for those ops come with the same items.
-The live schema migration ops (``migrate_begin/status/cut/abort``) are
-served, and the CLI resolves a data dir's migration record at boot. ``python -m
+The scale-out ops are served: the rebalance mover's ``slice_read/load/
+apply/drop/watch`` (npz frames through persistence/codec.py, idempotent,
+admission-classed ``rebalance``) and the frontier exchange's
+``frontier_pairs/expand`` (scaleout/), with client methods on
+``RemoteEngine`` and ``FailoverEngine``. So are the live schema
+migration ops (``migrate_begin/status/cut/abort``), and the CLI resolves
+a data dir's migration record at boot. Ops whose engine half the port
+does not have yet (the multi-host mirror, the chaos plane) answer
+``kind: "store"`` with a message that names the ROADMAP item that brings
+them. ``python -m
 spicedb_kubeapi_proxy_tpu_torch.engine.remote`` runs a standalone host
 (``main``) on ``--device`` (``cuda`` by default).
 """
@@ -208,6 +212,52 @@ def _filter_from_dict(d: dict) -> RelationshipFilter:
     return RelationshipFilter(**d)
 
 
+def po2_chunks(n: int, cap: int = 2048):
+    """Split ``n`` rows into descending power-of-two chunk sizes
+    (at most the largest power of two within ``cap``). The JAX host
+    chunks this way so its overlay scatter sees at most ``log2(cap)``
+    shapes; the port keeps the same chunking so a mover batch lands as
+    the same sequence of writes (and revisions) on either package's
+    host, unless the port's overlay is too small for a 2,048-row chunk
+    (:func:`mover_chunk_cap`)."""
+    sizes = []
+    c = 1
+    while c * 2 <= cap:
+        c <<= 1
+    while n > 0:
+        while c > n:
+            c >>= 1
+        sizes.append(c)
+        n -= c
+    return sizes
+
+
+def mover_chunk_cap(engine) -> int:
+    """The most rows one mover write carries into ``engine``: 2,048, and
+    under the compactor's back-pressure at most half of what an empty
+    overlay absorbs, so a chunk fits after a fold while tenant writes
+    hold the rest (a chunk of the whole overlay would fit only an empty
+    one, and one larger is refused for good)."""
+    limit = engine.max_write_records()
+    return 2048 if limit is None else max(1, min(2048, limit // 2))
+
+
+def _apply_po2(engine, rows, op: "str | None") -> int:
+    """Apply mover rows through the ordinary write path in power-of-two
+    chunks (see :func:`po2_chunks`) of at most
+    :func:`mover_chunk_cap`. ``op`` of None means ``rows`` are WriteOps
+    already. Module-level on purpose: op handlers run against the
+    role-gate's slim ``_EngineView`` pin, not the server object."""
+    rev = engine.revision
+    i = 0
+    for c in po2_chunks(len(rows), mover_chunk_cap(engine)):
+        chunk = rows[i:i + c]
+        rev = engine.write_relationships(
+            chunk if op is None else [WriteOp(op, r) for r in chunk])
+        i += c
+    return rev
+
+
 def _watch_events_wire(engine, revision) -> list:
     """watch_since -> wire form (shared by the tenant watch op and the
     mover's rebalance-classed twin; module-level because op handlers
@@ -217,6 +267,78 @@ def _watch_events_wire(engine, revision) -> list:
          "rel": _rel_to_dict(e.relationship)}
         for e in engine.watch_since(revision)
     ]
+
+
+def _slice_rows(engine, ranges, want_globals: bool) -> list:
+    """Live relationships in the requested partition-key hash ranges
+    (or the replicated global tuples) — the slice_read/slice_drop row
+    scan, shared with the in-process fallback in scaleout/rebalance."""
+    # function-level import: scaleout imports this module at load time
+    from ..scaleout.shardmap import hash_key, split_resource
+
+    rows = []
+    for rel in engine.read_relationships(RelationshipFilter()):
+        ns, namespaced = split_resource(rel.resource_id)
+        if want_globals:
+            if not namespaced:
+                rows.append(rel)
+            continue
+        if not namespaced:
+            continue
+        h = hash_key(ns, rel.resource_type)
+        if any(lo <= h < hi for lo, hi in ranges):
+            rows.append(rel)
+    return rows
+
+
+def _rels_to_cols(rels: list) -> dict:
+    """Relationship rows -> the columnar bulk form the npz codec
+    (persistence/codec.py) carries (None expirations become NaN; optional strings become
+    empty — ``_cols_to_rels`` is the inverse)."""
+    cols = {k: [] for k in (
+        "resource_type", "resource_id", "relation", "subject_type",
+        "subject_id", "subject_relation", "expiration", "caveat",
+        "caveat_context")}
+    for r in rels:
+        cols["resource_type"].append(r.resource_type)
+        cols["resource_id"].append(r.resource_id)
+        cols["relation"].append(r.relation)
+        cols["subject_type"].append(r.subject_type)
+        cols["subject_id"].append(r.subject_id)
+        cols["subject_relation"].append(r.subject_relation or "")
+        cols["expiration"].append(r.expiration)
+        cols["caveat"].append(r.caveat or "")
+        cols["caveat_context"].append(r.caveat_context or "")
+    return cols
+
+
+def _cols_to_rels(cols: dict) -> list:
+    import math
+
+    n = len(cols.get("resource_id", ()))
+    srl = cols.get("subject_relation")
+    exp = cols.get("expiration")
+    cav = cols.get("caveat")
+    ctx = cols.get("caveat_context")
+
+    def opt(col, i):
+        if col is None:
+            return None
+        v = str(col[i])
+        return v or None
+
+    out = []
+    for i in range(n):
+        e = None
+        if exp is not None:
+            ev = float(exp[i])
+            e = None if (math.isnan(ev) or math.isinf(ev)) else ev
+        out.append(Relationship(
+            str(cols["resource_type"][i]), str(cols["resource_id"][i]),
+            str(cols["relation"][i]), str(cols["subject_type"][i]),
+            str(cols["subject_id"][i]), opt(srl, i), e,
+            opt(cav, i), opt(ctx, i)))
+    return out
 
 
 # -- framing -----------------------------------------------------------------
@@ -282,23 +404,6 @@ async def _read_frame(reader: asyncio.StreamReader,
         raise RemoteEngineError(f"frame of {n} bytes exceeds limit")
     body = await reader.readexactly(n)
     return json.loads(body)
-
-
-# -- ops the port does not serve yet -------------------------------------------
-
-
-def _refused(op: str, item: str, what: str):
-    """An op handler that answers ``kind: "store"`` naming the ROADMAP
-    item that brings ``op`` to the port (the wire op exists on the JAX
-    host; its engine half is not ported)."""
-
-    def handler(self, req: dict):
-        raise StoreError(
-            f"{op} is not served by this engine host: {what} lands in "
-            f"the PyTorch port with ROADMAP {item}")
-
-    handler.__name__ = f"_op_{op}"
-    return handler
 
 
 # -- server ------------------------------------------------------------------
@@ -620,11 +725,27 @@ class EngineServer:
             req["subject_type"], req.get("subject_relation"),
             now=req.get("now"), context=req.get("ctx") or None)
 
-    # frontier exchange (the JAX package's scaleout/frontier.py)
-    _op_frontier_pairs = _refused("frontier_pairs", "A.7",
-                                  "frontier exchange")
-    _op_frontier_expand = _refused("frontier_expand", "A.7",
-                                   "frontier exchange")
+    def _op_frontier_pairs(self, req: dict):
+        """The schema's frontier reference pairs (scaleout/frontier.py)
+        — raises the monotonicity refusal server-side so a planner
+        enabling the exchange against an unsupported schema fails
+        closed on first use."""
+        from ..scaleout.frontier import reference_pairs
+
+        return [list(p) for p in reference_pairs(self.engine.schema)]
+
+    def _op_frontier_expand(self, req: dict):
+        """One frontier-exchange leg against THIS group's local tuples
+        (scaleout/frontier.py expand_local — one owner for the
+        semantics, in-process and over the wire)."""
+        from ..scaleout.frontier import decode_frontier, expand_local
+
+        out = expand_local(
+            self.engine, decode_frontier(req["descs"]),
+            [(str(t), str(r)) for t, r in req["pairs"]],
+            now=req.get("now"), context=req.get("ctx") or None)
+        return sorted(([t, i, r] for t, i, r in out),
+                      key=lambda d: (d[0], d[1], d[2] or ""))
 
     def _op_lookup_mask(self, req: dict):
         """The hot-path variant: packed bitmask over the type's object
@@ -746,8 +867,13 @@ class EngineServer:
     def _op_watch_since(self, req: dict):
         return _watch_events_wire(self.engine, req["revision"])
 
-    _op_slice_watch = _refused("slice_watch", "A.7",
-                               "the rebalance mover's slice ops")
+    def _op_slice_watch(self, req: dict):
+        """watch_since for the rebalance mover's catch-up polls: the
+        same answer, but admission-classed `rebalance` (lowest shed
+        priority) — the mover's recurring polls must yield to tenant
+        watch recomputes under saturation, per the migration-traffic
+        contract."""
+        return _watch_events_wire(self.engine, req["revision"])
 
     def _op_watch_gate(self, req: dict):
         types, use_exp = self.engine.watch_gate(
@@ -791,14 +917,60 @@ class EngineServer:
 
     # -- rebalance slice ops (scaleout/rebalance.py data plane) --------------
 
-    _op_slice_read = _refused("slice_read", "A.7",
-                              "the rebalance mover's slice ops")
-    _op_slice_load = _refused("slice_load", "A.7",
-                              "the rebalance mover's slice ops")
-    _op_slice_apply = _refused("slice_apply", "A.7",
-                               "the rebalance mover's slice ops")
-    _op_slice_drop = _refused("slice_drop", "A.7",
-                              "the rebalance mover's slice ops")
+    # All idempotent, all admission-classed `rebalance` (lowest shed
+    # priority): a live migration is cost-accounted and sheddable like
+    # any tenant's bulk traffic.
+
+    def _op_slice_read(self, req: dict):
+        """Export the live namespaced tuples whose partition-key hash
+        falls in the requested ``[lo, hi)`` ranges (or the replicated
+        GLOBAL tuples with ``globals``), riding the npz codec as one
+        binary frame. The revision is read BEFORE the row scan so the
+        caller's catch-up replay covers any write that raced the scan
+        (touch replays are idempotent: at-least-once)."""
+        from ..persistence.codec import encode_bulk_cols
+
+        ranges = [(int(lo), int(hi))
+                  for lo, hi in (req.get("ranges") or ())]
+        rev = int(self.engine.revision)
+        rows = _slice_rows(self.engine, ranges,
+                           bool(req.get("globals")))
+        return BinaryResult({"slice": True, "revision": rev,
+                             "n": len(rows)},
+                            encode_bulk_cols(_rels_to_cols(rows)))
+
+    def _op_slice_load(self, req: dict):
+        """Idempotent slice import: the npz payload's rows apply as
+        TOUCHes through the ordinary write path (validated, journaled,
+        replicated, watch-logged — the merged sharded streams suppress
+        these below the slice's cut revision)."""
+        import base64
+
+        from ..persistence.codec import decode_bulk_cols
+
+        rels = _cols_to_rels(decode_bulk_cols(
+            base64.b64decode(req["payload_b64"])))
+        return {"revision": _apply_po2(self.engine, rels, "touch"),
+                "rows": len(rels)}
+
+    def _op_slice_apply(self, req: dict):
+        """Catch-up replay: concrete touch/delete effects (already
+        last-per-key deduped by the mover) through the ordinary write
+        path."""
+        ops = [WriteOp(o["op"], _rel_from_dict(o["rel"]))
+               for o in req["ops"]]
+        return {"revision": _apply_po2(self.engine, ops, None),
+                "rows": len(ops)}
+
+    def _op_slice_drop(self, req: dict):
+        """GC after cutover: delete the moved rows — ordinary journaled
+        deletes, idempotent, suppressed by the merged streams past the
+        slice's cut revision."""
+        ranges = [(int(lo), int(hi))
+                  for lo, hi in (req.get("ranges") or ())]
+        rows = _slice_rows(self.engine, ranges, False)
+        return {"revision": _apply_po2(self.engine, rows, "delete"),
+                "rows": len(rows)}
 
     def _op_traces(self, req: dict):
         """This host's recent kept-trace ring (diagnostics, never
@@ -1262,6 +1434,25 @@ class RemoteEngine:
         and mean engine check latency in ms."""
         return self._call("load_status")
 
+    def frontier_pairs(self) -> tuple:
+        """The group's schema-derived frontier reference pairs."""
+        return tuple((str(t), str(r))
+                     for t, r in self._call("frontier_pairs"))
+
+    def frontier_expand(self, descs, pairs,
+                        now: Optional[float] = None,
+                        context: Optional[dict] = None) -> set:
+        """One frontier-exchange leg on this group; descriptors cross
+        the wire in the canonical encode_frontier form (the planner's
+        wire-bytes counters measure exactly these payloads)."""
+        got = self._call(
+            "frontier_expand",
+            descs=[[t, i, r] for t, i, r in descs],
+            pairs=[[t, r] for t, r in pairs],
+            now=now, ctx=context or None)
+        return {(str(t), str(i), None if r is None else str(r))
+                for t, i, r in got}
+
     def lookup_resources_mask(self, resource_type: str, permission: str,
                               subject_type: str, subject_id: str,
                               subject_relation: Optional[str] = None,
@@ -1371,6 +1562,65 @@ class RemoteEngine:
             return frozenset(r["types"]), bool(r["use_expiration"])
         except RemoteEngineError:
             return None, True
+
+    # -- rebalance slice ops (idempotent mover data plane) -------------------
+
+    def slice_read(self, ranges, want_globals: bool = False):
+        """(src_revision, [Relationship...]) for the hash ranges — one
+        npz binary frame, not a JSON row list."""
+        from ..persistence.codec import decode_bulk_cols
+
+        r = self._call_any("slice_read",
+                           ranges=[[int(lo), int(hi)]
+                                   for lo, hi in ranges],
+                           **{"globals": bool(want_globals)})
+        if not isinstance(r, tuple):
+            raise RemoteEngineError(
+                f"slice_read answered a non-binary frame: {r!r}")
+        meta, payload = r
+        return int(meta["revision"]), _cols_to_rels(
+            decode_bulk_cols(payload))
+
+    def slice_load(self, rels) -> int:
+        """Idempotent TOUCH import of exported rows; returns the
+        destination revision after the load."""
+        import base64
+
+        from ..persistence.codec import encode_bulk_cols
+
+        r = self._call("slice_load", payload_b64=base64.b64encode(
+            encode_bulk_cols(_rels_to_cols(list(rels)))).decode())
+        return int(r["revision"])
+
+    def slice_apply(self, ops) -> int:
+        """Catch-up replay of concrete touch/delete effects."""
+        r = self._call("slice_apply",
+                       ops=[{"op": o.op, "rel": _rel_to_dict(o.rel)}
+                            for o in ops])
+        return int(r["revision"])
+
+    def slice_drop(self, ranges) -> int:
+        """Post-cutover GC of the moved rows; returns rows dropped."""
+        r = self._call("slice_drop",
+                       ranges=[[int(lo), int(hi)]
+                               for lo, hi in ranges])
+        return int(r["rows"])
+
+    def slice_watch_since(self, revision: int) -> list:
+        """The mover's catch-up poll: ``watch_since`` under the
+        rebalance admission class; falls back to the tenant op against
+        hosts predating it (same answer, old cost class)."""
+        try:
+            frames = self._call("slice_watch", revision=revision)
+        except EngineInternalError:
+            raise
+        except RemoteEngineError:
+            return self.watch_since(revision)
+        return [
+            WatchEvent(d["revision"], d["operation"],
+                       _rel_from_dict(d["rel"]))
+            for d in frames
+        ]
 
     @property
     def revision(self) -> int:
@@ -1690,6 +1940,15 @@ class FailoverEngine:
     def load_status(self) -> dict:
         return self._invoke(lambda c: c.load_status())
 
+    def frontier_pairs(self) -> tuple:
+        return self._invoke(lambda c: c.frontier_pairs())
+
+    def frontier_expand(self, descs, pairs,
+                        now: Optional[float] = None,
+                        context: Optional[dict] = None) -> set:
+        return self._invoke(lambda c: c.frontier_expand(
+            descs, pairs, now=now, context=context))
+
     def write_relationships(self, ops: list,
                             preconditions: list = ()) -> int:
         return self._invoke(
@@ -1713,6 +1972,26 @@ class FailoverEngine:
 
     def watch_gate(self, resource_type: str, name: str):
         return self._invoke(lambda c: c.watch_gate(resource_type, name))
+
+    # rebalance slice ops: idempotent by construction, so they follow
+    # the READ re-issue discipline — after a transport death or a
+    # not_leader rejection (a SIGKILL'd group leader mid-copy), the
+    # re-aimed re-issue converges instead of double-applying
+    def slice_read(self, ranges, want_globals: bool = False):
+        return self._invoke(
+            lambda c: c.slice_read(ranges, want_globals=want_globals))
+
+    def slice_load(self, rels) -> int:
+        return self._invoke(lambda c: c.slice_load(rels))
+
+    def slice_apply(self, ops) -> int:
+        return self._invoke(lambda c: c.slice_apply(ops))
+
+    def slice_drop(self, ranges) -> int:
+        return self._invoke(lambda c: c.slice_drop(ranges))
+
+    def slice_watch_since(self, revision: int) -> list:
+        return self._invoke(lambda c: c.slice_watch_since(revision))
 
     # migration control plane: begin follows the WRITE discipline (no
     # re-issue after an ambiguous death — a replay races the host's

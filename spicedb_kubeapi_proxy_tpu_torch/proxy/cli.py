@@ -46,6 +46,14 @@ def main(argv=None) -> int:
         await stop.wait()
         await cfg.server.stop()
         await cfg.workflow.shutdown()
+        if cfg.autoscale_controller is not None:
+            cfg.autoscale_controller.stop()
+        if hasattr(cfg.engine, "sharding_status"):
+            # sharded planner: parks a live rebalance mover (its
+            # persisted transition resumes or aborts at the next boot),
+            # drains the scatter pool, closes the split journal
+            await asyncio.get_running_loop().run_in_executor(
+                None, cfg.engine.close)
         if cfg.slo_monitor is not None:
             cfg.slo_monitor.stop()
         if cfg.deps.audit is not None:

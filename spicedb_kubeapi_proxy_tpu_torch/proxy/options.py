@@ -11,12 +11,16 @@ process on ``device``: ``cuda`` unless the caller asks for ``cpu``, and a
 missing card is an :class:`OptionsError` carrying
 :func:`~..device.resolve_device`'s message, never a CPU fallback.
 ``tcp://`` builds the port's ``RemoteEngine`` / ``FailoverEngine``.
+``--shard-map`` builds the port's scale-out planner (scaleout/
+``ShardedEngine``) over one such client per engine group, with its
+split-write journal, the optional vector cache, frontier exchange,
+``--rebalance-to`` and the autoscaler (autoscale/); each group's host
+owns its device, so ``--device`` is refused beside it.
 
 Options whose half of the system the port does not have yet are refused
 with an :class:`OptionsError` that names the ROADMAP item bringing it
-(``_REFUSED``): device meshes (A.5), scale-out sharding, rebalancing,
-frontier exchange and the autoscaler (A.7), and OIDC bearer
-authentication (A.6).
+(``_REFUSED``): device meshes (A.5) and OIDC bearer authentication
+(A.6).
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ from ..dtx import ActivityHandler, WorkflowEngine, register_workflows
 from ..dtx.workflow import LOCK_MODE_OPTIMISTIC, LOCK_MODE_PESSIMISTIC
 from ..engine import Engine
 from ..rules.matcher import MapMatcher
+from ..utils.net import EndpointError, parse_endpoints
 from .authn import HeaderAuthenticator
 from .server import Server
 from .upstream import HttpUpstream
@@ -60,42 +65,9 @@ def parse_bool_flag(v) -> bool:
     raise argparse.ArgumentTypeError(f"expected a boolean, got {v!r}")
 
 
-def _parse_endpoints(spec: str) -> list[tuple[str, int]]:
-    """``host:port,host:port,...`` -> [(host, port)] (the grammar of the
-    JAX package's ``parallel/failover.parse_peers``)."""
-    out = []
-    for part in (spec or "").split(","):
-        part = part.strip()
-        if not part:
-            continue
-        host, _, port = part.rpartition(":")
-        if host.startswith("[") and host.endswith("]"):
-            host = host[1:-1]
-        if not host or not port.isdigit() or not 0 < int(port) < 65536:
-            raise ValueError(f"entry {part!r}: expected host:port")
-        out.append((host, int(port)))
-    if not out:
-        raise ValueError("at least one host:port required")
-    return out
-
-
 # (field, default, flag, ROADMAP item, what brings it)
 _REFUSED = (
     ("engine_mesh", None, "--engine-mesh", "A.5", "device meshes"),
-    ("shard_map", None, "--shard-map", "A.7", "scale-out sharding"),
-    ("shard_journal_path", None, "--shard-journal-path", "A.7",
-     "scale-out sharding"),
-    ("shard_cache", False, "--shard-cache", "A.7", "scale-out sharding"),
-    ("rebalance_to", None, "--rebalance-to", "A.7", "online rebalancing"),
-    ("autoscale", "off", "--autoscale", "A.7", "the autoscaler"),
-    ("autoscale_policy", None, "--autoscale-policy", "A.7",
-     "the autoscaler"),
-    ("autoscale_tick_seconds", 15.0, "--autoscale-tick-seconds", "A.7",
-     "the autoscaler"),
-    ("frontier_exchange", False, "--frontier-exchange", "A.7",
-     "cross-shard frontier exchange"),
-    ("frontier_max_rounds", 8, "--frontier-max-rounds", "A.7",
-     "cross-shard frontier exchange"),
     ("oidc_issuer_url", None, "--oidc-issuer-url", "A.6",
      "OIDC authentication"),
     ("oidc_client_id", None, "--oidc-client-id", "A.6",
@@ -316,19 +288,56 @@ class Options:
     slo_windows: str = "60,300,3600"
     slo_tick_seconds: float = 5.0
     enable_debug_slo: bool = False
+    # -- scale-out sharding (scaleout/) --------------------------------------
+    # explicit versioned shard map: inline JSON or a path to a JSON file
+    # ({"version": 1, "groups": [["h:p", "h:p"], ["h:p"]]}). When set,
+    # the proxy builds a scatter-gather planner over the named engine
+    # groups (each group an endpoint list = its own failover set) and
+    # --engine-endpoint must stay at its in-process default (the planner
+    # IS the engine client). Tuples partition by (namespace, resource-
+    # type) consistent hashing; global (cluster-scoped) tuples replicate
+    # to every group. Each group's host owns its device, so --device is
+    # refused beside --shard-map.
+    shard_map: Optional[str] = None
+    # durable cross-shard split-write journal (dtx-style); None lands it
+    # beside the workflow DB. A mid-split crash replays to completion on
+    # the next boot.
+    shard_journal_path: Optional[str] = None
+    # vector-keyed client-side decision cache: entries key by the full
+    # per-shard revision vector, never serve after ANY component
+    # advances, and are TTL-bounded (the planner cannot see the
+    # engine-side expiration/caveat verdict-flip watermarks). Off by
+    # default — it only helps when every write flows through THIS
+    # proxy replica (the per-group host-side caches stay exact
+    # regardless).
+    shard_cache: bool = False
+    # online rebalance (scaleout/rebalance.py): a TARGET shard map
+    # (inline JSON or path, same grammar as --shard-map) with a HIGHER
+    # version. On boot the planner starts the live tuple mover — plan /
+    # copy / catch-up / dual-write / per-slice cutover / GC — taking
+    # the fleet from the current map to this one with no drain;
+    # progress rides /readyz as `rebalance: moving=K copied=J lag=...`.
+    rebalance_to: Optional[str] = None
+    # -- elastic scale-out (autoscale/, scaleout/frontier.py) ----------------
+    # SLO-driven autoscaler: "off" (default), "dry-run" (proposals are
+    # counted and surfaced on /readyz, nothing moves), or "apply"
+    # (proposals drive REAL grow/shrink map transitions through the
+    # rebalance coordinator). Requires --shard-map.
+    autoscale: str = "off"
+    # policy knobs as key=value CSV (autoscale/policy.py parse_policy),
+    # e.g. "max_groups=6,grow_occupancy=0.7"; None = all defaults
+    autoscale_policy: Optional[str] = None
+    autoscale_tick_seconds: float = 15.0
+    # cross-shard frontier exchange (scaleout/frontier.py): lifts the
+    # cluster-scoped-only restriction on cross-namespace reference
+    # types by iterating boundary-frontier rounds instead of
+    # replicating tuples; fail-closed after frontier_max_rounds
+    frontier_exchange: bool = False
+    frontier_max_rounds: int = 8
     # -- refused: options whose half of the system the port does not have
     # yet; any value but the default is an OptionsError that names the
     # ROADMAP item bringing it (_REFUSED)
     engine_mesh: Optional[str] = None
-    shard_map: Optional[str] = None
-    shard_journal_path: Optional[str] = None
-    shard_cache: bool = False
-    rebalance_to: Optional[str] = None
-    autoscale: str = "off"
-    autoscale_policy: Optional[str] = None
-    autoscale_tick_seconds: float = 15.0
-    frontier_exchange: bool = False
-    frontier_max_rounds: int = 8
     oidc_issuer_url: Optional[str] = None
     oidc_client_id: Optional[str] = None
     oidc_username_claim: str = "sub"
@@ -352,8 +361,8 @@ class Options:
             if p.strip().startswith(REMOTE_ENDPOINT_PREFIX) else p.strip()
             for p in self.engine_endpoint.split(","))
         try:
-            return _parse_endpoints(stripped)
-        except ValueError:
+            return parse_endpoints(stripped)
+        except EndpointError:
             raise OptionsError(
                 f"invalid engine endpoint {self.engine_endpoint!r} "
                 "(expected tcp://host:port[,host2:port2,...])") from None
@@ -365,16 +374,91 @@ class Options:
                     f"{flag} is not supported by the PyTorch port's "
                     f"proxy: {what} lands in the port with ROADMAP {item}")
         remote = self._parse_remote()
+        if self.shard_map:
+            if remote is not None:
+                raise OptionsError(
+                    "shard-map and a tcp:// engine-endpoint are mutually "
+                    "exclusive: the shard map names every group's "
+                    "endpoints itself")
+            for bad, why in (
+                    (self.bootstrap_files or self.bootstrap_content,
+                     "bootstrap"),
+                    (self.snapshot_path, "snapshot-path"),
+                    (self.data_dir, "data-dir"),
+                    (self.lookup_batch_window > 0, "lookup-batch-window"),
+                    (self.device is not None, "device")):
+                if bad:
+                    raise OptionsError(
+                        f"{why} applies to in-process engines; with "
+                        "--shard-map each engine group owns its own")
+            from ..scaleout import ShardMapError, load_shard_map
+
+            try:
+                smap = load_shard_map(self.shard_map)
+            except ShardMapError as e:
+                raise OptionsError(str(e)) from None
+            if self.rebalance_to:
+                try:
+                    target = load_shard_map(self.rebalance_to)
+                except ShardMapError as e:
+                    raise OptionsError(
+                        f"rebalance-to: {e}") from None
+                if target.version <= smap.version:
+                    raise OptionsError(
+                        f"rebalance-to map version {target.version} "
+                        f"must exceed the current shard-map version "
+                        f"{smap.version}")
+                if target.n_groups < smap.n_groups - 1:
+                    raise OptionsError(
+                        "rebalance-to can retire at most ONE group per "
+                        "map version: group indices are identity across "
+                        "a transition, and a shrink drains + GCs the "
+                        "retiring tail group before commit — chain "
+                        "single-group shrinks to go further")
+                if target.n_groups == smap.n_groups - 1 \
+                        and target.groups != smap.groups[:-1]:
+                    raise OptionsError(
+                        "a shrink map must keep the surviving groups' "
+                        "endpoints byte-identical and retire only the "
+                        "LAST group (ring points are keyed by group "
+                        "index; reordering would silently remap "
+                        "untouched slices)")
+        elif self.rebalance_to:
+            raise OptionsError(
+                "rebalance-to requires --shard-map (it is a transition "
+                "between two shard maps)")
+        if self.autoscale not in ("off", "dry-run", "apply"):
+            raise OptionsError(
+                f"autoscale must be off, dry-run, or apply "
+                f"(got {self.autoscale!r})")
+        if self.autoscale != "off" and not self.shard_map:
+            raise OptionsError(
+                "autoscale requires --shard-map (it proposes and "
+                "drives shard-map transitions)")
+        if self.autoscale_policy is not None:
+            from ..autoscale import AutoscaleError, parse_policy
+
+            try:
+                parse_policy(self.autoscale_policy)
+            except AutoscaleError as e:
+                raise OptionsError(f"autoscale-policy: {e}") from None
+        if self.frontier_exchange and not self.shard_map:
+            raise OptionsError(
+                "frontier-exchange requires --shard-map (it is a "
+                "cross-shard join protocol)")
+        if self.frontier_max_rounds < 1:
+            raise OptionsError("frontier-max-rounds must be >= 1")
         if remote is None:
             if self.engine_endpoint not in (EMBEDDED_ENDPOINT, TPU_ENDPOINT):
                 raise OptionsError(
                     f"unsupported engine endpoint {self.engine_endpoint!r} "
                     f"(supported: {EMBEDDED_ENDPOINT}, {TPU_ENDPOINT}, "
                     f"{REMOTE_ENDPOINT_PREFIX}host:port)")
-            try:
-                resolve_device(self.device)
-            except (RuntimeError, ValueError) as e:
-                raise OptionsError(f"device: {e}") from None
+            if not self.shard_map:
+                try:
+                    resolve_device(self.device)
+                except (RuntimeError, ValueError) as e:
+                    raise OptionsError(f"device: {e}") from None
         if self.migrate_schema:
             # parse NOW: an unreadable or syntactically-broken target
             # schema must fail option validation, not surface later as
@@ -425,13 +509,14 @@ class Options:
             raise OptionsError(
                 "device applies to in-process engines; pass it to the "
                 "tcp:// engine host instead")
-        if remote is None and (
+        if remote is None and not self.shard_map and (
                 self.engine_insecure or self.engine_ca_file or
                 self.engine_skip_verify_ca or self.engine_client_cert_file
                 or self.engine_server_name):
             raise OptionsError(
                 "engine-insecure/ca-file/skip-verify-ca/client-cert/"
-                "server-name apply only to tcp:// engine endpoints")
+                "server-name apply only to tcp:// engine endpoints "
+                "(or shard-map groups)")
         if self.engine_insecure and (
                 self.engine_ca_file or self.engine_skip_verify_ca or
                 self.engine_client_cert_file or self.engine_server_name):
@@ -583,7 +668,7 @@ class Options:
             + ([self.rule_content] if self.rule_content else []))
         matcher = MapMatcher.from_yaml(rule_text)
         remote = self._parse_remote()
-        if remote is not None:
+        if remote is not None or self.shard_map:
             from ..engine.remote import FailoverEngine, RemoteEngine
 
             ssl_context = None
@@ -602,7 +687,9 @@ class Options:
                     raise OptionsError(str(e)) from None
             from ..utils.resilience import RetryBudget
 
-            # ONE budget for the WHOLE engine client stack
+            # ONE budget for the WHOLE engine client stack: every
+            # group's RemoteEngine/FailoverEngine and the planner's
+            # scatter re-issues draw from the same bucket
             engine_budget = RetryBudget(
                 "engine-stack", ratio=self.retry_budget_ratio,
                 burst=self.retry_budget_burst)
@@ -615,7 +702,104 @@ class Options:
                 breaker_failure_threshold=self.breaker_failure_threshold,
                 breaker_reset_seconds=self.breaker_reset_seconds,
                 retry_budget=engine_budget)
-            if len(remote) == 1:
+            if self.shard_map:
+                # scale-out (scaleout/): one client per engine GROUP
+                # (multi-endpoint groups get client-side leader
+                # failover), a scatter-gather planner in front, and a
+                # durable split-write journal beside the workflow DB
+                from ..scaleout import (
+                    ShardedEngine,
+                    ShardMapError,
+                    ShardVectorCache,
+                    SplitJournal,
+                    load_shard_map,
+                )
+
+                try:
+                    # validate() parsed this already, but the file can
+                    # change between the two reads — the second load
+                    # must fail as cleanly as the first
+                    smap = load_shard_map(self.shard_map)
+                except ShardMapError as e:
+                    raise OptionsError(str(e)) from None
+                def group_client(eps):
+                    if len(eps) == 1:
+                        return RemoteEngine(*eps[0],
+                                            token=self.engine_token,
+                                            **client_kw)
+                    return FailoverEngine(list(eps),
+                                          token=self.engine_token,
+                                          **client_kw)
+
+                groups = [group_client(eps) for eps in smap.groups]
+                journal_path = self.shard_journal_path
+                if journal_path is None:
+                    import os as _osj
+
+                    base = self.workflow_database_path \
+                        or DEFAULT_WORKFLOW_DB
+                    journal_path = _osj.path.join(
+                        _osj.path.dirname(_osj.path.abspath(base)),
+                        "scaleout-journal.sqlite")
+                frontier_cfg = None
+                if self.frontier_exchange:
+                    from ..scaleout import FrontierConfig
+
+                    frontier_cfg = FrontierConfig(
+                        max_rounds=self.frontier_max_rounds)
+                engine = ShardedEngine(
+                    smap, groups, journal=SplitJournal(journal_path),
+                    cache=(ShardVectorCache() if self.shard_cache
+                           else None),
+                    retry_budget=engine_budget,
+                    frontier=frontier_cfg,
+                    # lets a persisted mid-rebalance transition
+                    # reconstruct clients for groups the target map
+                    # ADDED beyond --shard-map at the next boot
+                    client_factory=group_client)
+                if self.rebalance_to:
+                    from ..scaleout import (
+                        RebalanceError,
+                        ShardMapError as _SME,
+                        load_shard_map as _load_target,
+                    )
+
+                    try:
+                        # validate() parsed this already, but the file
+                        # can change between the two reads — the second
+                        # load must fail as cleanly as the first
+                        target = _load_target(self.rebalance_to)
+                    except _SME as e:
+                        raise OptionsError(
+                            f"rebalance-to: {e}") from None
+                    active = engine._active_transition
+                    if active is not None:
+                        # a persisted transition already resumed at
+                        # recovery; the flag must agree with it
+                        if active.new_map.version != target.version:
+                            raise OptionsError(
+                                "rebalance-to names map version "
+                                f"{target.version} but a transition to "
+                                f"version {active.new_map.version} is "
+                                "already in flight")
+                    elif target.version <= engine.map.version:
+                        # the move already completed (the journal's
+                        # durable "done" record made the target map
+                        # authoritative at recovery) — re-running it
+                        # against the GC'd sources would route the
+                        # moved slices to empty groups
+                        import logging as _logging
+
+                        _logging.getLogger("sdbkp.options").info(
+                            "rebalance-to v%d already completed; "
+                            "serving it (update --shard-map and drop "
+                            "the flag)", target.version)
+                    else:
+                        try:
+                            engine.begin_rebalance(target)
+                        except RebalanceError as e:
+                            raise OptionsError(str(e)) from None
+            elif len(remote) == 1:
                 engine = RemoteEngine(*remote[0],
                                       token=self.engine_token,
                                       **client_kw)
@@ -751,10 +935,15 @@ class Options:
                 ttl=self.discovery_cache_ttl,
                 cache_dir=self.discovery_cache_dir)
         # breakers surface on /readyz with per-dependency reasons; an
-        # injected upstream/engine without one simply isn't tracked
+        # injected upstream/engine without one simply isn't tracked.
+        # A sharded planner contributes one breaker PER GROUP (its own
+        # clients'), so /readyz names the degraded group
+        engine_breakers = [getattr(engine, "breaker", None)]
+        for g in getattr(engine, "groups", ()):
+            engine_breakers.append(getattr(g, "breaker", None))
         dep_breakers = tuple(
-            b for b in (getattr(upstream, "breaker", None),
-                        getattr(engine, "breaker", None)) if b is not None)
+            b for b in ([getattr(upstream, "breaker", None)]
+                        + engine_breakers) if b is not None)
         admission = None
         if self.admission:
             from ..admission import AdmissionController
@@ -798,6 +987,23 @@ class Options:
                          if w.strip()],
                 tick_seconds=self.slo_tick_seconds)
             slo_monitor.start()
+        autoscale_controller = None
+        if self.autoscale != "off" and self.shard_map:
+            from ..autoscale import (
+                AutoscaleController,
+                AutoscalePolicy,
+                PolicyConfig,
+                parse_policy,
+            )
+
+            policy_cfg = (parse_policy(self.autoscale_policy)
+                          if self.autoscale_policy else PolicyConfig())
+            autoscale_controller = AutoscaleController(
+                engine, AutoscalePolicy(policy_cfg),
+                mode=self.autoscale,
+                slo_monitor=slo_monitor,
+                tick_seconds=self.autoscale_tick_seconds)
+            autoscale_controller.start()
         deps = AuthzDeps(
             matcher=matcher, engine=engine, upstream=upstream,
             workflow=workflow, default_lock_mode=self.lock_mode,
@@ -838,9 +1044,10 @@ class Options:
                         token_authenticator=token_authenticator,
                         enable_debug_traces=self.enable_debug_traces,
                         slo_monitor=slo_monitor,
-                        enable_debug_slo=self.enable_debug_slo)
+                        enable_debug_slo=self.enable_debug_slo,
+                        autoscale_controller=autoscale_controller)
         return CompletedConfig(self, engine, workflow, deps, server,
-                               slo_monitor)
+                               slo_monitor, autoscale_controller)
 
     # fields safe to expose on /debug/config — an ALLOWLIST so a future
     # credential-bearing Options field fails safe (omitted) instead of
@@ -894,6 +1101,7 @@ class CompletedConfig:
     deps: AuthzDeps
     server: Server
     slo_monitor: Optional[object] = None
+    autoscale_controller: Optional[object] = None
 
     async def run(self) -> None:
         """Start serving: resume pending dual-writes, listen, serve
@@ -1059,6 +1267,44 @@ def add_flags(parser: argparse.ArgumentParser) -> None:
                              "(engine_tier_* metrics). 0 keeps the "
                              "classic all-resident placement "
                              "(in-process engines only)")
+    parser.add_argument("--shard-map",
+                        help="scale-out: explicit versioned shard map "
+                             "(JSON file path or inline JSON: "
+                             '{"version":1,"groups":[["h:p","h:p"],'
+                             '["h:p"]]}). Each group is its own engine '
+                             "failover set; tuples partition by "
+                             "(namespace, resource-type) consistent "
+                             "hashing, cluster-scoped tuples replicate "
+                             "to every group. Mutually exclusive with a "
+                             "tcp:// --engine-endpoint and with --device "
+                             "(each group's host owns its device)")
+    parser.add_argument("--shard-journal-path",
+                        help="durable cross-shard split-write journal "
+                             "(sqlite); default: scaleout-journal.sqlite "
+                             "beside the workflow DB. A mid-split crash "
+                             "replays to completion at the next boot")
+    parser.add_argument("--shard-cache", type=parse_bool_flag,
+                        nargs="?", const=True, default=False,
+                        metavar="BOOL",
+                        help="vector-keyed client-side decision cache: "
+                             "entries key by the full per-shard revision "
+                             "vector (never serving after ANY component "
+                             "shard advances) plus a short TTL, and — "
+                             "lacking the hosts' compiled-caveat "
+                             "knowledge — by the FULL request caveat "
+                             "context, so hit rates need stable caller "
+                             "attributes (default off; per-group "
+                             "host-side caches stay exact and context-"
+                             "digested regardless)")
+    parser.add_argument("--rebalance-to",
+                        help="online shard rebalance: a TARGET shard "
+                             "map (same grammar as --shard-map, HIGHER "
+                             "version). Boot starts the live tuple "
+                             "mover — copy / catch-up / dual-write / "
+                             "per-slice cutover / GC — migrating to "
+                             "the new placement with no drain; "
+                             "progress on /readyz as 'rebalance: "
+                             "moving=K copied=J lag=...'")
     parser.add_argument("--migrate-schema",
                         help="live schema migration: a schema-DSL file "
                              "to migrate the serving engine(s) to at "
@@ -1219,6 +1465,32 @@ def add_flags(parser: argparse.ArgumentParser) -> None:
     parser.add_argument("--audit-allow-rps", type=float, default=10.0,
                         help="rate cap for ALLOW audit lines per second "
                              "(denies are never capped)")
+    parser.add_argument("--autoscale", default="off",
+                        choices=["off", "dry-run", "apply"],
+                        help="SLO-driven autoscaler: dry-run counts and "
+                             "surfaces grow/shrink proposals on /readyz; "
+                             "apply drives real shard-map transitions "
+                             "through the rebalance coordinator. "
+                             "Requires --shard-map")
+    parser.add_argument("--autoscale-policy", default=None,
+                        help="policy knobs as key=value CSV, e.g. "
+                             "'max_groups=6,grow_occupancy=0.7' "
+                             "(autoscale/policy.py; unset = defaults)")
+    parser.add_argument("--autoscale-tick-seconds", type=float,
+                        default=15.0,
+                        help="autoscaler observe/decide cadence")
+    parser.add_argument("--frontier-exchange", action="store_true",
+                        help="enable cross-shard frontier-exchange joins "
+                             "(scaleout/frontier.py): cross-namespace "
+                             "reference types resolve by iterating "
+                             "boundary frontiers instead of requiring "
+                             "cluster-scoped replication. Requires "
+                             "--shard-map; monotone schemas only")
+    parser.add_argument("--frontier-max-rounds", type=int, default=8,
+                        help="fail-closed round budget per frontier "
+                             "exchange (exhaustion under-approximates "
+                             "the closure: deny/under-list, never "
+                             "over-grant)")
     for _name, _default, flag, item, what in _REFUSED:
         parser.add_argument(flag, nargs="?", const=True, default=None,
                             dest=f"refused_{flag[2:]}",
@@ -1278,6 +1550,10 @@ def options_from_args(args: argparse.Namespace) -> Options:
         caveat_context=args.caveat_context,
         caveat_ip_header=args.caveat_ip_header,
         migrate_schema=args.migrate_schema,
+        shard_map=args.shard_map,
+        shard_journal_path=args.shard_journal_path,
+        shard_cache=args.shard_cache,
+        rebalance_to=args.rebalance_to,
         enable_debug_config=args.enable_debug_config,
         feature_gates=args.feature_gates,
         discovery_cache_ttl=args.discovery_cache_ttl,
@@ -1311,4 +1587,9 @@ def options_from_args(args: argparse.Namespace) -> Options:
         slo_windows=args.slo_windows,
         slo_tick_seconds=args.slo_tick_seconds,
         enable_debug_slo=args.enable_debug_slo,
+        autoscale=args.autoscale,
+        autoscale_policy=args.autoscale_policy,
+        autoscale_tick_seconds=args.autoscale_tick_seconds,
+        frontier_exchange=args.frontier_exchange,
+        frontier_max_rounds=args.frontier_max_rounds,
     )

@@ -58,7 +58,8 @@ class Server:
                  token_authenticator=None,
                  enable_debug_traces: bool = False,
                  slo_monitor=None,
-                 enable_debug_slo: bool = False):
+                 enable_debug_slo: bool = False,
+                 autoscale_controller=None):
         self.deps = deps
         self.authenticator = authenticator or HeaderAuthenticator()
         self.cert_authenticator = ClientCertAuthenticator()
@@ -88,6 +89,10 @@ class Server:
         # /debug/traces — flag-gated on top of authentication
         self.slo_monitor = slo_monitor
         self.enable_debug_slo = enable_debug_slo
+        # autoscale controller (autoscale/controller.py); surfaced on
+        # /readyz so operators see dry-run proposals before trusting
+        # --autoscale=apply
+        self.autoscale_controller = autoscale_controller
         self._server: Optional[asyncio.AbstractServer] = None
         self._conns: set = set()  # live connection-handler tasks
 
@@ -179,10 +184,41 @@ class Server:
                 else:
                     reasons.append(("replication", detail))
             info_lines = [] if repl_line is None else [repl_line]
+            # sharded deployments (scaleout/): shard count, per-group
+            # role/lag, map version — INFORMATIONAL like admission (a
+            # degraded group degrades a slice of the keyspace; pulling
+            # the whole replica would turn a partial outage into a full
+            # one), but visible here BEFORE that group starts shedding
+            shard_fn = getattr(self.deps.engine, "sharding_status", None)
+            if shard_fn is not None:
+                try:
+                    st = await asyncio.to_thread(shard_fn)
+                    per_group = " ".join(
+                        f"g{g['group']}={g['role']}/"
+                        f"{'?' if g['lag'] is None else g['lag']}"
+                        for g in st["groups"])
+                    info_lines.append(
+                        f"sharding: groups={len(st['groups'])} "
+                        f"map_version={st['version']} {per_group} "
+                        f"pending_splits={st['pending_splits']}")
+                    reb = st.get("rebalance")
+                    if reb:
+                        # a live tuple move in flight: informational
+                        # like the sharding line (migration is the
+                        # system working, not unreadiness)
+                        info_lines.append(
+                            f"rebalance: to_version="
+                            f"{reb['to_version']} "
+                            f"moving={reb['moving']} "
+                            f"copied={reb['copied']} "
+                            f"cut={reb['cut']} lag={reb['lag']}")
+                except Exception:  # noqa: BLE001 - readyz must answer
+                    info_lines.append("sharding: status unavailable")
             # live schema migration (migration/migrator.py): phase/lag
-            # — INFORMATIONAL (a migration in flight is the system
-            # changing schemas without downtime, not unreadiness); covers
-            # the in-process and the remote engine's status alike
+            # — INFORMATIONAL like rebalance (a migration in flight is
+            # the system changing schemas without downtime, not
+            # unreadiness); covers the sharded planner's aggregate and
+            # the single-engine (in-proc or remote) status alike
             mig_fn = (getattr(self.deps.engine, "migration_status", None)
                       or getattr(self.deps.engine, "migrate_status",
                                  None))
@@ -197,6 +233,23 @@ class Server:
                         f"classification={mig.get('classification')} "
                         f"lag={mig.get('lag')} "
                         f"backfilled={mig.get('backfilled')}")
+            # autoscaler posture: INFORMATIONAL like migration — a
+            # proposal (or a transition it started) is the elasticity
+            # design working, not unreadiness
+            if self.autoscale_controller is not None:
+                try:
+                    st = self.autoscale_controller.status()
+                    last = st.get("last_proposal")
+                    last_s = ("none" if not last else
+                              f"{last['action']}->"
+                              f"{last['target_groups']}")
+                    info_lines.append(
+                        f"autoscale: mode={st['mode']} "
+                        f"groups={st['groups']} "
+                        f"transitions={st['transitions']} "
+                        f"last={last_s}")
+                except Exception:  # noqa: BLE001 - readyz must answer
+                    info_lines.append("autoscale: status unavailable")
             # admission shed/queue state is INFORMATIONAL: shedding is
             # the overload design working, not unreadiness — pulling a
             # shedding replica from rotation would dump its share of the

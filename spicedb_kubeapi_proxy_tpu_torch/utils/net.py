@@ -1,4 +1,10 @@
-"""Shared asyncio server shutdown discipline.
+"""Shared networking helpers: the ``host:port`` list grammar and the
+asyncio server shutdown discipline.
+
+``parse_endpoints`` is the one owner of the endpoint-list grammar
+(``host:port,host:port,...``, bracketed IPv6 hosts allowed): the proxy's
+``tcp://`` engine endpoints and every shard-map group parse through it.
+
 
 Idle streaming/pooled connections (a watch with no traffic, a client's
 pooled engine socket blocked in a read) never write, so their handlers
@@ -12,6 +18,32 @@ from __future__ import annotations
 
 import asyncio
 import logging
+
+
+class EndpointError(ValueError):
+    """A malformed ``host:port`` list."""
+
+
+def parse_endpoints(spec: str) -> list[tuple[str, int]]:
+    """``host:port,host:port,...`` -> [(host, port)] in list order (the
+    index is a failover set's peer id). The error messages keep the JAX
+    package's ``parse_peers`` wording, which a shard map's group errors
+    carry."""
+    out = []
+    for part in (spec or "").split(","):
+        part = part.strip()
+        if not part:
+            continue
+        host, _, port = part.rpartition(":")
+        if host.startswith("[") and host.endswith("]"):
+            host = host[1:-1]
+        if not host or not port.isdigit() or not 0 < int(port) < 65536:
+            raise EndpointError(
+                f"--peers entry {part!r}: expected host:port")
+        out.append((host, int(port)))
+    if not out:
+        raise EndpointError("--peers: at least one host:port required")
+    return out
 
 
 async def drain_server(server: asyncio.AbstractServer, conns: set,

@@ -357,6 +357,41 @@ async def serve():
 asyncio.run(serve())
 cfg.deps.audit.close()
 cfg.engine.close_compaction()
+# scale-out: a planner over two in-process engines and one engine host,
+# the split journal, a grow through the mover (the host's slice ops), the
+# frontier exchange and an autoscale tick
+from spicedb_kubeapi_proxy_tpu_torch.autoscale import (
+    AutoscaleController, AutoscalePolicy, parse_policy)
+from spicedb_kubeapi_proxy_tpu_torch.scaleout import (
+    FrontierConfig, ShardedEngine, ShardMap, SplitJournal)
+loop = asyncio.new_event_loop()
+th = threading.Thread(target=loop.run_forever, daemon=True)
+th.start()
+hosted = Engine(device="cpu")
+srv = EngineServer(hosted)
+asyncio.run_coroutine_threadsafe(srv.start(), loop).result(30)
+host = RemoteEngine("127.0.0.1", srv.port)
+m1 = ShardMap(version=1, groups=((("h", 1),), (("h", 2),)))
+sp = ShardedEngine(m1, [Engine(device="cpu"), Engine(device="cpu")],
+                   journal=SplitJournal(tempfile.mkdtemp() + "/sj.sqlite"),
+                   frontier=FrontierConfig())
+sp.write_relationships([WriteOp("touch", parse_relationship(r)) for r in (
+    "namespace:a#viewer@user:u", "pod:a/p#creator@user:u",
+    "pod:b/p#viewer@user:u")])
+m2 = ShardMap(version=2, groups=m1.groups + ((("127.0.0.1", srv.port),),))
+coord = sp.begin_rebalance(m2, new_clients={2: host})
+assert coord.wait(60) and coord.error is None, coord.error
+assert sorted(sp.lookup_resources("pod", "view", "user", "u")) == \
+    ["a/p", "b/p"]
+assert host.frontier_pairs() == ()
+assert sp.frontier_closure("user", "u") == set()
+ctl = AutoscaleController(sp, AutoscalePolicy(parse_policy(
+    "max_groups=2,hysteresis_ticks=1,cooldown_seconds=0")), mode="dry-run")
+assert ctl.tick(now=0.0).action == "shrink"
+sp.close()
+asyncio.run_coroutine_threadsafe(srv.stop(), loop).result(60)
+loop.call_soon_threadsafe(loop.stop)
+th.join(30)
 bad = [m for m in sys.modules if m.split(".")[0] in
        ("jax", "jaxlib", "spicedb_kubeapi_proxy_tpu")]
 assert not bad, bad

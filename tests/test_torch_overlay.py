@@ -33,11 +33,13 @@ from spicedb_kubeapi_proxy_tpu.ops import reachability as jreach
 from spicedb_kubeapi_proxy_tpu.ops import semiring as jsemi
 from spicedb_kubeapi_proxy_tpu.utils.metrics import metrics as jmetrics
 from spicedb_kubeapi_proxy_tpu_torch.convert import from_reference_arrays
+from spicedb_kubeapi_proxy_tpu_torch.admission import AdmissionRejected
 from spicedb_kubeapi_proxy_tpu_torch.engine import CheckItem, Engine
 from spicedb_kubeapi_proxy_tpu_torch.engine.compaction import (
     MAX_RETRY_AFTER,
     MIN_RETRY_AFTER,
     OverlayBackpressure,
+    WriteTooLarge,
     validate_overlay_config,
 )
 from spicedb_kubeapi_proxy_tpu_torch.engine.evaluator import OracleEvaluator
@@ -568,6 +570,78 @@ def test_overlay_overflow_counted_fallback_without_compactor():
     assert _fallbacks(metrics)["overflow"] > fb0
     assert _compiles() > c0
     assert e.compiled().revision == e.store.revision
+
+
+def test_a_write_larger_than_the_overlay_is_never_shed_forever():
+    """A write whose records need more slots than the whole overlay
+    (4 a record) would not fit after any fold: the port refuses it for
+    good (WriteTooLarge, a store error naming the largest write that
+    fits, nothing applied), where the JAX package sheds it with a
+    Retry-After on every attempt, folds or no, so its writer retries
+    forever. A write of the limit's size lands."""
+    rows = [Relationship("namespace", f"ns{i % 12}", "viewer", "user",
+                         f"u{(i * 5 + i // 12) % 12}") for i in range(24)]
+    e = _port_engine(cap=64, n_users=12, n_ns=12)
+    c = e.enable_compaction(1.0)
+    assert e.max_write_records() == 16
+    rev = e.store.revision
+    for _ in range(3):
+        with pytest.raises(WriteTooLarge) as ex:
+            e.write_relationships([WriteOp("touch", r) for r in rows])
+        assert not isinstance(ex.value, AdmissionRejected)
+        assert (ex.value.n_records, ex.value.limit) == (24, 16)
+        assert e.store.revision == rev  # nothing applied
+        c.compact()
+    e.write_relationships([WriteOp("touch", r) for r in rows[:16]])
+    assert e.store.revision == rev + 1
+    _assert_oracle(e, n_users=12, n_ns=12)
+    e.close_compaction()
+    assert e.max_write_records() is None
+
+    je = JEngine(schema=jparse_schema(SCHEMA), delta_capacity=64)
+    import dataclasses
+
+    def jrel(r):
+        return JRelationship(**dataclasses.asdict(r))
+
+    je.write_relationships([JWriteOp("touch", jrel(r))
+                            for r in _base_rels(12, 12, 5, chain=False)])
+    je.compiled()
+    jc = je.enable_compaction(1.0)
+    big = [JWriteOp("touch", jrel(r)) for r in rows]
+    from spicedb_kubeapi_proxy_tpu.engine.compaction import \
+        OverlayBackpressure as JOverlayBackpressure
+    for _ in range(3):
+        with pytest.raises(JOverlayBackpressure):
+            je.write_relationships(big)
+        jc.compact()
+    je.close_compaction()
+
+
+def test_mover_chunks_fit_the_overlay():
+    """The slice ops' apply helper cuts its power-of-two chunks to half
+    of what the engine's overlay absorbs: 24 records into a 64-slot
+    overlay (16 records at most) land as three writes of 8, never one
+    the compactor refuses."""
+    from spicedb_kubeapi_proxy_tpu_torch.engine.remote import _apply_po2
+
+    rows = [Relationship("namespace", f"ns{i % 12}", "viewer", "user",
+                         f"u{(i * 5 + i // 12) % 12}") for i in range(24)]
+    e = _port_engine(cap=64, n_users=12, n_ns=12)
+    e.enable_compaction(1.0)
+    sizes = []
+    real = e.write_relationships
+
+    def spy(ops, *a, **kw):
+        sizes.append(len(ops))
+        return real(ops, *a, **kw)
+
+    e.write_relationships = spy
+    rev = e.store.revision
+    assert _apply_po2(e, rows, "touch") == rev + 3
+    assert sizes == [8, 8, 8]
+    _assert_oracle(e, n_users=12, n_ns=12)
+    e.close_compaction()
 
 
 def test_overlay_full_sheds_bounded_retry_after_nothing_applied():

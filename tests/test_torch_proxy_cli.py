@@ -6,6 +6,9 @@
 card that is exit 2 with ``resolve_device``'s error, never a quiet CPU
 fallback. Every flag whose half of the system the port lacks is refused
 with the ROADMAP item that brings it, from the CLI and from ``Options``.
+The scale-out flags are accepted (``--device`` beside ``--shard-map`` is
+refused), and a sharded port proxy lists byte for byte like the JAX proxy
+over the same engine hosts.
 """
 
 from __future__ import annotations
@@ -186,3 +189,123 @@ def test_device_is_for_in_process_engines():
     with pytest.raises(OptionsError, match="unsupported device"):
         Options(rule_files=[RULES], upstream=InMemoryKube(),
                 device="meta").validate()
+
+
+# -- scale-out flags (scaleout/, autoscale/) ---------------------------------
+
+_GROUPS = '{"version": 1, "groups": [["127.0.0.1:1"], ["127.0.0.1:2"]]}'
+_SCALEOUT_FLAGS = (
+    ("--shard-map", [_GROUPS]),
+    ("--shard-journal-path", ["/tmp/sj.sqlite"]),
+    ("--shard-cache", []),
+    ("--rebalance-to", ['{"version": 2, "groups": [["127.0.0.1:1"], '
+                        '["127.0.0.1:2"], ["127.0.0.1:3"]]}']),
+    ("--autoscale", ["dry-run"]),
+    ("--autoscale-policy", ["max_groups=3,hysteresis_ticks=2"]),
+    ("--autoscale-tick-seconds", ["5"]),
+    ("--frontier-exchange", []),
+    ("--frontier-max-rounds", ["4"]),
+)
+
+
+@pytest.mark.parametrize("flag,args", _SCALEOUT_FLAGS,
+                         ids=[f for f, _ in _SCALEOUT_FLAGS])
+def test_scaleout_flag_is_accepted(flag, args):
+    import argparse
+
+    from spicedb_kubeapi_proxy_tpu_torch.proxy.options import (
+        add_flags,
+        options_from_args,
+    )
+
+    parser = argparse.ArgumentParser()
+    add_flags(parser)
+    argv = ["--rule-file", RULES, "--upstream-url", "http://127.0.0.1:1",
+            flag, *args]
+    if flag != "--shard-map":
+        argv += ["--shard-map", _GROUPS]
+    opts = options_from_args(parser.parse_args(argv))
+    assert opts.shard_map == _GROUPS and opts.device is None
+    dest = flag[2:].replace("-", "_")
+    assert getattr(opts, dest) not in (None, False, "off")
+    opts.validate()  # no card needed: each group's host owns its device
+
+
+def test_device_is_refused_beside_a_shard_map(capsys):
+    with pytest.raises(SystemExit) as ex:
+        cli.main(["--device", "cpu", "--rule-file", RULES,
+                  "--upstream-url", "http://127.0.0.1:1",
+                  "--shard-map", _GROUPS])
+    assert ex.value.code == 2
+    assert "each engine group owns its own" in capsys.readouterr().err
+
+
+def test_mesh_and_oidc_flags_still_name_their_items():
+    assert {item for *_, item, _what in _REFUSED} == {"A.5", "A.6"}
+    assert [r[2] for r in _REFUSED if r[3] == "A.5"] == ["--engine-mesh"]
+    assert all(r[2].startswith("--oidc-") for r in _REFUSED
+               if r[3] == "A.6")
+
+
+def test_sharded_port_proxy_lists_byte_for_byte_like_the_jax_proxy(
+        tmp_path):
+    """A port proxy and the JAX proxy, each with ``shard_map`` over the
+    same two port engine hosts and one upstream: alice's create lands
+    through the port proxy's dual write, and both proxies' lists (and
+    mallory's empty one) are the same bytes."""
+    from spicedb_kubeapi_proxy_tpu.proxy.inmemory import \
+        InMemoryClient as JClient
+    from spicedb_kubeapi_proxy_tpu.proxy.options import Options as JOptions
+    from spicedb_kubeapi_proxy_tpu_torch.engine import Engine
+    from spicedb_kubeapi_proxy_tpu_torch.engine.remote import EngineServer
+    from spicedb_kubeapi_proxy_tpu_torch.proxy.inmemory import \
+        InMemoryClient
+    from torch_parity import serving
+
+    rules = open(RULES).read()
+    boot = open(BOOTSTRAP).read()
+    engines = [Engine(bootstrap=boot, device="cpu") for _ in range(2)]
+    with serving(EngineServer, engines[0]) as a, \
+            serving(EngineServer, engines[1]) as b:
+        smap = ('{"version": 1, "groups": [["127.0.0.1:%d"], '
+                '["127.0.0.1:%d"]]}' % (a.port, b.port))
+        kube = InMemoryKube()
+
+        def cfg(opts_cls, tag):
+            return opts_cls(
+                shard_map=smap, engine_insecure=True, rule_content=rules,
+                upstream=kube,
+                shard_journal_path=str(tmp_path / f"{tag}-sj.sqlite"),
+                workflow_database_path=str(tmp_path / f"{tag}-dtx.sqlite"),
+            ).complete()
+
+        async def go():
+            port, jax = cfg(Options, "port"), cfg(JOptions, "jax")
+            await port.workflow.resume_pending()
+            await jax.workflow.resume_pending()
+            pa = InMemoryClient(port.server.handle, user="alice")
+            r = await pa.post("/api/v1/namespaces", {
+                "apiVersion": "v1", "kind": "Namespace",
+                "metadata": {"name": "team-a"}})
+            assert r.status == 201, r.body
+            out = []
+            for user in ("alice", "mallory"):
+                got = []
+                for handle, client in ((port.server.handle, InMemoryClient),
+                                       (jax.server.handle, JClient)):
+                    resp = await client(handle, user=user).get(
+                        "/api/v1/namespaces")
+                    assert resp.status == 200
+                    got.append(resp.body)
+                assert got[0] == got[1], user
+                out.append(json.loads(got[0])["items"])
+            ready = (await pa.get("/readyz")).body.decode()
+            for c in (port, jax):
+                await c.workflow.shutdown()
+                c.engine.close()
+            return out, ready
+
+        (alice, mallory), ready = asyncio.run(go())
+    assert [i["metadata"]["name"] for i in alice] == ["team-a"]
+    assert mallory == []
+    assert "[+]sharding: groups=2 map_version=1" in ready

@@ -958,16 +958,73 @@ def test_metrics_exposition_and_snapshots_match_the_reference():
 
 
 # ---------------------------------------------------------------------------
-# (e) ops whose engine half is not ported
+# (e) ops whose engine half is not ported, and the scale-out ops that are
 # ---------------------------------------------------------------------------
 
 REFUSED = {
     "mirror_subscribe": "A.5",
-    "slice_read": "A.7", "slice_load": "A.7", "slice_apply": "A.7",
-    "slice_drop": "A.7", "slice_watch": "A.7",
-    "frontier_pairs": "A.7", "frontier_expand": "A.7",
     "chaos_arm": "A.7", "chaos_reset": "A.7", "chaos_status": "A.7",
 }
+
+_ROW = {"resource_type": "pod", "resource_id": "b/q", "relation": "viewer",
+        "subject_type": "user", "subject_id": "v", "subject_relation": None,
+        "expiration": None, "caveat": None, "caveat_context": None}
+SERVED = {
+    "slice_read": {"ranges": [[0, 1 << 32]]},
+    "slice_load": {"rows": [_ROW]},
+    "slice_apply": {"ops": [{"op": "touch", "rel": _ROW},
+                            {"op": "delete", "rel": dict(
+                                _ROW, resource_id="a/p", subject_id="u")}]},
+    "slice_drop": {"ranges": [[0, 1 << 32]]},
+    "slice_watch": {"revision": 0},
+    "frontier_pairs": {},
+    "frontier_expand": {"descs": [["user", "u", None]],
+                        "pairs": [["namespace", "viewer"]]},
+}
+
+
+@pytest.mark.parametrize("op", sorted(SERVED))
+def test_scaleout_op_answers_as_a_jax_host(op):
+    """The rebalance mover's ``slice_*`` ops and the frontier exchange's
+    ops, sent raw to a port host and to a JAX host holding the same rows:
+    the same frame (a ``slice_read`` frame's rows decoded), and the same
+    rows left behind."""
+    rows = ["pod:a/p#viewer@user:u", "namespace:a#viewer@user:u",
+            "pod:a/p#namespace@namespace:a"]
+
+    def ask(server_cls, engine, wop, parse, codec):
+        engine.write_relationships([wop("touch", parse(r)) for r in rows])
+        req = dict(SERVED[op], op=op)
+        if op == "slice_load":
+            rels = [parse("pod:b/q#viewer@user:v")]
+            req = {"op": op, "payload_b64": __import__("base64").b64encode(
+                codec.encode_bulk_cols(remote._rels_to_cols(rels))).decode()}
+        with serving(server_cls, engine) as h:
+            raw = socket.create_connection(("127.0.0.1", h.port),
+                                           timeout=10)
+            try:
+                raw.sendall(remote._pack(req))
+                frame = remote._read_frame_sync(raw)
+            finally:
+                raw.close()
+        if isinstance(frame, tuple):
+            meta, payload = frame
+            frame = (meta, remote._cols_to_rels(codec.decode_bulk_cols(
+                payload)))
+        return frame, sorted(str(r) for r in engine.read_relationships(
+            RelationshipFilter()))
+
+    from spicedb_kubeapi_proxy_tpu.models.tuples import \
+        parse_relationship as jparse
+    from spicedb_kubeapi_proxy_tpu.persistence import codec as jcodec
+    from spicedb_kubeapi_proxy_tpu_torch.persistence import codec
+
+    got = ask(remote.EngineServer, Engine(device="cpu"), WriteOp,
+              parse_relationship, codec)
+    want = ask(jremote.EngineServer, JEngine(), JWriteOp, jparse, jcodec)
+    assert str(got) == str(want)
+    if isinstance(got[0], dict):
+        assert got[0]["ok"] is True, got
 
 
 @pytest.fixture(scope="module")

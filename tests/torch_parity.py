@@ -219,3 +219,73 @@ def fake_kube_class(pkg: str):
             return await super().__call__(req)
 
     return FakeKube
+
+
+def package(pkg: str):
+    """Either package's scale-out surface as one namespace (``"jax"`` or
+    ``"torch"``), so one test body runs on both and compares: the engine
+    (``engine(bootstrap)``, on the CPU for the port), its types, the
+    engine host and client, ``scaleout``, ``autoscale``, the admission
+    classes, the proxy's options and in-memory client, and the package's
+    own metrics registry."""
+    import importlib
+    import types as _types
+
+    base = {"jax": "spicedb_kubeapi_proxy_tpu",
+            "torch": "spicedb_kubeapi_proxy_tpu_torch"}[pkg]
+
+    def mod(name):
+        return importlib.import_module(f"{base}.{name}")
+
+    ns = _types.SimpleNamespace(name=pkg, base=base)
+    engine_mod = mod("engine.engine")
+    store = mod("engine.store")
+    remote = mod("engine.remote")
+    for src, names in (
+            (engine_mod, ("Engine", "CheckItem", "SchemaViolation",
+                          "WatchEvent", "mask_to_ids")),
+            (store, ("RelationshipFilter", "WriteOp", "Precondition",
+                     "PreconditionFailed", "StoreError")),
+            (remote, ("EngineServer", "RemoteEngine", "FailoverEngine")),
+            (mod("models.tuples"), ("Relationship",)),
+            (mod("admission"), ("AdmissionRejected", "CHECK", "CLASSES",
+                                "LOOKUP_PREFILTER", "REBALANCE",
+                                "WATCH_RECOMPUTE", "WRITE_DTX",
+                                "classify_op")),
+            (mod("utils.resilience"), ("DependencyUnavailable",)),
+            (mod("utils.metrics"), ("metrics",)),
+            (mod("scaleout"), ("FrontierConfig", "FrontierError",
+                               "MapTransition", "RebalanceCoordinator",
+                               "RebalanceError", "RevisionVector",
+                               "ShardMap", "ShardMapError",
+                               "ShardVectorCache", "ShardedEngine",
+                               "SplitJournal", "abort_transition",
+                               "decode_frontier", "encode_frontier",
+                               "expand_local", "hash_key",
+                               "load_shard_map", "map_to_doc",
+                               "parse_shard_map", "plan_moves",
+                               "reference_pairs", "shrink_map",
+                               "split_resource")),
+            (mod("autoscale"), ("AutoscaleController", "AutoscaleError",
+                                "AutoscalePolicy", "PolicyConfig",
+                                "Signals", "parse_policy")),
+            (mod("proxy.options"), ("Options", "OptionsError")),
+            (mod("proxy.inmemory"), ("InMemoryClient",))):
+        for n in names:
+            setattr(ns, n, getattr(src, n))
+    ns.remote = remote
+    ns.rebalance = mod("scaleout.rebalance")
+    ns.FakeKube = fake_kube_class(base)
+
+    def engine(bootstrap=None, **kw):
+        if pkg == "torch":
+            kw.setdefault("device", "cpu")
+        return ns.Engine(bootstrap=bootstrap, **kw)
+
+    ns.engine = engine
+    return ns
+
+
+def counter(P, name: str, **labels) -> float:
+    """A counter's value in package ``P``'s own metrics registry."""
+    return P.metrics.counter(name, **labels).value
