@@ -178,12 +178,48 @@ K. the proxy itself (the port's rules/, authz/, dtx/ and proxy/) on the
    lists from 32 client threads, batching off and on: lists/s; (f) the
    proxy CLI as a subprocess with no ``--device`` (cuda) over a port
    ``InMemoryKube`` this script serves: alice creates and lists a
-   namespace, mallory gets [] and a 403, SIGTERM -> exit 0;
+   namespace, mallory gets [] and a 403, SIGTERM -> exit 0; (g) the
+   proxy behind OIDC: the same ``Server`` with an ``OIDCAuthenticator``
+   (proxy/oidc.py, the ``--oidc-*`` options validated) whose issuer is a
+   loopback HTTP server this script runs (discovery and JWKS; one
+   2048-bit RSA key made from ``--seed``, RS256 tokens signed here with
+   proxy/jose.py): (a)'s 31 lists with a bearer JWT and no
+   X-Remote-User, wall p50/p99 beside (a)'s, each list byte for byte as
+   in (a), the token's verification alone, and an expired token, an
+   unknown ``kid`` and a wrong audience answering 401;
+D. the demo (proxy/demo.py ``build`` on the card) and its two users'
+   lists: alice sees dev, carol prod;
+F. the ``--peers`` failover set (parallel/failover.py, parallel/
+   multihost.py) after K: two engine-host CLIs on loopback sharing the
+   card, ``python -m spicedb_kubeapi_proxy_tpu_torch.engine.remote
+   --peers A,B --peer-id i --data-dir <copy of P's data dir>
+   --wal-fsync always --mirror-heartbeat-seconds 0.5
+   --min-sync-replicas 1`` (no ``--device``: the card), the port's
+   ``FailoverEngine`` the client, and OracleEvaluator's lists of phase
+   6's 64 subjects over P's recovered store (one evaluator a user, built
+   while the peers boot) the reference. (a) spawn to election, the
+   leader's first list (its 10M compile), the 64 lists and the 64 x
+   1,024 bulk check through the leader exact against the oracle, 100
+   sync-replicated writes (each ack waits for the follower's fsynced
+   journal) p50/p99 beside R.c's unreplicated wire write, each peer's
+   device memory (nvidia-smi); (b) SIGKILL of the leader under a stream
+   of acknowledged writes: kill -> promotion and kill -> the first list
+   the new leader serves (its 10M compile), every acknowledged write read
+   back from it, the lists and the bulk check exact again, and the
+   survivor, alone, failing writes closed (``--min-sync-replicas 1``);
+   (c) the killed peer restarted on its data dir rejoins as a follower
+   (an effects catch-up or, across the term change, a full state
+   transfer; timed), writes are acknowledged again, then it restarts on
+   an EMPTY data dir and takes a full 10M state transfer (the leader's
+   cut and encode, the frame's bytes and arrival, the follower's
+   install, from both logs); SIGTERM of both, exit 0, the new leader
+   logging its kernel launches;
 10. the caveated mix, with phase 3-9's engine released first: bench.py's
     caveated mesh configuration (MESH_SCHEMA, 30% of the flat
     pod#viewer grants carrying an IP allowlist in one of two stored
     contexts, a nested chain of 6 groups, seed 2) at the same widths and
-    relationship count. (a) bulk load, compile and device build, with the
+    half the relationships (reduced, so the run keeps room for phase F
+    within its 1,200 s). (a) bulk load, compile and device build, with the
     residual, the caveat rows and the tape length; (b) phase 5's list
     filters under three request contexts (one both stored contexts
     allow, one only the first allows, none): p50/p99, the caveat VM's
@@ -218,7 +254,7 @@ X. scale-out (scaleout/, autoscale/), after phase 10's engine is released:
    state), 1,024 routed single checks (the scatter counter still) and
    phase 6's 64 x 1,024 bulk check scatter-gathered (its verdicts),
    device bytes a group; (b) on the reference bench's 10x shard point
-   with a quarter of its namespaces (5,000 x 12 pods, 512 users; the
+   with an eighth of its namespaces (2,500 x 12 pods, 512 users; the
    compactor and the 4,096-slot overlay of the engine host's defaults on
    each group), a live 2 -> 4 rebalance under a lister
    (every list exact) and a writer every 10 ms (pod grants and
@@ -250,8 +286,12 @@ host's engine calls in R.a-R.d, the reference answers computed outside
 the tally; R.e's subprocess proves its device through nvidia-smi and its
 answers; ``migration_path_launches``: the migrated engine's calls in
 M.a-M.b, its lister's and the host's included; ``proxy_path_launches``:
-the proxy's requests in K.a-K.e and 10i, the stages timed alone
-outside them; ``scaleout_path_launches``: every group engine's calls in
+the proxy's requests in K.a-K.e, K.g and 10i, the stages timed alone
+outside them; ``demo_path_launches``: the demo's two lists (its small
+graph may form no dense block, so 0 is allowed there);
+``failover_path_launches``: what F's surviving leader logged at its
+exit, its lists and bulk checks after the promotion (the subprocess's
+own counts; the killed leader's die with it); ``scaleout_path_launches``: every group engine's calls in
 X.a-X.e). Both kernels must have run on every path
 (the persistence path runs lists only, and a check of the proxy path
 takes the engine's push or pull choice: their bit kernel). The bit kernel's row also carries its readings at the fused
@@ -352,6 +392,11 @@ REPLACES = {
     "bit_or_matmul": "spicedb_kubeapi_proxy_tpu/ops/bitprop.py:151",
     "dense_or_matmul": "spicedb_kubeapi_proxy_tpu/ops/bitprop.py:258",
 }
+
+
+# numbers a later phase prints beside its own: R.c's wire write p50/p99
+# ("r_write") and K.a's proxy list p50/p99 ("k_a"), in ms
+MEASURED: dict = {}
 
 
 class SmokeFailure(Exception):
@@ -1034,24 +1079,30 @@ def view_masks(store, users, now: float, n: int) -> dict:
     return out
 
 
-def user_oracles(snap, schema, OracleEvaluator, Snapshot, users,
-                 now: float, context=None) -> dict:
-    """An OracleEvaluator for each user (under the caveat ``context``),
-    each over the rows that can reach that user: every row whose subject
-    is not a user, and the user's own (and wildcard) rows. Rows of other
-    users never match a user subject, so for that user it answers as the
-    full oracle does, at a fraction of its build time."""
+def subset_oracle(snap, schema, OracleEvaluator, Snapshot, users,
+                  now: float, context=None):
+    """ONE OracleEvaluator (under the caveat ``context``) over the rows
+    that can reach any of ``users``: every row whose subject is not a
+    user, and their own and wildcard rows. Rows of other users never
+    match these subjects, so for them it answers as the full oracle
+    does, for a fraction of its build time (the whole 10M store took ~30
+    s to build)."""
     c = snap.cols
     t_user = snap.types.lookup("user")
     uid = snap.objects[t_user].id_map()
-    out = {}
-    for u in users:
-        keep = np.flatnonzero((c.st != t_user) | (c.sid == uid[u])
-                              | (c.sid == 1))
-        sub = Snapshot(snap.revision, c.take(keep), snap.types,
-                       snap.relations, snap.objects, snap.caveat_instances)
-        out[u] = OracleEvaluator(schema, sub, now=now, context=context)
-    return out
+    mine = np.array(sorted({uid[u] for u in users if u in uid}))
+    keep = np.flatnonzero((c.st != t_user) | np.isin(c.sid, mine)
+                          | (c.sid == 1))
+    return OracleEvaluator(schema, Snapshot(
+        snap.revision, c.take(keep), snap.types, snap.relations,
+        snap.objects, snap.caveat_instances), now=now, context=context)
+
+
+def user_oracles(snap, schema, OracleEvaluator, Snapshot, users,
+                 now: float, context=None) -> dict:
+    """A subset_oracle for each user."""
+    return {u: subset_oracle(snap, schema, OracleEvaluator, Snapshot, [u],
+                             now, context) for u in users}
 
 
 def oracle_ids(store, schema, OracleEvaluator, Snapshot, users,
@@ -2463,6 +2514,7 @@ def remote_phase(torch, e, subjects: list, items: list, now: float,
         wire = {u: c.lookup_resources_mask("pod", "view", "user", u)[0]
                 for u in sorted(touched)}
         same_masks(wire, list_masks(e, sorted(touched)), "R.c")
+        MEASURED["r_write"] = {"p50": pct(w_ms, 50), "p99": pct(w_ms, 99)}
         log(f"phase R.c writes over the wire: {len(w_ms)} write->read pairs "
             f"(after one warm pair), write p50 {pct(w_ms, 50):.3f} ms p99 "
             f"{pct(w_ms, 99):.3f} ms (the engine's write inside the host "
@@ -2562,6 +2614,14 @@ def remote_phase(torch, e, subjects: list, items: list, now: float,
     return launches.n
 
 
+def smi_apps() -> str:
+    """nvidia-smi's compute apps, ``pid, used_memory`` a line."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip()
+
+
 def host_cli_phase(torch, here: str, data_src: str, schema: str,
                    users: list, want: dict) -> str:
     """Phase R.e: ``python -m spicedb_kubeapi_proxy_tpu_torch.engine.remote``
@@ -2598,12 +2658,6 @@ def host_cli_phase(torch, here: str, data_src: str, schema: str,
     def tail() -> str:
         with open(log_path, errors="replace") as fh:
             return fh.read()[-3000:]
-
-    def smi_apps() -> str:
-        return subprocess.run(
-            ["nvidia-smi", "--query-compute-apps=pid,used_memory",
-             "--format=csv,noheader"], capture_output=True, text=True,
-            timeout=60).stdout.strip()
 
     free0 = torch.cuda.mem_get_info()[0]
     apps0 = smi_apps().splitlines()
@@ -3339,7 +3393,8 @@ class KStack:
     its own), wired as ``Options.complete()`` wires it, around an engine
     that exists already."""
 
-    def __init__(self, e, rules: str, upstream, db: Optional[str] = None):
+    def __init__(self, e, rules: str, upstream, db: Optional[str] = None,
+                 token_authenticator=None):
         from spicedb_kubeapi_proxy_tpu_torch.authz import AuthzDeps
         from spicedb_kubeapi_proxy_tpu_torch.dtx import (
             ActivityHandler,
@@ -3361,7 +3416,8 @@ class KStack:
             ActivityHandler(e, upstream).register(self.workflow)
         self.deps = AuthzDeps(matcher=MapMatcher.from_yaml(rules), engine=e,
                               upstream=upstream, workflow=self.workflow)
-        self.server = Server(self.deps, HeaderAuthenticator(), port=0)
+        self.server = Server(self.deps, HeaderAuthenticator(), port=0,
+                             token_authenticator=token_authenticator)
         self.lt = LoopThread()
         if self.workflow is not None:
             self.lt.run(self.workflow.resume_pending())
@@ -3564,6 +3620,7 @@ def proxy_phase(torch, e, here: str, subjects: list, seed: int) -> dict:
         finally:
             filterer._filter_list_wire = wire
         wo = [w - h for w, h in zip(wall, handle)]
+        MEASURED["k_a"] = {"p50": pct(wall, 50), "p99": pct(wall, 99)}
         log(f"phase K.a GET /api/v1/pods through the port's proxy over "
             f"loopback HTTP (pod-list-watch's prefilter; an upstream "
             f"PodList of {n_list} items, {len(body)} bytes, built once in "
@@ -4346,10 +4403,11 @@ def caveat_phase(torch, dev, n_rels: int, subjects: list, items: list,
 
 # X.b and X.d's store: the reference bench's 10x shard point
 # (bench.py:2428-2433: 20,000 namespaces x 12 pods, 512 users, generated
-# as _shard_phase_at_scale does) with a quarter of its namespaces: moving
+# as _shard_phase_at_scale does) with an eighth of its namespaces: moving
 # the whole point took X.b and X.d 195-238 s on the H100 (700 W), past
-# the ~150 s phase X is given in all
-X10_NS, X10_PODS_PER_NS, X10_USERS = 5_000, 12, 512
+# the ~150 s phase X is given in all, and a quarter still left the run
+# too little room for phase F under the 1,200 s the script is given
+X10_NS, X10_PODS_PER_NS, X10_USERS = 2_500, 12, 512
 X_VNODES = 64
 X_SUBJECTS = 64  # X.a and X.c's list subjects (phase 5's 31 and 33 more)
 X_PROXY_LISTS = 11  # X.e's GET /api/v1/pods
@@ -4833,8 +4891,8 @@ def x_rebalance(torch, dev, here: str, seed: int, launches) -> None:
                   compaction=True, spare=2)
     p = fleet.planner
     n_rows = len(ns_viewer) + 2 * len(pod_rows)
-    log(f"phase X.b the 10x shard point (bench.py:2428-2433) with a "
-        f"quarter of its namespaces: {X10_NS} "
+    log(f"phase X.b the 10x shard point (bench.py:2428-2433) with "
+        f"{X10_NS / 20_000:g} of its namespaces: {X10_NS} "
         f"namespaces x {X10_PODS_PER_NS} pods, {X10_USERS} users, "
         f"{n_rows} relationships), groups 0-1 loaded (rows "
         f"{[len(c['resource_id']) for c in cols[:2]]}), groups 2-3 empty, "
@@ -5141,6 +5199,673 @@ def scaleout_phase(torch, dev, here: str, seed: int, base: tuple,
     return launches.n
 
 
+F_HEARTBEAT = 0.5  # --mirror-heartbeat-seconds of phase F's peers
+F_WRITES = 100  # F.a's sync-replicated writes, one after another
+
+
+def launch_line(text: str) -> dict:
+    """The kernel launches an engine-host CLI logs at its shutdown."""
+    out = {}
+    key = "kernel launches in this process:"
+    for ln in text.splitlines():
+        if key in ln:
+            for part in ln.split(key, 1)[1].split():
+                k, _, v = part.partition("=")
+                out[k] = int(v)
+    return out
+
+
+class Peer:
+    """One ``--peers`` engine-host CLI of phase F (no ``--device``: the
+    card), logging to a file of its own."""
+
+    def __init__(self, here: str, pid: int, ports: list, data_dir: str,
+                 boot: str, log_path: str):
+        self.here, self.id, self.ports = here, pid, ports
+        self.port = ports[pid]
+        self.data_dir, self.boot, self.log_path = data_dir, boot, log_path
+        self.p = None
+
+    def spawn(self) -> float:
+        with open(self.log_path, "a") as logf:
+            t0 = time.perf_counter()
+            self.p = subprocess.Popen(
+                [sys.executable, "-m",
+                 "spicedb_kubeapi_proxy_tpu_torch.engine.remote",
+                 "--engine-insecure", "--bind-port", str(self.port),
+                 "--bootstrap", self.boot, "--data-dir", self.data_dir,
+                 "--peers", ",".join(f"127.0.0.1:{p}" for p in self.ports),
+                 "--peer-id", str(self.id), "--wal-fsync", "always",
+                 "--mirror-heartbeat-seconds", str(F_HEARTBEAT),
+                 "--failover-boot-grace", "60",
+                 "--min-sync-replicas", "1", "--replication-timeout", "20"],
+                cwd=self.here, stdout=logf, stderr=subprocess.STDOUT)
+        return t0
+
+    def log(self) -> str:
+        with open(self.log_path, errors="replace") as fh:
+            return fh.read()
+
+    def tail(self) -> str:
+        return self.log()[-3000:]
+
+    def alive(self) -> bool:
+        return self.p is not None and self.p.poll() is None
+
+    def state(self) -> Optional[dict]:
+        from spicedb_kubeapi_proxy_tpu_torch.engine import remote
+
+        c = remote.RemoteEngine("127.0.0.1", self.port, timeout=2.0,
+                                connect_timeout=1.0, retries=0)
+        try:
+            return c.failover_state()
+        except Exception:  # noqa: BLE001 - not up (yet), or dead
+            return None
+        finally:
+            c.close()
+
+    def kill(self) -> None:
+        if self.alive():
+            self.p.kill()
+        if self.p is not None:
+            self.p.wait(60)
+
+
+def wait_for(what: str, fn, budget: float, peers=()):
+    """Poll ``fn`` every 50 ms until it returns a truthy value; fail the
+    run after ``budget`` seconds or when a peer process dies."""
+    t0 = time.perf_counter()
+    while True:
+        got = fn()
+        if got:
+            return got
+        for p in peers:
+            check(p.alive(), f"F: peer {p.id} exited while waiting for "
+                  f"{what} ({p.p.returncode}):\n{p.tail()}")
+        check(time.perf_counter() - t0 < budget,
+              f"F: no {what} within {budget:.0f} s")
+        time.sleep(0.05)
+
+
+F_ORACLE_USERS = 2  # F's users held against OracleEvaluator itself
+
+
+def f_reference(here: str, schema: str, users: list, now: float) -> tuple:
+    """(revision, pod#view ids of ``users`` at ``now``, seconds) over
+    phase P's data dir, the state both peers recover: a plain store
+    recovered from it, the columnar reference (view_masks) for every
+    user, itself equal to OracleEvaluator's ids on the first
+    F_ORACLE_USERS (subset_oracle; a lookup takes ~2 s a user at 10M)."""
+    from spicedb_kubeapi_proxy_tpu_torch.engine.evaluator import \
+        OracleEvaluator
+    from spicedb_kubeapi_proxy_tpu_torch.engine.store import Snapshot, Store
+    from spicedb_kubeapi_proxy_tpu_torch.models import parse_schema
+    from spicedb_kubeapi_proxy_tpu_torch.persistence.recovery import recover
+
+    st = Store()
+    recover(st, os.path.join(here, "build", "persist", "data"))
+    t_pod = st.types.lookup("pod")
+    pods = st.objects[t_pod]
+    masks = view_masks(st, users, now, len(pods))
+    got = {u: {pods.string(int(i)) for i in np.flatnonzero(m)}
+           for u, m in masks.items()}
+    t0 = time.perf_counter()
+    o = subset_oracle(st.snapshot(), parse_schema(schema), OracleEvaluator,
+                      Snapshot, users[:F_ORACLE_USERS], now)
+    want = {u: o.lookup_resources("pod", "view", "user", u)
+            for u in users[:F_ORACLE_USERS]}
+    for u, ids in want.items():
+        check(got[u] == ids, f"F: the columnar reference of {u} differs "
+              f"from OracleEvaluator ({len(got[u])} vs {len(ids)} pods)")
+    return st.revision, got, time.perf_counter() - t0
+
+
+def failover_phase(torch, here: str, schema: str, users: list,
+                   items: list, r_write: dict) -> dict:
+    """Phase F: the ``--peers`` failover set of two engine-host CLIs on
+    the one card (see the module docstring). Returns both kernels'
+    launches in the set's surviving leader."""
+    import signal
+    import socket
+
+    from spicedb_kubeapi_proxy_tpu_torch.engine import CheckItem, remote
+    from spicedb_kubeapi_proxy_tpu_torch.engine.store import (
+        StoreError,
+        WriteOp,
+    )
+    from spicedb_kubeapi_proxy_tpu_torch.models.tuples import Relationship
+    from spicedb_kubeapi_proxy_tpu_torch.utils.resilience import \
+        DependencyUnavailable
+
+    root = os.path.join(here, "build", "persist")
+    boot = os.path.join(root, "f_bootstrap.yaml")
+    with open(boot, "w") as fh:
+        fh.write("schema: |\n" + "".join(
+            f"  {ln}\n" for ln in schema.strip("\n").splitlines()))
+    ports = []
+    for _ in range(2):
+        s = socket.socket()
+        s.bind(("127.0.0.1", 0))
+        ports.append(s.getsockname()[1])
+        s.close()
+    peers = []
+    for i in range(2):
+        d = os.path.join(root, f"f_peer{i}")
+        shutil.rmtree(d, ignore_errors=True)
+        shutil.copytree(os.path.join(root, "data"), d)
+        lp = os.path.join(root, f"f_peer{i}.log")
+        if os.path.exists(lp):
+            os.unlink(lp)
+        peers.append(Peer(here, i, ports, d, boot, lp))
+    apps0 = smi_apps()
+    fe = None
+    try:
+        # -- F.a: boot to election, then the steady set --
+        t0 = min(p.spawn() for p in peers)
+        seen: dict = {}  # the election, watched while the oracle builds
+
+        def leader():
+            for p in peers:
+                st = p.state()
+                if st and st["role"] == "leader":
+                    return p, st
+            return None
+
+        def watch():
+            while "leader" not in seen and time.perf_counter() - t0 < 240 \
+                    and all(p.alive() for p in peers):
+                got = leader()
+                if got:
+                    seen["leader"] = (time.perf_counter() - t0, got)
+                time.sleep(0.05)
+
+        wt = threading.Thread(target=watch, daemon=True)
+        wt.start()
+        now = time.time()
+        t1 = time.perf_counter()
+        p_rev, want, oracle_s = f_reference(here, schema, users, now)
+        ref_s = time.perf_counter() - t1
+        wt.join(300)
+        check("leader" in seen, "F.a: no election within 240 s:\n"
+              + "\n".join(p.tail() for p in peers))
+        elect_s, (lead, st) = seen["leader"]
+        fol = peers[1 - lead.id]
+        fst = wait_for("a follower", lambda: (
+            lambda s: s if s and s["role"] == "follower" and s["lag"] == 0
+            and s["revision"] == st["revision"] else None)(fol.state()),
+            120, peers)
+        check(st["revision"] == p_rev == fst["revision"],
+              f"F.a: revisions leader {st['revision']}, follower "
+              f"{fst['revision']}, P's data dir {p_rev}")
+        for p in peers:
+            check("engine on cuda" in p.log(),
+                  f"F.a: peer {p.id} is not on the card:\n{p.tail()}")
+        fe = remote.FailoverEngine(
+            [("127.0.0.1", p) for p in ports], timeout=120.0,
+            connect_timeout=2.0, retries=0, probe_timeout=2.0,
+            resolve_deadline=60.0)
+        t1 = time.perf_counter()
+        m, ids = fe.lookup_resources_mask("pod", "view", "user", users[0],
+                                          now=now)
+        first_s = time.perf_counter() - t1
+        apps_a = smi_apps()
+
+        def exact(label: str) -> tuple:
+            # every query at the oracle's clock: phase 9's grants that
+            # expire 600 s after it lapse around this phase
+            lat = []
+            for u in users:
+                t = time.perf_counter()
+                m, ids = fe.lookup_resources_mask("pod", "view", "user", u,
+                                                  now=now)
+                lat.append((time.perf_counter() - t) * 1e3)
+                got = {ids.string(int(i)) for i in np.flatnonzero(m)}
+                check(got == want[u], f"{label}: {u}'s list differs from "
+                      f"the reference ({len(got)} vs {len(want[u])} pods)")
+            t = time.perf_counter()
+            verdicts = fe.check_bulk(items, now=now)
+            bulk_s = time.perf_counter() - t
+            exp = [it.resource_id in want[it.subject_id] for it in items]
+            check(list(verdicts) == exp, f"{label}: "
+                  f"{sum(a != b for a, b in zip(verdicts, exp))} bulk "
+                  f"verdicts differ from the reference")
+            return lat, len(items) / bulk_s, sum(exp)
+
+        lat_a, cps_a, n_allowed = exact("F.a")
+
+        def fw(i):
+            return WriteOp("touch", Relationship(
+                "pod", f"ns/f{i}", "viewer", "user", "fw"))
+
+        w_ms = []
+        for i in range(F_WRITES):
+            t = time.perf_counter()
+            fe.write_relationships([fw(i)])
+            w_ms.append((time.perf_counter() - t) * 1e3)
+        acked = list(range(F_WRITES))
+        fst = wait_for("the follower's revision", lambda: (
+            lambda s: s if s and s["revision"] == lead.state()["revision"]
+            else None)(fol.state()), 30, peers)
+        log(f"phase F.a a --peers set of two engine-host CLIs on the card "
+            f"(no --device; --wal-fsync always, heartbeat {F_HEARTBEAT} s, "
+            f"--min-sync-replicas 1), each on a copy of phase P's data dir "
+            f"(revision {p_rev}): spawn -> peer {lead.id} elected leader "
+            f"(term {st['term']}) {elect_s:.2f} s, follower at lag 0; the "
+            f"leader's first list (its 10M compile) {first_s:.2f} s; "
+            f"{len(users)} lists through the port's FailoverEngine p50 "
+            f"{pct(lat_a, 50):.3f} ms p99 {pct(lat_a, 99):.3f} ms, the 64 "
+            f"x 1,024 bulk check {cps_a:,.0f} checks/s ({n_allowed} "
+            f"allowed), every list and verdict equal at one clock to the "
+            f"columnar reference over P's recovered store, itself equal to "
+            f"OracleEvaluator on {F_ORACLE_USERS} users ({ref_s:.1f} s, "
+            f"{oracle_s:.1f} s of it the oracles, while the peers booted); "
+            f"{F_WRITES} "
+            f"sync-replicated writes (the ack waits for the follower's "
+            f"fsynced journal) p50 {pct(w_ms, 50):.3f} ms p99 "
+            f"{pct(w_ms, 99):.3f} ms, beside R.c's unreplicated wire write "
+            f"p50 {r_write.get('p50', float('nan')):.3f} ms p99 "
+            f"{r_write.get('p99', float('nan')):.3f} ms; follower at "
+            f"revision {fst['revision']}")
+        log(f"  device memory by compute app (pid, used): before the set "
+            f"{apps0.replace(chr(10), '; ')}; leader serving, follower "
+            f"idle: {apps_a.replace(chr(10), '; ')} (peers' pids "
+            f"{[p.p.pid for p in peers]}, this process {os.getpid()})")
+
+        # -- F.b: SIGKILL the leader under a stream of acknowledged writes
+        stop = threading.Event()
+        fails: list = []
+        base = F_WRITES
+
+        def writer():
+            i = base
+            while not stop.is_set():
+                try:
+                    fe.write_relationships([fw(i)])
+                    acked.append(i)
+                except (StoreError, DependencyUnavailable, OSError) as ex:
+                    fails.append((time.perf_counter(), type(ex).__name__,
+                                  str(ex)[:200]))
+                i += 1
+                time.sleep(0.02)
+
+        wt = threading.Thread(target=writer, daemon=True)
+        wt.start()
+        wait_for("acked writes before the kill",
+                 lambda: len(acked) >= F_WRITES + 20, 60, peers)
+        n_before = len(acked)
+        t_kill = time.perf_counter()
+        lead.kill()
+        new = wait_for("a promotion", lambda: (
+            lambda s: s if s and s["role"] == "leader" else None)(
+                fol.state()), 120, [fol])
+        promote_s = time.perf_counter() - t_kill
+        probe = remote.FailoverEngine(
+            [("127.0.0.1", p) for p in ports], timeout=120.0,
+            connect_timeout=1.0, retries=0, probe_timeout=1.0,
+            resolve_deadline=5.0)
+        try:
+            def first_list():
+                try:
+                    return probe.lookup_resources_mask(
+                        "pod", "view", "user", users[0], now=now)
+                except (DependencyUnavailable, OSError):
+                    return None
+            wait_for("the new leader's first list", first_list, 240, [fol])
+        finally:
+            probe.close()
+        served_s = time.perf_counter() - t_kill
+        wait_for("writes failing closed while alone", lambda: any(
+            t > t_kill + promote_s and "min-sync-replicas" in msg
+            for t, _, msg in fails), 60, [fol])
+        stop.set()
+        wt.join(60)
+        after_kill = acked[n_before:]
+        closed = [msg for t, _, msg in fails
+                  if t > t_kill + promote_s and "min-sync-replicas" in msg]
+        verdicts = fe.check_bulk([CheckItem("pod", f"ns/f{i}", "view",
+                                             "user", "fw") for i in acked])
+        lost = [i for i, ok in zip(acked, verdicts) if not ok]
+        check(not lost, f"F.b: acknowledged writes lost in the failover: "
+              f"{lost[:10]}")
+        lat_b, cps_b, _ = exact("F.b")
+        apps_b = smi_apps()
+        log(f"phase F.b SIGKILL of leader peer {lead.id} after "
+            f"{n_before} acknowledged writes, mid-stream: peer {fol.id} "
+            f"promoted (term {new['term']}) {promote_s:.2f} s after the "
+            f"kill, its first list served {served_s:.2f} s after it (the "
+            f"re-resolve and its 10M compile); {len(after_kill)} writes "
+            f"acknowledged after the kill, {len(fails)} failed closed "
+            f"({sorted(set(n for _, n, _ in fails))}; alone, "
+            f"--min-sync-replicas 1 refuses every write: "
+            f"{closed[0][:90]!r}); all {len(acked)} acknowledged writes "
+            f"read back from the new leader; {len(users)} lists p50 "
+            f"{pct(lat_b, 50):.3f} ms and the bulk check "
+            f"{cps_b:,.0f} checks/s, every answer equal to the reference")
+        log(f"  device memory by compute app after the promotion: "
+            f"{apps_b.replace(chr(10), '; ')}")
+
+        # -- F.c: the killed peer rejoins; then an empty data dir --
+        t1 = lead.spawn()
+        rej = wait_for("the rejoin", lambda: (
+            lambda s, l: s if s and l and s["role"] == "follower"
+            and s["lag"] == 0 and s["revision"] == l["revision"]
+            and s["term"] == l["term"] else None)(lead.state(),
+                                                   fol.state()),
+            240, [lead, fol])
+        rejoin_s = time.perf_counter() - t1
+        form = [ln.split("catch-up:", 1)[1].strip()
+                for ln in lead.log().splitlines() if "catch-up:" in ln]
+        t = time.perf_counter()
+        fe.write_relationships([fw(10_000)])
+        w_again = (time.perf_counter() - t) * 1e3
+        acked.append(10_000)
+        lead.kill()  # its data dir is wiped next: no checkpoint needed
+        shutil.rmtree(lead.data_dir)
+        t1 = lead.spawn()
+        full = wait_for("the full state transfer", lambda: (
+            lambda s, l: s if s and l and s["role"] == "follower"
+            and s["lag"] == 0 and s["revision"] == l["revision"]
+            else None)(lead.state(), fol.state()), 300, [lead, fol])
+        full_s = time.perf_counter() - t1
+        sent = [ln.split("mirror catch-up", 1)[1].strip()
+                for ln in fol.log().splitlines() if "mirror catch-up" in ln]
+        got = [ln.split("catch-up", 1)[1].strip(" :")
+               for ln in lead.log().splitlines()
+               if "catch-up frame received" in ln
+               or "installed leader state" in ln]
+        check(sent and "full state" in sent[-1],
+              f"F.c: the leader sent no full state:\n{fol.tail()}")
+        verdicts = fe.check_bulk([CheckItem("pod", f"ns/f{i}", "view",
+                                             "user", "fw") for i in acked])
+        check(all(verdicts), "F.c: an acknowledged write is missing")
+        t = time.perf_counter()
+        fe.write_relationships([fw(10_001)])
+        w_full = (time.perf_counter() - t) * 1e3
+        log(f"phase F.c the killed peer restarted on its data dir: a "
+            f"follower again at the leader's term and revision "
+            f"{rej['revision']} {rejoin_s:.2f} s after its spawn "
+            f"({form[-1] if form else 'already current'}); a write acked "
+            f"again ({w_again:.3f} ms); then restarted on an EMPTY data "
+            f"dir: caught up {full_s:.2f} s after its spawn through a full "
+            f"state transfer (leader: {sent[-1]}; follower: "
+            f"{'; '.join(got[-2:])}); the next write {w_full:.3f} ms; "
+            f"every acknowledged write still reads back")
+        apps_c = smi_apps()
+        log(f"  device memory by compute app at the end: "
+            f"{apps_c.replace(chr(10), '; ')}")
+        fe.close()
+        fe = None
+        # SIGTERM: each host drains, logs its launches, then checkpoints
+        # 10M rows (~17 s); these dirs are thrown away, so once both
+        # lines are out the processes are killed instead
+        n_lines = [p.log().count("kernel launches in this process") for p
+                   in peers]
+        for p in peers:
+            p.p.send_signal(signal.SIGTERM)
+        wait_for("the hosts' launch lines", lambda: all(
+            p.log().count("kernel launches in this process") > k
+            for p, k in zip(peers, n_lines)), 120)
+        n = launch_line(fol.log())
+        log(f"  SIGTERM -> both drained and logged their kernel launches "
+            f"(then killed: no final checkpoint of dirs thrown away); the "
+            f"new leader's: {n} (the killed leader's were lost with it; "
+            f"the empty-dir follower's: {launch_line(lead.log())})")
+        return {"bit_or_matmul": n.get("bit_or_matmul", 0),
+                "dense_or_matmul": n.get("dense_or_matmul", 0)}
+    finally:
+        if fe is not None:
+            fe.close()
+        for p in peers:
+            if p.alive():
+                p.kill()
+
+
+def rsa_key(seed: int, bits: int = 2048) -> tuple:
+    """A deterministic RSA key (n, e, d) from ``seed``: two probable
+    primes by Miller-Rabin over ``random.Random(seed)``. A test issuer's
+    key, made here so the script needs no crypto package."""
+    import random
+
+    rng = random.Random(seed)
+    small = [p for p in range(3, 2000, 2)
+             if all(p % q for q in range(3, int(p ** 0.5) + 1, 2))]
+
+    def prime(nbits):
+        while True:
+            c = rng.getrandbits(nbits) | (1 << (nbits - 1)) | 1
+            if any(c % q == 0 for q in small):
+                continue
+            d, r = c - 1, 0
+            while d % 2 == 0:
+                d, r = d // 2, r + 1
+            for _ in range(24):
+                x = pow(rng.randrange(2, c - 1), d, c)
+                if x in (1, c - 1):
+                    continue
+                for _ in range(r - 1):
+                    x = pow(x, 2, c)
+                    if x == c - 1:
+                        break
+                else:
+                    break
+            else:
+                return c
+
+    e = 65537
+    while True:
+        p, q = prime(bits // 2), prime(bits // 2)
+        phi = (p - 1) * (q - 1)
+        if p != q and phi % e:
+            return p * q, e, pow(e, -1, phi)
+
+
+class Issuer:
+    """An OIDC issuer on loopback: the discovery document and a JWKS of
+    one RS256 key (kid ``k1``), served over HTTP on a thread of its own;
+    ``token(claims, kid)`` signs a JWT with the key."""
+
+    def __init__(self, seed: int):
+        from http.server import BaseHTTPRequestHandler, HTTPServer
+
+        from spicedb_kubeapi_proxy_tpu_torch.proxy import jose
+
+        self.jose = jose
+        self.n, self.e, self.d = rsa_key(seed)
+        self.fetches = 0
+        me = self
+
+        def b64(i: int) -> str:
+            return jose.b64url_encode(i.to_bytes((i.bit_length() + 7) // 8,
+                                                 "big"))
+
+        jwks = json.dumps({"keys": [{"kty": "RSA", "kid": "k1",
+                                     "alg": "RS256", "use": "sig",
+                                     "n": b64(self.n), "e": b64(self.e)}]})
+
+        class Handler(BaseHTTPRequestHandler):
+            def do_GET(self):
+                if self.path == "/.well-known/openid-configuration":
+                    body = json.dumps({"issuer": me.url,
+                                       "jwks_uri": me.url + "/keys"})
+                elif self.path == "/keys":
+                    me.fetches += 1
+                    body = jwks
+                else:
+                    self.send_error(404)
+                    return
+                raw = body.encode()
+                self.send_response(200)
+                self.send_header("Content-Length", str(len(raw)))
+                self.end_headers()
+                self.wfile.write(raw)
+
+            def log_message(self, *a):
+                pass
+
+        self.srv = HTTPServer(("127.0.0.1", 0), Handler)
+        self.url = f"http://127.0.0.1:{self.srv.server_port}"
+        self.thread = threading.Thread(target=self.srv.serve_forever,
+                                       daemon=True)
+        self.thread.start()
+
+    def token(self, claims: dict, kid: str = "k1") -> str:
+        jose = self.jose
+        si = (jose.b64url_encode(json.dumps(
+            {"alg": "RS256", "typ": "JWT", "kid": kid}).encode()) + "."
+            + jose.b64url_encode(json.dumps(claims).encode()))
+        sig = jose.rsa_pkcs1v15_sign(self.n, self.d, si.encode(), "sha256")
+        return si + "." + jose.b64url_encode(sig)
+
+    def close(self) -> None:
+        self.srv.shutdown()
+        self.srv.server_close()
+        self.thread.join(10)
+
+
+OIDC_CLIENT = "kube-proxy"
+
+
+def oidc_phase(torch, e, here: str, subjects: list, k_a: dict,
+               seed: int) -> dict:
+    """Phase K.g: the port's proxy authenticating bearer JWTs against a
+    loopback OIDC issuer (see the module docstring). Returns both
+    kernels' launches over its requests."""
+    import http.client
+
+    from spicedb_kubeapi_proxy_tpu_torch.ops import bitprop
+    from spicedb_kubeapi_proxy_tpu_torch.proxy.inmemkube import InMemoryKube
+    from spicedb_kubeapi_proxy_tpu_torch.proxy.oidc import OIDCAuthenticator
+    from spicedb_kubeapi_proxy_tpu_torch.proxy.options import Options
+
+    t0 = time.perf_counter()
+    iss = Issuer(seed)
+    key_s = time.perf_counter() - t0
+    launches = Launches(bitprop)
+    stack = None
+    try:
+        opts = Options(rule_content=k_rules(here), upstream=object(),
+                       device="cuda", oidc_issuer_url=iss.url,
+                       oidc_client_id=OIDC_CLIENT, oidc_username_prefix="-")
+        opts.validate()  # the --oidc-* options the proxy used to refuse
+        auth = OIDCAuthenticator(
+            issuer_url=opts.oidc_issuer_url, client_id=opts.oidc_client_id,
+            username_prefix=opts.oidc_username_prefix)
+        n_type = e.compiled().type_sizes["pod"]
+        n_list = min(n_type - 2, N_PODS)
+        body, head, item_b, tail = pod_list_body(n_list)
+        stack = KStack(e, k_rules(here), KUpstream(InMemoryKube(), body),
+                       token_authenticator=auth)
+        pods = e._objects_by_name()["pod"]
+        want = uncaveated_view_masks(e.store, subjects, time.time(), n_type)
+        exp_at = time.time() + 3600
+        toks = {u: iss.token({"iss": iss.url, "aud": OIDC_CLIENT, "sub": u,
+                              "exp": exp_at}) for u in subjects}
+        conn = http.client.HTTPConnection("127.0.0.1", stack.port,
+                                          timeout=120)
+
+        def get(tok):
+            conn.request("GET", "/api/v1/pods",
+                         headers={"Authorization": f"Bearer {tok}"})
+            r = conn.getresponse()
+            return r.status, r.read()
+
+        st, _ = get(toks[subjects[0]])  # warm-up: the JWKS fetch
+        check(st == 200, f"K.g: the first bearer list answered {st}")
+        wall = []
+        for u in subjects:
+            with launches:
+                t1 = time.perf_counter()
+                st, out = get(toks[u])
+                wall.append((time.perf_counter() - t1) * 1e3)
+            check(st == 200, f"K.g: {u}'s bearer list answered {st}")
+            keep = kept_from(want[u], pods, n_list)
+            exp = (head + b",".join(item_b[i] for i in keep) + tail
+                   if len(keep) < n_list else body)
+            check(out == exp, f"K.g: {u}'s list is not the upstream's "
+                  f"{len(keep)} kept items byte for byte")
+        verify = []
+        for u in subjects:
+            t1 = time.perf_counter()
+            who = auth.authenticate_token(toks[u])
+            verify.append((time.perf_counter() - t1) * 1e3)
+            check(who is not None and who.name == u,
+                  f"K.g: {u}'s token maps to {who}")
+        bad = {"expired": iss.token({"iss": iss.url, "aud": OIDC_CLIENT,
+                                     "sub": subjects[0],
+                                     "exp": time.time() - 600}),
+               "unknown kid": iss.token({"iss": iss.url, "aud": OIDC_CLIENT,
+                                         "sub": subjects[0],
+                                         "exp": exp_at}, kid="k9"),
+               "wrong audience": iss.token({"iss": iss.url, "aud": "other",
+                                            "sub": subjects[0],
+                                            "exp": exp_at})}
+        codes = {k: get(t)[0] for k, t in bad.items()}
+        check(all(c == 401 for c in codes.values()),
+              f"K.g: rejected tokens answered {codes}")
+        conn.close()
+        log(f"phase K.g GET /api/v1/pods through the port's proxy with "
+            f"--oidc-issuer-url at a loopback issuer (discovery + JWKS "
+            f"over HTTP, one 2048-bit RS256 key made from the seed in "
+            f"{key_s:.2f} s, {iss.fetches} JWKS fetch), a bearer JWT a "
+            f"user and no X-Remote-User: {len(subjects)} users, wall p50 "
+            f"{pct(wall, 50):.3f} ms p99 {pct(wall, 99):.3f} ms beside "
+            f"K.a's {k_a['p50']:.3f} / {k_a['p99']:.3f} ms; the token's "
+            f"verification alone (pure-Python RS256 against the cached "
+            f"JWKS, claims, identity) p50 {pct(verify, 50):.3f} ms p99 "
+            f"{pct(verify, 99):.3f} ms; every list the upstream's kept "
+            f"items byte for byte; {codes} (401 each)")
+        return dict(launches.n)
+    finally:
+        if stack is not None:
+            stack.close()
+        iss.close()
+
+
+def demo_phase(torch) -> dict:
+    """The demo's stack (proxy/demo.py ``build``) on the card, and its
+    two users' lists: alice sees dev, carol prod."""
+    import asyncio
+
+    from spicedb_kubeapi_proxy_tpu_torch.ops import bitprop
+    from spicedb_kubeapi_proxy_tpu_torch.proxy import demo
+    from spicedb_kubeapi_proxy_tpu_torch.proxy.inmemory import InMemoryClient
+
+    t0 = time.perf_counter()
+    cfg = demo.build(port=0, device="cuda")
+    build_s = time.perf_counter() - t0
+    check(cfg.engine.device.type == "cuda", "demo: the engine is not on "
+          "the card")
+    launches = Launches(bitprop)
+
+    async def go():
+        await cfg.workflow.resume_pending()
+        seen, ms = {}, []
+        for user in ("alice", "carol"):
+            with launches:
+                t1 = time.perf_counter()
+                r = await InMemoryClient(cfg.server.handle, user=user).get(
+                    "/api/v1/namespaces")
+                ms.append((time.perf_counter() - t1) * 1e3)
+            check(r.status == 200, f"demo: {user}'s list answered "
+                  f"{r.status}")
+            seen[user] = [i["metadata"]["name"]
+                          for i in json.loads(r.body)["items"]]
+        await cfg.workflow.shutdown()
+        return seen, ms
+
+    try:
+        seen, ms = asyncio.run(go())
+    finally:
+        cfg.engine.close_compaction()
+    check(seen == {"alice": ["dev"], "carol": ["prod"]},
+          f"demo: the lists were {seen}")
+    log(f"phase D the demo (proxy/demo.py) built on the card in "
+        f"{build_s:.2f} s (its graph compiled and first queries run): "
+        f"alice sees {seen['alice']}, carol {seen['carol']} "
+        f"({ms[0]:.3f} / {ms[1]:.3f} ms); launches {launches.n}")
+    return dict(launches.n)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5174,6 +5899,7 @@ def main(argv=None) -> int:
     from spicedb_kubeapi_proxy_tpu_torch.engine import CheckItem, Engine
     from spicedb_kubeapi_proxy_tpu_torch.engine.evaluator import \
         OracleEvaluator
+    from spicedb_kubeapi_proxy_tpu_torch.engine.store import Snapshot
     from spicedb_kubeapi_proxy_tpu_torch.models import parse_schema
     from spicedb_kubeapi_proxy_tpu_torch.ops import bitprop, kernels, \
         semiring
@@ -5333,17 +6059,9 @@ def main(argv=None) -> int:
                     "its pre-pass": ("dense_live_tiles_kernel",)})
 
     # -- phase 8: the host oracle --
-    t0 = time.perf_counter()
-    oracle = OracleEvaluator(e.schema, e.store.snapshot(), now=now)
-    oracle_s = time.perf_counter() - t0
     # a sample of phase 6's own verdicts (all of its allowed ones)
     sample = sorted(set(rng.choice(len(items), 2000, replace=False).tolist())
                     | {i for i, v in enumerate(verdicts) if v})
-    bad = sum(verdicts[i] != oracle.check(
-        "pod", items[i].resource_id, "view", "user", items[i].subject_id)
-        for i in sample)
-    check(bad == 0, f"{bad} of {len(sample)} phase-6 verdicts disagree "
-          f"with the oracle")
     pods = objs["pod"]
     checks = []
     for u in subjects[:10]:
@@ -5357,6 +6075,17 @@ def main(argv=None) -> int:
     checks += [CheckItem("namespace", f"ns{rng.integers(N_NS)}", "view",
                          "user", f"u{rng.integers(N_USERS)}")
                for _ in range(40)]
+    users8 = {items[i].subject_id for i in sample} | set(subjects[:10]) \
+        | {c.subject_id for c in checks}
+    t0 = time.perf_counter()
+    oracle = subset_oracle(e.store.snapshot(), e.schema, OracleEvaluator,
+                           Snapshot, users8, now)
+    oracle_s = time.perf_counter() - t0
+    bad = sum(verdicts[i] != oracle.check(
+        "pod", items[i].resource_id, "view", "user", items[i].subject_id)
+        for i in sample)
+    check(bad == 0, f"{bad} of {len(sample)} phase-6 verdicts disagree "
+          f"with the oracle")
     got = e.check_bulk(checks, now=now)
     want = [oracle.check(c.resource_type, c.resource_id, c.permission,
                          c.subject_type, c.subject_id) for c in checks]
@@ -5368,7 +6097,8 @@ def main(argv=None) -> int:
               f"full mask for {u} disagrees with the oracle")
     log(f"phase 8 oracle: {len(sample)} phase-6 verdicts "
         f"({sum(verdicts[i] for i in sample)} allowed), {len(checks)} checks "
-        f"({sum(want)} allowed) and 2 full masks exact (oracle build "
+        f"({sum(want)} allowed) and 2 full masks exact (the oracle over "
+        f"the rows that reach the {len(users8)} users checked, built in "
         f"{oracle_s:.1f} s)")
     del oracle
 
@@ -5376,20 +6106,23 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     write_launches = write_phase(torch, e, samples, subjects, args.writes,
                                  args.seed, compile_s + dev_s)
-    log(f"phase 9 took {time.perf_counter() - t0:.1f} s")
+    log(f"phase 9 took {time.perf_counter() - t0:.1f} s (the run at "
+        f"{time.perf_counter() - t_run:.0f} s)")
 
     # -- phase S: the serving front, on the same engine --
     t0 = time.perf_counter()
     serving_launches, fused_rows, tenant = serving_phase(
         torch, e, subjects, items, args.seed)
-    log(f"phase S took {time.perf_counter() - t0:.1f} s")
+    log(f"phase S took {time.perf_counter() - t0:.1f} s (the run at "
+        f"{time.perf_counter() - t_run:.0f} s)")
 
     # -- phase P: snapshots, the WAL and crash recovery, on the same engine
     t0 = time.perf_counter()
     e2, persist_launches, cold, p_users = persistence_phase(
         torch, e, os.path.join(here, "build", "persist"), subjects,
         args.writes, args.seed, frame_bytes)
-    log(f"phase P took {time.perf_counter() - t0:.1f} s")
+    log(f"phase P took {time.perf_counter() - t0:.1f} s (the run at "
+        f"{time.perf_counter() - t_run:.0f} s)")
 
     # -- phase T: tiered residency on the recovered engine --
     t0 = time.perf_counter()
@@ -5409,20 +6142,39 @@ def main(argv=None) -> int:
          "tenant": tenant}, args.seed)
     r_dir = host_cli_phase(torch, here, os.path.join(
         here, "build", "persist", "data"), BENCH_SCHEMA, p_users, p_want)
-    log(f"phase R took {time.perf_counter() - t0:.1f} s")
+    log(f"phase R took {time.perf_counter() - t0:.1f} s (the run at "
+        f"{time.perf_counter() - t_run:.0f} s)")
 
     # -- phase M: live schema migration, on the headline engine and the CLI
     t0 = time.perf_counter()
     migration_launches = migration_phase(
         torch, e, here, subjects, items, bulk_users, r_dir, p_users, p_want,
         p50, args.seed)
-    log(f"phase M took {time.perf_counter() - t0:.1f} s")
+    log(f"phase M took {time.perf_counter() - t0:.1f} s (the run at "
+        f"{time.perf_counter() - t_run:.0f} s)")
 
     # -- phase K: the proxy itself, on the headline engine and as the CLI
     t0 = time.perf_counter()
     proxy_launches = proxy_phase(torch, e, here, subjects, args.seed)
     proxy_cli_phase(torch, here)
-    log(f"phase K took {time.perf_counter() - t0:.1f} s")
+    oidc_launches = oidc_phase(torch, e, here, subjects, MEASURED["k_a"],
+                               args.seed)
+    log(f"phase K took {time.perf_counter() - t0:.1f} s (the run at "
+        f"{time.perf_counter() - t_run:.0f} s)")
+    t0 = time.perf_counter()
+    demo_launches = demo_phase(torch)
+    log(f"phase D took {time.perf_counter() - t0:.1f} s (the run at "
+        f"{time.perf_counter() - t_run:.0f} s)")
+
+    # -- phase F: the --peers failover set, two host CLIs on the card --
+    t0 = time.perf_counter()
+    failover_launches = failover_phase(torch, here, BENCH_SCHEMA,
+                                       bulk_users, items,
+                                       MEASURED["r_write"])
+    for kname, n in failover_launches.items():
+        check(n > 0, f"F: {kname} was not launched by the new leader")
+    log(f"phase F took {time.perf_counter() - t0:.1f} s (the run at "
+        f"{time.perf_counter() - t_run:.0f} s)")
 
     # -- phase 10: the caveated mix, on a store of its own --
     del e, cg, d, objs, pods, fut, A, bits
@@ -5431,9 +6183,12 @@ def main(argv=None) -> int:
     log(f"  phase 3-9's engine released: {torch.cuda.memory_allocated()} "
         "device bytes still allocated")
     t0 = time.perf_counter()
+    # reduced: half the relationships (the run's 1,200 s had no room for
+    # phase F with the whole caveated store)
     caveat_launches, proxy_cav_launches = caveat_phase(
-        torch, dev, args.n_rels, subjects, items, bulk_users, here)
-    log(f"phase 10 took {time.perf_counter() - t0:.1f} s")
+        torch, dev, args.n_rels // 2, subjects, items, bulk_users, here)
+    log(f"phase 10 took {time.perf_counter() - t0:.1f} s (the run at "
+        f"{time.perf_counter() - t_run:.0f} s)")
 
     # -- phase X: scale-out, with phase 10's engine released --
     gc.collect()
@@ -5456,7 +6211,9 @@ def main(argv=None) -> int:
                     "remote_path_launches": remote_launches[kname],
                     "migration_path_launches": migration_launches[kname],
                     "proxy_path_launches": proxy_launches[kname]
-                    + proxy_cav_launches[kname],
+                    + proxy_cav_launches[kname] + oidc_launches[kname],
+                    "failover_path_launches": failover_launches[kname],
+                    "demo_path_launches": demo_launches[kname],
                     "scaleout_path_launches": scaleout_launches[kname],
                     "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],

@@ -43,6 +43,7 @@ from ..device import resolve_device
 from ..models.bootstrap import DEFAULT_BOOTSTRAP, parse_bootstrap
 from ..models.schema import Schema, watch_relevance
 from ..models.tuples import Relationship, canonical_context
+from ..obs.profile import install_kernel_build_hook
 from ..ops import semiring
 from ..ops.reachability import (
     DELTA_CAPACITY,
@@ -315,6 +316,10 @@ class Engine:
         # suppressed (the reference arms it after the write returns, so a
         # push stream woken in between delivers the echo)
         self._echo_lock = threading.Lock()
+        # a kernel or native-helper build is the first query's cliff and
+        # one event the dispatch path cannot time itself: the listener
+        # counts each build into the metrics registry (obs/profile)
+        install_kernel_build_hook()
         if seed:
             self.write_relationships([WriteOp("touch", r) for r in seed])
 

@@ -36,8 +36,11 @@ admission-classed ``rebalance``) and the frontier exchange's
 ``frontier_pairs/expand`` (scaleout/), with client methods on
 ``RemoteEngine`` and ``FailoverEngine``. So are the live schema
 migration ops (``migrate_begin/status/cut/abort``), and the CLI resolves
-a data dir's migration record at boot. Ops whose engine half the port
-does not have yet (the multi-host mirror, the chaos plane) answer
+a data dir's migration record at boot. A leader serves the mirror stream
+(``mirror_subscribe``, parallel/multihost.py), and ``--peers`` runs the
+host as one member of a replicated set with automatic leader failover
+(parallel/failover.py): a follower answers only ``failover_state``. Ops
+whose engine half the port does not have yet (the chaos plane) answer
 ``kind: "store"`` with a message that names the ROADMAP item that brings
 them. ``python -m
 spicedb_kubeapi_proxy_tpu_torch.engine.remote`` runs a standalone host
@@ -447,12 +450,19 @@ class EngineServer:
         # state. None = the single-host default: this process IS the
         # leader of itself.
         self.failover_status = failover_status
+        # heartbeat cadence on idle mirror streams; failover deployments
+        # shrink it so followers detect a dead leader in seconds, not
+        # PUSH_HEARTBEAT multiples
+        self.mirror_heartbeat = self.PUSH_HEARTBEAT
         # an ssl.SSLContext makes every connection TLS (utils/tlsconf.py);
         # None serves plaintext — the standalone CLI refuses that
         # combination unless --engine-insecure is explicit
         self.ssl_context = ssl_context
         self._server: Optional[asyncio.AbstractServer] = None
         self._conns: set = set()  # live connection-handler tasks
+        # queues of the mirror streams this server pushes (stop() ends
+        # each with the close sentinel, so no worker stays parked on one)
+        self._mirror_queues: set = set()
         self._executor = ThreadPoolExecutor(
             max_workers=max_workers, thread_name_prefix="engine-host")
 
@@ -479,20 +489,22 @@ class EngineServer:
         if self._server is None:
             return
         store = getattr(self.engine, "store", None)
-        waker = None
-        if hasattr(store, "wake_waiters"):
-            # repeatedly release push loops parked in wait_events during
-            # the drain and the join (a cancelled run_in_executor only
-            # unblocks when the worker thread returns; a single wake can
-            # race a loop that re-parks before its cancellation lands) —
-            # without this, each active watch_subscribe stream holds the
-            # drain for up to PUSH_HEARTBEAT seconds
-            async def _wake_loop():
-                while True:
-                    store.wake_waiters()
-                    await asyncio.sleep(0.2)
 
-            waker = asyncio.get_running_loop().create_task(_wake_loop())
+        # repeatedly release push loops parked in wait_events, and mirror
+        # pushers parked on their queue, during the drain and the join (a
+        # cancelled run_in_executor only unblocks when the worker thread
+        # returns; a single wake can race a loop that re-parks before its
+        # cancellation lands) — without this, each active watch_subscribe
+        # or mirror stream holds the drain for up to its heartbeat
+        async def _wake_loop():
+            while True:
+                if hasattr(store, "wake_waiters"):
+                    store.wake_waiters()
+                for q in list(self._mirror_queues):
+                    q.put_nowait(None)  # unbounded: never parks the loop
+                await asyncio.sleep(0.2)
+
+        waker = asyncio.get_running_loop().create_task(_wake_loop())
         try:
             await drain_server(self._server, self._conns, grace)
             # drained handlers have given up their futures, but a worker
@@ -548,6 +560,13 @@ class EngineServer:
                         authed = True
                     writer.write(_pack(resp))
                 await writer.drain()
+                if not isinstance(resp, BinaryResult) and resp.get("ok") \
+                        and req.get("op") == "mirror_subscribe":
+                    # a follower: stream every mirrored engine action
+                    # (parallel/multihost.py MirroredEngine); the reader
+                    # now carries only follower acks
+                    await self._push_mirror(reader, writer, req)
+                    return
                 if not isinstance(resp, BinaryResult) and resp.get("ok") \
                         and req.get("op") == "watch_subscribe":
                     # the ack is out; the connection now becomes a
@@ -857,12 +876,144 @@ class EngineServer:
             await writer.drain()
 
     def _op_mirror_subscribe(self, req: dict):
-        """A multi-host follower's subscription: only a MirroredEngine
-        leader serves it, and the port has none yet — the answer a JAX
-        host gives on a single host, with the ROADMAP item named."""
-        raise StoreError(
-            "engine host is not a multi-host leader (no MirroredEngine): "
-            "the mirror lands in the PyTorch port with ROADMAP A.5")
+        """Ack for a follower's subscription; _serve_inner then switches
+        the connection into the mirror-push loop. Only valid when the
+        engine is a MirroredEngine leader. An optional
+        ``from_revision`` (a restarting follower's recovered revision)
+        makes the stream open with a catch-up frame — the delta from the
+        leader's watch history, or a full state transfer when that
+        history no longer reaches back far enough."""
+        if not hasattr(self.engine, "subscribe"):
+            raise StoreError(
+                "engine host is not a multi-host leader "
+                "(no MirroredEngine)")
+        if "from_revision" in req:
+            int(req["from_revision"])  # validate now, fail as a JSON error
+            if not hasattr(self.engine, "subscribe_with_catchup"):
+                raise StoreError(
+                    "engine host does not support follower catch-up")
+        return {"subscribed": True,
+                "term": int(getattr(self.engine, "term", 0) or 0)}
+
+    async def _mirror_ack_reader(self, reader: asyncio.StreamReader,
+                                 q, eng) -> None:
+        """Drain follower acknowledgements off the (otherwise one-way)
+        mirror stream: ``{"ack": seq, "term": t}`` frames credit the
+        subscriber's replication progress — the leader's sync-replicated
+        writes wait on them (MirroredEngine._wait_replicated). ``eng``
+        is the engine object PINNED by _push_mirror at subscribe time:
+        acks belong to that wrapper's subscription, not to whatever a
+        failover demotion may have swapped into self.engine since."""
+        while True:
+            frame = await _read_frame(reader)
+            if frame is None:
+                return
+            seq = frame.get("ack")
+            if seq is not None and hasattr(eng, "record_ack"):
+                eng.record_ack(q, int(seq), frame.get("term"))
+
+    @staticmethod
+    def _mirror_hb(engine) -> dict:
+        """An idle mirror stream's liveness frame, with the leader's term
+        and sequence (the follower's lag)."""
+        hb = {"ok": True, "hb": True}
+        term = int(getattr(engine, "term", 0) or 0)
+        if term:
+            hb["term"] = term
+        seq = getattr(engine, "mirror_seq", None)
+        if seq is not None:
+            hb["seq"] = int(seq)
+        return hb
+
+    async def _push_mirror(self, reader: asyncio.StreamReader,
+                           writer: asyncio.StreamWriter,
+                           req: dict) -> None:
+        import queue as _queue
+
+        # pin the engine object: a failover demotion swaps self.engine
+        # mid-stream, and the queue must be unsubscribed from the SAME
+        # wrapper that registered it
+        engine = self.engine
+        if not hasattr(engine, "subscribe"):
+            # demoted between the gated mirror_subscribe ack and this
+            # push loop: the bare engine has no mirror surface — close
+            # with the honest rejection, not an AttributeError
+            writer.write(_pack({"ok": False, "kind": "not_leader",
+                                "error": "engine host was demoted before "
+                                         "the mirror stream started"}))
+            await writer.drain()
+            return
+        if "from_revision" in req:
+            # atomic cut (multihost.py subscribe_with_catchup): the
+            # catch-up lands the follower at exactly the revision the
+            # queued live frames continue from. A full state's cut and
+            # encode can outlast the follower's heartbeat window (~16 s
+            # at 10M rows against 2.5 s), and the reference sends nothing
+            # meanwhile, so the follower drops the stream and asks again
+            # forever: heartbeat while the worker cuts and encodes
+            t0 = time.perf_counter()
+            cut = asyncio.ensure_future(self._in_worker(
+                partial(engine.subscribe_with_catchup,
+                        int(req["from_revision"]),
+                        subscriber_term=req.get("term"))))
+            try:
+                while not (await asyncio.wait(
+                        {cut}, timeout=self.mirror_heartbeat))[0]:
+                    writer.write(_pack(self._mirror_hb(engine)))
+                    await writer.drain()
+            except BaseException:
+                # the follower left mid-cut: its subscription (registered
+                # by the cut) must not outlive it
+                cut.add_done_callback(
+                    lambda f: f.cancelled() or f.exception() is not None
+                    or engine.unsubscribe(f.result()[0]))
+                raise
+            q, meta, payload = cut.result()
+            log.info("mirror catch-up from revision %s: %s to revision %d, "
+                     "%d payload bytes, cut and encode %.3f s",
+                     req["from_revision"],
+                     "full state" if payload is not None else
+                     f"{len(meta.get('effects') or ())} effects",
+                     meta["revision"],
+                     0 if payload is None else len(payload),
+                     time.perf_counter() - t0)
+        else:
+            q, meta, payload = engine.subscribe(), None, None
+        acks = asyncio.get_running_loop().create_task(
+            self._mirror_ack_reader(reader, q, engine))
+        self._mirror_queues.add(q)
+        try:
+            if meta is not None:
+                frame = {"ok": True, "catchup": meta}
+                if payload is not None:
+                    writer.write(_pack_binary(BinaryResult(frame, payload)))
+                else:
+                    writer.write(_pack(frame))
+                await writer.drain()
+            while True:
+                try:
+                    wire = await self._in_worker(
+                        q.get, True, self.mirror_heartbeat)
+                except _queue.Empty:
+                    if failpoints.branch("mirror.heartbeat"):
+                        continue  # chaos: suppressed liveness heartbeat
+                    writer.write(_pack(self._mirror_hb(engine)))
+                    await writer.drain()
+                    continue
+                if wire is None:
+                    # replication-timeout drop sentinel (MirroredEngine.
+                    # _wait_replicated): close so the follower SEES it
+                    return
+                if failpoints.branch("mirror.partition"):
+                    continue  # chaos: this frame falls into the void
+                # pre-packed once by MirroredEngine._publish: the same
+                # bytes object fans out to every follower
+                writer.write(wire)
+                await writer.drain()
+        finally:
+            self._mirror_queues.discard(q)
+            acks.cancel()
+            engine.unsubscribe(q)
 
     def _op_watch_since(self, req: dict):
         return _watch_events_wire(self.engine, req["revision"])
@@ -2085,16 +2236,9 @@ def parse_bool_flag(v) -> bool:
 _REFUSED_FLAGS = (
     ("--engine-mesh", "A.5", "device meshes"),
     ("--distributed", "A.5", "multi-host serving"),
-    ("--mirror-leader", "A.5", "the multi-host mirror"),
-    ("--mirror-ca-file", "A.5", "the multi-host mirror"),
-    ("--mirror-skip-verify-ca", "A.5", "the multi-host mirror"),
-    ("--mirror-heartbeat-seconds", "A.5", "leader failover"),
-    ("--mirror-heartbeat-timeout", "A.5", "leader failover"),
-    ("--peers", "A.5", "leader failover"),
-    ("--peer-id", "A.5", "leader failover"),
-    ("--replication-timeout", "A.5", "leader failover"),
-    ("--min-sync-replicas", "A.5", "leader failover"),
-    ("--failover-boot-grace", "A.5", "leader failover"),
+    # the lockstep follower of a --distributed set (a --peers follower
+    # dials its leader by itself)
+    ("--mirror-leader", "A.5", "multi-host serving"),
     ("--enable-chaos-ops", "A.7", "the chaos plane"),
 )
 
@@ -2129,8 +2273,15 @@ def main(argv=None) -> int:
                     help="require client certificates signed by this CA "
                          "(mutual TLS, on top of the token)")
     ap.add_argument("--engine-insecure", action="store_true",
-                    help="serve PLAINTEXT TCP — tokens and relationships "
+                    help="serve PLAINTEXT TCP (and dial the mirror "
+                         "leader plaintext) — tokens and relationships "
                          "transit in the clear; never use across hosts")
+    ap.add_argument("--mirror-ca-file",
+                    help="(follower) CA bundle for verifying the mirror "
+                         "leader's certificate (default: system store)")
+    ap.add_argument("--mirror-skip-verify-ca", action="store_true",
+                    help="(follower) TLS to the leader without "
+                         "certificate verification")
     ap.add_argument("--snapshot-path",
                     help="relationship-store snapshot: loaded at boot if "
                          "present, saved on graceful shutdown (superseded "
@@ -2152,6 +2303,32 @@ def main(argv=None) -> int:
                     help="snapshot generations to retain (the WAL is "
                          "pruned only up to the OLDEST kept one, so "
                          "recovery can fall back a generation)")
+    ap.add_argument("--peers",
+                    help="replicated-set mode with AUTOMATIC leader "
+                         "failover: comma-separated host:port of EVERY "
+                         "engine host in the set, in peer-id order")
+    ap.add_argument("--peer-id", type=int, default=0,
+                    help="this process's index into --peers")
+    ap.add_argument("--mirror-heartbeat-seconds", type=float, default=2.0,
+                    help="(--peers) leader heartbeat cadence on the "
+                         "mirror stream; followers detect a dead leader "
+                         "within ~3x this")
+    ap.add_argument("--mirror-heartbeat-timeout", type=float, default=0.0,
+                    help="(--peers) follower's dead-leader window "
+                         "(0 = 3x heartbeat + 1s)")
+    ap.add_argument("--replication-timeout", type=float, default=10.0,
+                    help="(--peers) how long an acked write waits for "
+                         "follower acknowledgement before the laggard "
+                         "is dropped to catch-up")
+    ap.add_argument("--min-sync-replicas", type=int, default=0,
+                    help="(--peers) durability floor: with fewer live "
+                         "followers than this, writes FAIL CLOSED "
+                         "instead of acking unreplicated (0 = keep "
+                         "serving when the last follower dies — "
+                         "availability over redundancy)")
+    ap.add_argument("--failover-boot-grace", type=float, default=20.0,
+                    help="(--peers) boot-time wait for the rest of the "
+                         "set before electing from partial visibility")
     ap.add_argument("--lookup-batch-window", type=float, default=0.0,
                     help="fuse concurrent lookup_mask requests (across "
                          "ALL connected proxies) into shared device "
@@ -2212,7 +2389,7 @@ def main(argv=None) -> int:
                     help="ops at or above this duration are always kept "
                          "by tail sampling")
     for flag, item, what in _REFUSED_FLAGS:
-        switch = flag in ("--mirror-skip-verify-ca", "--enable-chaos-ops")
+        switch = flag == "--enable-chaos-ops"
         ap.add_argument(flag, action="store_true" if switch else "store",
                         default=False if switch else None,
                         help=f"not in the PyTorch port yet: {what} lands "
@@ -2230,7 +2407,11 @@ def main(argv=None) -> int:
     tracer.configure(sample=args.trace_sample,
                      slow_ms=args.trace_slow_ms)
 
-    from ..utils.tlsconf import TLSConfigError, server_ssl_context
+    from ..utils.tlsconf import (
+        TLSConfigError,
+        client_ssl_context,
+        server_ssl_context,
+    )
 
     if bool(args.tls_cert_file) != bool(args.tls_key_file):
         ap.error("--tls-cert-file and --tls-key-file go together")
@@ -2262,6 +2443,19 @@ def main(argv=None) -> int:
                 args.admission_queue_depth, args.admission_queue_timeout)
         except ValueError as e:
             ap.error(str(e))
+    peers = None
+    if args.peers:
+        from ..parallel.failover import FailoverError, parse_peers
+
+        try:
+            peers = parse_peers(args.peers)
+        except FailoverError as e:
+            ap.error(str(e))
+        if not 0 <= args.peer_id < len(peers):
+            ap.error(f"--peer-id {args.peer_id} out of range for "
+                     f"{len(peers)} peers")
+        if args.mirror_heartbeat_seconds <= 0:
+            ap.error("--mirror-heartbeat-seconds must be > 0")
     server_ssl = None
     if args.tls_cert_file:
         try:
@@ -2275,6 +2469,13 @@ def main(argv=None) -> int:
                  "--tls-key-file, or --engine-insecure to opt out "
                  "explicitly (the token and every relationship would "
                  "transit in the clear)")
+    mirror_ssl = None
+    if not args.engine_insecure:
+        try:
+            mirror_ssl = client_ssl_context(
+                args.mirror_ca_file, args.mirror_skip_verify_ca)
+        except TLSConfigError as e:
+            ap.error(str(e))
     if args.data_dir and args.snapshot_path:
         ap.error("--data-dir and --snapshot-path are mutually exclusive "
                  "(the data dir owns snapshots AND the write-ahead log)")
@@ -2351,6 +2552,21 @@ def main(argv=None) -> int:
     server = EngineServer(engine, args.bind_host, args.bind_port,
                           token=args.token, ssl_context=server_ssl,
                           admission=admission)
+    coordinator = None
+    if peers is not None:
+        from ..parallel.failover import FailoverCoordinator
+
+        coordinator = FailoverCoordinator(
+            engine, server, peers, args.peer_id,
+            token=args.token, data_dir=args.data_dir,
+            heartbeat_interval=args.mirror_heartbeat_seconds,
+            heartbeat_timeout=(args.mirror_heartbeat_timeout or None),
+            replication_timeout=args.replication_timeout,
+            min_sync_replicas=args.min_sync_replicas,
+            client_ssl=mirror_ssl,
+            boot_grace=args.failover_boot_grace)
+        log.info("failover set: peer %d of %d (term %d)", args.peer_id,
+                 len(peers), coordinator.term)
 
     async def serve():
         stop = asyncio.Event()
@@ -2358,8 +2574,20 @@ def main(argv=None) -> int:
         for sig in (signal.SIGINT, signal.SIGTERM):
             loop.add_signal_handler(sig, stop.set)
         await server.start()
+        if coordinator is not None:
+            # the role state machine runs beside the asyncio server: it
+            # swaps server.engine between the bare engine (follower,
+            # role-gated) and the term-stamped mirror wrapper (leader)
+            coordinator.start()
         await stop.wait()
+        if coordinator is not None:
+            coordinator.stop()
         await server.stop()
+        from ..ops import bitprop
+
+        log.info("kernel launches in this process: bit_or_matmul=%d "
+                 "dense_or_matmul=%d", bitprop.bit_or_matmul.launches,
+                 bitprop.dense_or_matmul.launches)
         if args.compact_threshold > 0:
             # stop the compactor before the final snapshot/checkpoint so
             # no fold races the state capture below

@@ -16,6 +16,7 @@ import logging
 import os
 import subprocess
 import threading
+import time
 from typing import Optional
 
 import numpy as np
@@ -36,6 +37,10 @@ _load_failed = False
 # exported-signature change; _bind refuses a mismatching cached .so
 _ABI_VERSION = 2
 
+# callables ``(source, seconds)`` told of every build this process runs
+# (obs/profile.py counts them into the metrics registry)
+build_listeners: list = []
+
 
 def _build() -> bool:
     # build to a private temp path and publish atomically: a killed or
@@ -44,9 +49,12 @@ def _build() -> bool:
     tmp = f"{_LIB}.tmp.{os.getpid()}"
     cmd = ["g++", "-O3", "-std=c++17", "-fPIC", "-shared", "-pthread",
            _SRC, "-o", tmp]
+    t0 = time.perf_counter()
     try:
         subprocess.run(cmd, check=True, capture_output=True, timeout=120)
         os.replace(tmp, _LIB)
+        for listener in build_listeners:
+            listener("graphcore.cpp", time.perf_counter() - t0)
         return True
     except (OSError, subprocess.SubprocessError) as e:
         log.warning("native build failed (%s); using numpy fallbacks", e)

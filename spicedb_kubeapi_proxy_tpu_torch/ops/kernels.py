@@ -31,6 +31,9 @@ _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 # seconds each source's nvcc build took in this process (0.0 = cache hit)
 build_seconds: dict[str, float] = {}
+# callables ``(source, seconds)`` told of every build this process runs
+# (obs/profile.py counts them into the metrics registry)
+build_listeners: list = []
 
 
 def nvcc_path() -> str:
@@ -69,6 +72,8 @@ def build(name: str) -> str:
             f"{proc.stdout}\n{proc.stderr}")
     os.replace(tmp, out)  # atomic publish: no reader sees a partial .so
     build_seconds[name] = time.perf_counter() - t0
+    for listener in build_listeners:
+        listener(f"{name}.cu", build_seconds[name])
     return out
 
 

@@ -17,10 +17,13 @@ split-write journal, the optional vector cache, frontier exchange,
 ``--rebalance-to`` and the autoscaler (autoscale/); each group's host
 owns its device, so ``--device`` is refused beside it.
 
+Bearer tokens authenticate through a static token file and OIDC
+(``--oidc-*``, proxy/oidc.py: the issuer's JWKS verifies the token's
+signature), chained when both are set.
+
 Options whose half of the system the port does not have yet are refused
 with an :class:`OptionsError` that names the ROADMAP item bringing it
-(``_REFUSED``): device meshes (A.5) and OIDC bearer authentication
-(A.6).
+(``_REFUSED``): device meshes (A.5).
 """
 
 from __future__ import annotations
@@ -68,23 +71,6 @@ def parse_bool_flag(v) -> bool:
 # (field, default, flag, ROADMAP item, what brings it)
 _REFUSED = (
     ("engine_mesh", None, "--engine-mesh", "A.5", "device meshes"),
-    ("oidc_issuer_url", None, "--oidc-issuer-url", "A.6",
-     "OIDC authentication"),
-    ("oidc_client_id", None, "--oidc-client-id", "A.6",
-     "OIDC authentication"),
-    ("oidc_username_claim", "sub", "--oidc-username-claim", "A.6",
-     "OIDC authentication"),
-    ("oidc_username_prefix", None, "--oidc-username-prefix", "A.6",
-     "OIDC authentication"),
-    ("oidc_groups_claim", None, "--oidc-groups-claim", "A.6",
-     "OIDC authentication"),
-    ("oidc_groups_prefix", "", "--oidc-groups-prefix", "A.6",
-     "OIDC authentication"),
-    ("oidc_ca_file", None, "--oidc-ca-file", "A.6", "OIDC authentication"),
-    ("oidc_signing_algs", "RS256", "--oidc-signing-algs", "A.6",
-     "OIDC authentication"),
-    ("oidc_required_claims", [], "--oidc-required-claim", "A.6",
-     "OIDC authentication"),
 )
 
 
@@ -144,6 +130,18 @@ class Options:
     tls_requestheader_allowed_names: list = field(default_factory=list)
     # kube static token file (token,user,uid[,groups]) for Bearer authn
     token_auth_file: Optional[str] = None
+    # OIDC bearer authentication (kube --oidc-* option names; the last of
+    # the reference's four built-in authn modes, authn.go:40-47)
+    oidc_issuer_url: Optional[str] = None
+    oidc_client_id: Optional[str] = None
+    oidc_username_claim: str = "sub"
+    oidc_username_prefix: Optional[str] = None  # "-" disables prefixing
+    oidc_groups_claim: Optional[str] = None
+    oidc_groups_prefix: str = ""
+    oidc_ca_file: Optional[str] = None
+    oidc_signing_algs: str = "RS256"  # comma-separated
+    # repeatable key=value pairs every token must carry verbatim
+    oidc_required_claims: list = field(default_factory=list)
     # dual-write. None resolves to <data_dir>/dtx.sqlite when a data dir
     # is configured (durable dual-writes live WITH the durable store),
     # else the historical default — an explicit path always wins
@@ -338,15 +336,6 @@ class Options:
     # yet; any value but the default is an OptionsError that names the
     # ROADMAP item bringing it (_REFUSED)
     engine_mesh: Optional[str] = None
-    oidc_issuer_url: Optional[str] = None
-    oidc_client_id: Optional[str] = None
-    oidc_username_claim: str = "sub"
-    oidc_username_prefix: Optional[str] = None
-    oidc_groups_claim: Optional[str] = None
-    oidc_groups_prefix: str = ""
-    oidc_ca_file: Optional[str] = None
-    oidc_signing_algs: str = "RS256"
-    oidc_required_claims: list = field(default_factory=list)
 
     def _parse_remote(self) -> Optional[list[tuple[str, int]]]:
         """[(host, port), ...] for tcp:// endpoints, None otherwise;
@@ -633,6 +622,26 @@ class Options:
             raise OptionsError(
                 "tls-requestheader-allowed-names requires "
                 "tls-client-ca-file")
+        if self.oidc_issuer_url and not self.oidc_client_id:
+            raise OptionsError("oidc-issuer-url requires oidc-client-id")
+        if not self.oidc_issuer_url and (
+                self.oidc_required_claims or any(
+                    x is not None for x in (
+                        self.oidc_client_id, self.oidc_username_prefix,
+                        self.oidc_groups_claim, self.oidc_ca_file))):
+            raise OptionsError(
+                "oidc-* options require oidc-issuer-url")
+        for rc in self.oidc_required_claims:
+            if "=" not in rc:
+                raise OptionsError(
+                    f"oidc-required-claim {rc!r} must be key=value")
+        if self.oidc_issuer_url:
+            from .oidc import OIDCError, parse_signing_algs
+
+            try:
+                parse_signing_algs(self.oidc_signing_algs)
+            except OIDCError as e:
+                raise OptionsError(f"oidc-signing-algs: {e}") from None
         if not (self.rule_files or self.rule_content):
             raise OptionsError("at least one rule file is required")
         if self.upstream_url and self.kubeconfig:
@@ -1027,12 +1036,35 @@ class Options:
                 # health endpoints and get clean 401s on resources
                 # (kube-apiserver semantics) instead of handshake failures
                 ssl_context.verify_mode = ssl.CERT_OPTIONAL
-        token_authenticator = None
+        token_authenticators = []
         if self.token_auth_file:
             from .authn import TokenFileAuthenticator
 
-            token_authenticator = TokenFileAuthenticator(
-                self.token_auth_file)
+            token_authenticators.append(
+                TokenFileAuthenticator(self.token_auth_file))
+        if self.oidc_issuer_url:
+            from .oidc import OIDCAuthenticator, parse_signing_algs
+
+            token_authenticators.append(OIDCAuthenticator(
+                issuer_url=self.oidc_issuer_url,
+                client_id=self.oidc_client_id,
+                username_claim=self.oidc_username_claim,
+                username_prefix=self.oidc_username_prefix,
+                groups_claim=self.oidc_groups_claim,
+                groups_prefix=self.oidc_groups_prefix,
+                ca_file=self.oidc_ca_file,
+                required_claims=dict(
+                    rc.split("=", 1) for rc in self.oidc_required_claims),
+                signing_algs=parse_signing_algs(self.oidc_signing_algs),
+            ))
+        token_authenticator = None
+        if len(token_authenticators) == 1:
+            token_authenticator = token_authenticators[0]
+        elif token_authenticators:
+            from .oidc import ChainTokenAuthenticator
+
+            token_authenticator = ChainTokenAuthenticator(
+                token_authenticators)
         server = Server(deps, HeaderAuthenticator(),
                         host=self.bind_host, port=self.bind_port,
                         config_dump=(self.debug_dump()
@@ -1175,6 +1207,26 @@ def add_flags(parser: argparse.ArgumentParser) -> None:
                         help="kube static token file "
                              "(token,user,uid[,\"g1,g2\"]) for Bearer "
                              "authentication")
+    parser.add_argument("--oidc-issuer-url",
+                        help="OIDC issuer URL; enables bearer-JWT "
+                             "authentication against its JWKS")
+    parser.add_argument("--oidc-client-id",
+                        help="audience the token must be issued for")
+    parser.add_argument("--oidc-username-claim", default="sub")
+    parser.add_argument("--oidc-username-prefix",
+                        help="prefix for OIDC usernames; '-' disables; "
+                             "default '<issuer>#' for non-email claims")
+    parser.add_argument("--oidc-groups-claim",
+                        help="claim carrying the user's groups")
+    parser.add_argument("--oidc-groups-prefix", default="")
+    parser.add_argument("--oidc-ca-file",
+                        help="CA bundle for the issuer's HTTPS endpoints")
+    parser.add_argument("--oidc-signing-algs", default="RS256",
+                        help="comma-separated accepted JWS algorithms")
+    parser.add_argument("--oidc-required-claim", action="append",
+                        default=[], dest="oidc_required_claims",
+                        help="key=value a token must carry verbatim "
+                             "(repeatable)")
     parser.add_argument("--workflow-database-path", default=None,
                         help="dual-write workflow DB (sqlite). Default: "
                              "<data-dir>/dtx.sqlite when --data-dir is "
@@ -1532,6 +1584,15 @@ def options_from_args(args: argparse.Namespace) -> Options:
         tls_client_ca_file=args.tls_client_ca_file,
         tls_requestheader_allowed_names=args.tls_requestheader_allowed_names,
         token_auth_file=args.token_auth_file,
+        oidc_issuer_url=args.oidc_issuer_url,
+        oidc_client_id=args.oidc_client_id,
+        oidc_username_claim=args.oidc_username_claim,
+        oidc_username_prefix=args.oidc_username_prefix,
+        oidc_groups_claim=args.oidc_groups_claim,
+        oidc_groups_prefix=args.oidc_groups_prefix,
+        oidc_ca_file=args.oidc_ca_file,
+        oidc_signing_algs=args.oidc_signing_algs,
+        oidc_required_claims=args.oidc_required_claims,
         workflow_database_path=args.workflow_database_path,
         lock_mode=args.lock_mode,
         snapshot_path=args.snapshot_path,

@@ -392,11 +392,73 @@ sp.close()
 asyncio.run_coroutine_threadsafe(srv.stop(), loop).result(60)
 loop.call_soon_threadsafe(loop.stop)
 th.join(30)
+# replication and OIDC: a sync-replicated write through a mirror stream
+# to a follower, the failover helpers, the sanitizer, the build hook, a
+# bearer token through the OIDC authenticator and the demo's build
+from spicedb_kubeapi_proxy_tpu_torch.obs import profile
+from spicedb_kubeapi_proxy_tpu_torch.parallel import (
+    FailoverCoordinator, MirroredEngine, choose_candidate, follower_loop,
+    parse_peers)
+from spicedb_kubeapi_proxy_tpu_torch.proxy import demo, jose, oidc
+from spicedb_kubeapi_proxy_tpu_torch.utils import sanitizer
+assert profile.install_kernel_build_hook()
+assert parse_peers("a:1,b:2") == [("a", 1), ("b", 2)]
+assert choose_candidate({0: {"term": 1}, 1: {"term": 2}}) == 1
+lead = MirroredEngine(Engine(device="cpu"), term=1, mirror_queries=False,
+                      sync_replication=True, replication_timeout=30.0)
+fol = Engine(device="cpu")
+loop = asyncio.new_event_loop()
+th = threading.Thread(target=loop.run_forever, daemon=True)
+th.start()
+srv = EngineServer(lead)
+asyncio.run_coroutine_threadsafe(srv.start(), loop).result(30)
+ft = threading.Thread(target=follower_loop, args=(fol, "127.0.0.1",
+                      srv.port), kwargs=dict(current_term=1, ack=True),
+                      daemon=True)
+ft.start()
+import time
+deadline = time.monotonic() + 30
+while not lead._subs and time.monotonic() < deadline:
+    time.sleep(0.02)
+lead.write_relationships([WriteOp("touch", parse_relationship(
+    "pod:m#viewer@user:u"))])
+assert fol.revision == lead.revision  # the ack waited for the follower
+asyncio.run_coroutine_threadsafe(srv.stop(), loop).result(60)
+ft.join(30)
+loop.call_soon_threadsafe(loop.stop)
+th.join(30)
+a = oidc.OIDCAuthenticator(issuer_url="https://i", client_id="c",
+                           jwks_uri="j", fetch=lambda u: b'{"keys": []}')
+assert a.authenticate_token("x.y.z") is None
+assert jose.b64url_encode(b"ok") == "b2s"
+assert sanitizer.enforced_violations() == []
+cfg = demo.build(port=0, device="cpu")
+cfg.engine.close_compaction()
 bad = [m for m in sys.modules if m.split(".")[0] in
        ("jax", "jaxlib", "spicedb_kubeapi_proxy_tpu")]
 assert not bad, bad
 print("ok")
 """
+
+
+def _port_imports():
+    """(file, module) for every import statement in the port's sources."""
+    import ast
+
+    root = os.path.join(REPO, "spicedb_kubeapi_proxy_tpu_torch")
+    for d, _, files in os.walk(root):
+        for f in files:
+            if not f.endswith(".py"):
+                continue
+            path = os.path.join(d, f)
+            with open(path) as fh:
+                tree = ast.parse(fh.read(), path)
+            for node in ast.walk(tree):
+                if isinstance(node, ast.Import):
+                    for a in node.names:
+                        yield path, a.name
+                elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                    yield path, node.module or ""
 
 
 def test_port_never_imports_jax():
@@ -405,3 +467,11 @@ def test_port_never_imports_jax():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "ok"
+    # and no source of the port names them, nor torch.distributed (torch
+    # imports that itself, so the module check above cannot see it): the
+    # mirror and failover run over the engine protocol alone
+    bad = [(p, m) for p, m in _port_imports()
+           if m.split(".")[0] in ("jax", "jaxlib",
+                                  "spicedb_kubeapi_proxy_tpu")
+           or m == "torch.distributed" or m.startswith("torch.distributed.")]
+    assert not bad, bad

@@ -402,18 +402,10 @@ def test_engine_host_cli_data_dir_flags():
 
 @pytest.mark.parametrize("flag,value,item", [
     (f, v, i) for f, v, i in (
+        # the --peers failover flags are served (test_torch_mirror.py)
         ("--engine-mesh", "auto", "A.5"),
         ("--distributed", "127.0.0.1:1,2,0", "A.5"),
         ("--mirror-leader", "127.0.0.1:1", "A.5"),
-        ("--mirror-ca-file", "ca.pem", "A.5"),
-        ("--mirror-skip-verify-ca", None, "A.5"),
-        ("--mirror-heartbeat-seconds", "1", "A.5"),
-        ("--mirror-heartbeat-timeout", "3", "A.5"),
-        ("--peers", "127.0.0.1:1,127.0.0.1:2", "A.5"),
-        ("--peer-id", "1", "A.5"),
-        ("--replication-timeout", "5", "A.5"),
-        ("--min-sync-replicas", "1", "A.5"),
-        ("--failover-boot-grace", "5", "A.5"),
         ("--enable-chaos-ops", None, "A.7"))])
 def test_engine_host_cli_refuses_unported_flags(capsys, flag, value, item):
     argv = ["--engine-insecure", "--device", "cpu", flag]

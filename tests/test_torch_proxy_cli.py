@@ -4,8 +4,10 @@
 ``InMemoryKube`` reached by ``--upstream-url``; SIGTERM ends it with exit
 0. Without ``--device`` the engine asks for ``cuda``: on a machine with no
 card that is exit 2 with ``resolve_device``'s error, never a quiet CPU
-fallback. Every flag whose half of the system the port lacks is refused
-with the ROADMAP item that brings it, from the CLI and from ``Options``.
+fallback. Every flag whose half of the system the port lacks (only
+``--engine-mesh`` now: the ``--oidc-*`` flags are served and held in
+test_torch_oidc.py) is refused with the ROADMAP item that brings it, from
+the CLI and from ``Options``.
 The scale-out flags are accepted (``--device`` beside ``--shard-map`` is
 refused), and a sharded port proxy lists byte for byte like the JAX proxy
 over the same engine hosts.
@@ -241,10 +243,10 @@ def test_device_is_refused_beside_a_shard_map(capsys):
 
 
 def test_mesh_and_oidc_flags_still_name_their_items():
-    assert {item for *_, item, _what in _REFUSED} == {"A.5", "A.6"}
+    # OIDC (A.6) is served now; the mesh flag still names A.5
+    assert {item for *_, item, _what in _REFUSED} == {"A.5"}
     assert [r[2] for r in _REFUSED if r[3] == "A.5"] == ["--engine-mesh"]
-    assert all(r[2].startswith("--oidc-") for r in _REFUSED
-               if r[3] == "A.6")
+    assert not any(r[2].startswith("--oidc-") for r in _REFUSED)
 
 
 def test_sharded_port_proxy_lists_byte_for_byte_like_the_jax_proxy(

@@ -961,8 +961,8 @@ def test_metrics_exposition_and_snapshots_match_the_reference():
 # (e) ops whose engine half is not ported, and the scale-out ops that are
 # ---------------------------------------------------------------------------
 
+# mirror_subscribe is served since the mirror landed (test_torch_mirror.py)
 REFUSED = {
-    "mirror_subscribe": "A.5",
     "chaos_arm": "A.7", "chaos_reset": "A.7", "chaos_status": "A.7",
 }
 

@@ -289,3 +289,39 @@ def package(pkg: str):
 def counter(P, name: str, **labels) -> float:
     """A counter's value in package ``P``'s own metrics registry."""
     return P.metrics.counter(name, **labels).value
+
+
+def port_cases(filename: str, replacements=(), names=None) -> dict:
+    """The test functions of the JAX package's ``tests/<filename>``, run
+    on the port: its source with every ``spicedb_kubeapi_proxy_tpu.``
+    import pointed at the port's package, then each ``(old, new)`` of
+    ``replacements`` applied (each must occur: a drifted source fails
+    loudly here instead of silently testing the reference), compiled
+    under the original file name and executed as a module of its own.
+    Returns ``{name: function}`` for the ``test_*`` functions (only those
+    in ``names`` when given), for a port test module to re-export: the
+    same bodies, parameters and marks, against the port."""
+    import os
+    import types as _types
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        filename)
+    with open(path) as fh:
+        src = fh.read()
+    src = src.replace("spicedb_kubeapi_proxy_tpu.",
+                      "spicedb_kubeapi_proxy_tpu_torch.")
+    for old, new in replacements:
+        if old not in src:
+            raise AssertionError(f"{filename}: {old!r} not found")
+        src = src.replace(old, new)
+    mod = _types.ModuleType(f"port_cases_{filename[:-3]}")
+    mod.__file__ = path
+    exec(compile(src, path, "exec"), mod.__dict__)
+    out = {}
+    for name, fn in vars(mod).items():
+        if name.startswith("test_") and callable(fn) \
+                and (names is None or name in names):
+            out[name] = fn
+    if names is not None and set(names) - set(out):
+        raise AssertionError(f"{filename}: missing {set(names) - set(out)}")
+    return out
