@@ -122,8 +122,11 @@ R. the engine host (engine/remote.py) on the headline engine, after T:
    its pid among nvidia-smi's compute apps, P's subjects' masks
    byte-equal to the writer's, and SIGTERM: exit code 0 and the seconds
    its shutdown took (the final checkpoint);
-M. live schema migration (migration/) on the headline engine, after R:
-   (a) an additive migration in process (pod gains ``relation auditor``
+M. live schema migration (migration/), after R, on a store of its own:
+   the headline's widths and seed with an eighth of its relationships
+   (``reduced``: each freeze's parity probe builds two OracleEvaluators
+   over the whole store, which at 10M took 68-91 s a freeze). (a) an
+   additive migration in process (pod gains ``relation auditor``
    and ``permission audit = auditor + namespace->admin``), durable (a
    fresh data dir, so the record is ``<dir>/migration.json``), the
    decision cache on and warm, a lister (phase 5's subjects, each list
@@ -156,7 +159,10 @@ M. live schema migration (migration/) on the headline engine, after R:
    (M.a's target), booted under the old schema with no write: its log
    says ``resumed (phase cut)``, pod#audit answers, the record is
    ``done``, P's subjects' masks equal the writer's, and SIGTERM exits
-   0;
+   0; (d) the headline engine takes M.b's final schema (the workflow
+   definitions and the probation caveat, which K's dual writes and
+   references need) in one migration with its parity probe off (M.a and
+   M.b ran it), timed, its schema equal to M's;
 K. the proxy itself (the port's rules/, authz/, dtx/ and proxy/) on the
    headline engine after M, a port ``Server`` over loopback HTTP with
    deploy/rules.yaml's pod rules (the list rule is the reference's
@@ -187,6 +193,29 @@ K. the proxy itself (the port's rules/, authz/, dtx/ and proxy/) on the
    X-Remote-User, wall p50/p99 beside (a)'s, each list byte for byte as
    in (a), the token's verification alone, and an expired token, an
    unknown ``kid`` and a wrong audience answering 401;
+C.a the open-loop sweep (loadgen/) on the headline engine after K.g:
+   a 1.5 s closed-loop capacity probe of the mix from 8 threads
+   (bench.py's shape), then the port's ``run_sweep`` over
+   ``trace_shaped_config(d, 0.25 x capacity, tenants=8, seed)`` at
+   0.5, 1, 2 and 3.5x with 32 workers and bench.py's SLOs, the compactor
+   on; each point's ``d`` is at least 4 s and long enough for the
+   schedule to hold 400 arrivals from 1x up, so every point draws the
+   same mix (``reduced``: the 0.5x point is as long as the 1x one, ~200
+   arrivals, saving ~30 s). Each trace op class maps onto the port: a check is a 1-item
+   pod#view ``check_bulk``, a bulk check 64 items (16 subjects x 4
+   pods), the list prefilter ``lookup_resources_mask``, a Table the
+   port's ``filter_body`` over a 5,000-row pod Table, ``lookup_subjects``
+   the engine's, a write a new pod#viewer grant to one of 64 subjects
+   (never the same tuple twice), and a watch open and a wildcard check a
+   check (the headline schema has no user:* grant). Offered, completed
+   and goodput a point; each class's completions, p50 and max, its p99
+   over at least 100 completions and its p99.9 over at least 1,000
+   (exact, from the driver's records); the knee and whether it
+   saturated, each burst window, the worst one's tail attribution, SLO
+   attainment; no op errs, and afterwards every written subject's mask
+   equals the columnar reference; then, unloaded, how long a
+   ``lookup_subjects`` takes on 6 pods and how that divides between its
+   candidate walk over the store's columns and its bulk checks;
 D. the demo (proxy/demo.py ``build`` on the card) and its two users'
    lists: alice sees dev, carol prod;
 F. the ``--peers`` failover set (parallel/failover.py, parallel/
@@ -251,7 +280,8 @@ X. scale-out (scaleout/, autoscale/), after phase 10's engine is released:
    ``ShardedEngine`` and a ``SplitJournal`` in front. (a) G=2: phase
    5's 31 subjects and 33 more listed through ``lookup_resources_mask``
    (the gathered ids, mapped back, equal to their masks at phase 5's
-   state), 1,024 routed single checks (the scatter counter still) and
+   state), 256 routed single checks (the scatter counter still;
+   ``reduced`` from 1,024, ~14 s over G=2 and G=4) and
    phase 6's 64 x 1,024 bulk check scatter-gathered (its verdicts),
    device bytes a group; (b) on the reference bench's 10x shard point
    with an eighth of its namespaces (2,500 x 12 pods, 512 users; the
@@ -273,6 +303,20 @@ X. scale-out (scaleout/, autoscale/), after phase 10's engine is released:
    no cooldown) proposing and driving 4 -> 3 under the lister and the
    writer, list goodput with the mover paused and running, no
    acknowledged write lost.
+C.b one seed of the chaos campaign (chaos/), after phase X: the port's
+   ``Campaign`` with no device given (the card) over its subprocess
+   topology, 2 shard groups x 2-peer failover sets of engine-host CLIs
+   sharing the card (``--wal-fsync always --min-sync-replicas 1
+   --enable-chaos-ops``), the planner, ``FailoverEngine`` and
+   ``RemoteEngine`` in this process: the baseline, brownout (wire-armed
+   on group 1), crash (group 0's leader SIGKILLed), elastic (grow ->
+   shrink -> regrow, the retiring leader SIGKILLed mid-drain) and
+   migration episodes; ok with zero violations, the seed's fault digest
+   (the pinned one at seed 0), the retries at the faulted group against
+   the budget's bound, the healthy-goodput ratio, each host's spawn ->
+   ready, each kill -> promotion, each episode's wall, the card's memory
+   (nvidia-smi) with every host up, and every host's log saying it ran
+   on the card.
 
 Launch counts are zeroed just before phase 5 and read just after phase 6
 (the kernels JSON's ``launches``), and again around phases 9b-9c
@@ -292,8 +336,11 @@ graph may form no dense block, so 0 is allowed there);
 ``failover_path_launches``: what F's surviving leader logged at its
 exit, its lists and bulk checks after the promotion (the subprocess's
 own counts; the killed leader's die with it); ``scaleout_path_launches``: every group engine's calls in
-X.a-X.e). Both kernels must have run on every path
-(the persistence path runs lists only, and a check of the proxy path
+X.a-X.e; ``loadgen_path_launches``: C.a's sweep alone;
+``chaos_path_launches``: what C.b's surviving hosts logged at their
+shutdown, which may be 0, as the demo's: the campaign's graph of 8
+namespaces may form no dense block). Both kernels must have run on
+every other path (the persistence path runs lists only, and a check of the proxy path
 takes the engine's push or pull choice: their bit kernel). The bit kernel's row also carries its readings at the fused
 batch's inputs (``fused_inputs``). Any
 mismatch or error exits non-zero. The last line is the run's JSON
@@ -4410,6 +4457,7 @@ def caveat_phase(torch, dev, n_rels: int, subjects: list, items: list,
 X10_NS, X10_PODS_PER_NS, X10_USERS = 2_500, 12, 512
 X_VNODES = 64
 X_SUBJECTS = 64  # X.a and X.c's list subjects (phase 5's 31 and 33 more)
+X_ROUTED = 256  # X.a's routed single checks, phase 6's first items
 X_PROXY_LISTS = 11  # X.e's GET /api/v1/pods
 X_LIST_GAP = 0.05  # X.b and X.d's lister: one list, then 50 ms
 
@@ -4593,7 +4641,7 @@ def x_ops(metrics, op: str, mode: str) -> float:
 def x_mix(torch, fleet, label: str, ref: dict, pod_ns, launches) -> dict:
     """X.a's mix on a fleet: the list filters of ``ref``'s 64 subjects
     (gathered ids mapped back to pod indices, equal to phase 5's masks),
-    1,024 routed single checks (no scatter) and the 64 x 1,024 bulk
+    ``X_ROUTED`` routed single checks (no scatter) and the 64 x 1,024 bulk
     check scatter-gathered (equal to phase 6's verdicts)."""
     from spicedb_kubeapi_proxy_tpu_torch.engine import CheckItem
     from spicedb_kubeapi_proxy_tpu_torch.utils.metrics import metrics
@@ -4623,7 +4671,7 @@ def x_mix(torch, fleet, label: str, ref: dict, pod_ns, launches) -> dict:
     sc0 = x_ops(metrics, "check_bulk", "scatter")
     single = []
     with launches:
-        for k, it in enumerate(items[:1024]):
+        for k, it in enumerate(items[:X_ROUTED]):
             t0 = time.perf_counter()
             v = p.check(it)
             single.append((time.perf_counter() - t0) * 1e3)
@@ -4647,7 +4695,7 @@ def x_mix(torch, fleet, label: str, ref: dict, pod_ns, launches) -> dict:
         f"lookup_resources_mask scatter-gathered over "
         f"{len(p.groups)} groups: p50 {out['list_p50']:.3f} ms, p99 "
         f"{out['list_p99']:.3f} ms; every list equal to phase 5's mask "
-        f"under the re-key; 1,024 routed single checks p50 "
+        f"under the re-key; {len(single)} routed single checks p50 "
         f"{out['check_p50']:.3f} ms (scatter counter unchanged, verdicts "
         f"equal phase 6's); bulk 64 x 1,024 scatter-gathered "
         f"{out['checks_per_s']:,.0f} checks/s (median of 3, min "
@@ -5866,6 +5914,545 @@ def demo_phase(torch) -> dict:
     return dict(launches.n)
 
 
+# -- phase M's cell: the migrations at an eighth of the headline's depth ------
+
+M_DEPTH = 8  # phase M's store: the headline's rows over this, same widths
+
+
+def migration_cell(torch, e, here: str, subjects: list, items: list,
+                   bulk_users: list, r_dir: str, r_users: list,
+                   r_want: dict, n_rels: int, seed: int) -> dict:
+    """Phase M at a reduced depth: M.a and M.b run on a store of their own
+    with the headline's widths and an eighth of its relationships (each
+    freeze's probe builds two OracleEvaluators over the whole store; at
+    10M the two freezes took 137-183 s of the run), M.c on R.e's 10M data
+    dir as before. Then M.d: the headline engine takes M.b's final schema
+    (the workflow definitions and the probation caveat phase K's dual
+    writes and references need) in one migration whose parity probe is
+    off, since M.a and M.b ran it. Returns the launches of M.a and M.b."""
+    from spicedb_kubeapi_proxy_tpu_torch.engine import Engine
+    from spicedb_kubeapi_proxy_tpu_torch.models import parse_schema
+    from spicedb_kubeapi_proxy_tpu_torch.models.bootstrap import \
+        WORKFLOW_SCHEMA
+
+    t0 = time.perf_counter()
+    rows = build_rows(N_PODS, N_USERS, N_NS, N_GROUPS, n_rels // M_DEPTH,
+                      seed)
+    n = len(rows["resource_id"])
+    em = Engine(schema=parse_schema(BENCH_SCHEMA), device=e.device)
+    em.bulk_load(rows)
+    del rows
+    em.compiled()
+    build_s = time.perf_counter() - t0
+    lat = []
+    for u in subjects:
+        t1 = time.perf_counter()
+        em.lookup_resources_mask("pod", "view", "user", u)
+        lat.append((time.perf_counter() - t1) * 1e3)
+    log(f"phase M store: {n} relationships (the headline's widths, an "
+        f"eighth of its relationships), built and compiled in "
+        f"{build_s:.2f} s; {len(subjects)} lists p50 {pct(lat, 50):.3f} ms "
+        f"(M's yardstick below)")
+    launches = migration_phase(torch, em, here, subjects, items, bulk_users,
+                               r_dir, r_users, r_want, pct(lat, 50), seed)
+    final = em.schema
+    del em
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- M.d: the headline engine takes M's final schema, for phase K --
+    t0 = time.perf_counter()
+    st = e.begin_schema_migration(MIG_B_SCHEMA + "\n" + WORKFLOW_SCHEMA,
+                                  wait=True, parity_samples=0)
+    check(st["phase"] == "done", f"M.d: the headline migration ended {st}")
+    check(e.schema == final, "M.d: the headline engine's schema is not "
+          "M.b's final one")
+    log(f"phase M.d the headline engine migrated to M.b's target in one "
+        f"step ({st['classification']}, {st['backfilled']} rows "
+        f"backfilled, time_to_cut_ms {st['time_to_cut_ms']:.1f}, "
+        f"freeze_ms {st['freeze_ms']:.1f}) in "
+        f"{time.perf_counter() - t0:.2f} s: the schema phase K needs; its "
+        f"parity probe is off (M.a and M.b ran it above)")
+    return launches
+
+
+# -- phase C: open-loop load and the chaos campaign on the card ---------------
+
+C_DURATION = 4.0  # the shortest sweep point's schedule, seconds
+# each point's schedule is stretched until it holds this many arrivals
+# (the 0.5x point: as long as the 1x one, so half of them): the same
+# seeded trace at every point, so the same mix of classes
+C_POINT_ARRIVALS = 400
+# the fewest completions a class's p99 and p99.9 are printed over
+C_MIN_P99, C_MIN_P999 = 100, 1_000
+C_SPLIT_PODS = 6  # the lookup_subjects whose time is divided
+C_MULTIPLIERS = (0.5, 1.0, 2.0, 3.5)
+C_TABLE_ROWS = 5_000
+C_WRITERS = 64  # the subjects the sweep's writes grant pods to
+C_PROBE_S = 1.5  # the closed-loop capacity probe
+# bench.py's SLOs for the mix (bench.py:3530-3533), seconds
+C_SLO = {"check": 0.05, "wildcard-check": 0.05, "bulk-check": 0.15,
+         "list-prefilter": 0.15, "table-filter": 0.25,
+         "lookup-subjects": 0.5, "write": 0.25, "watch-open": 0.5}
+# the stock brownout schedule's digest at seed 0, pinned by the JAX
+# package's test_chaos_campaign.py
+CHAOS_SEED0_DIGEST = \
+    "0f050b3ea4cbcfb8c308607124ed4f16f523960e42d3686a0130f30de51042ad"
+CHAOS_EPISODES = ("baseline", "brownout", "crash", "elastic", "migration")
+
+
+def loadgen_phase(torch, e, subjects: list, seed: int) -> dict:
+    """Phase C.a (see the module docstring): the port's open-loop sweep
+    over the headline engine. Returns both kernels' launches over the
+    sweep alone."""
+    import types
+
+    from spicedb_kubeapi_proxy_tpu_torch.authz import filterer
+    from spicedb_kubeapi_proxy_tpu_torch.authz.lookups import AllowedSet
+    from spicedb_kubeapi_proxy_tpu_torch.engine import CheckItem
+    from spicedb_kubeapi_proxy_tpu_torch.engine.engine import \
+        subject_candidates
+    from spicedb_kubeapi_proxy_tpu_torch.engine.store import WriteOp
+    from spicedb_kubeapi_proxy_tpu_torch.loadgen import (
+        build_schedule,
+        run_sweep,
+        trace_shaped_config,
+    )
+    from spicedb_kubeapi_proxy_tpu_torch.loadgen import schedule as ls
+    from spicedb_kubeapi_proxy_tpu_torch.models.tuples import Relationship
+    from spicedb_kubeapi_proxy_tpu_torch.ops import bitprop
+    from spicedb_kubeapi_proxy_tpu_torch.proxy.requestinfo import \
+        parse_request_info
+    from spicedb_kubeapi_proxy_tpu_torch.rules.input import (
+        ResolveInput,
+        UserInfo,
+    )
+    from spicedb_kubeapi_proxy_tpu_torch.utils.metrics import metrics
+
+    rng = np.random.default_rng(seed + 150)
+    table = json.dumps({
+        "kind": "Table", "apiVersion": "meta.k8s.io/v1",
+        "columnDefinitions": [{"name": "Name", "type": "string"}],
+        "rows": [{"cells": [f"p{i}"], "object": {"metadata": {
+            "name": f"p{i}", "namespace": "ns"}}}
+            for i in range(C_TABLE_ROWS)]}).encode()
+    t_info = parse_request_info("GET", "/api/v1/namespaces/ns/pods", {})
+    writers = [f"u{u}" for u in rng.choice(N_USERS, C_WRITERS,
+                                           replace=False)]
+    wlock = threading.Lock()
+    written: set = set()
+    touched: set = set()
+    table_kept: list = []
+
+    def user(a) -> str:
+        return f"u{a.key % N_USERS}"
+
+    def pod(a, j: int = 0) -> str:
+        return f"ns/p{(a.key * 7 + a.ns_key * 131 + j) % N_PODS}"
+
+    def op_check(a):
+        e.check_bulk([CheckItem("pod", pod(a), "view", "user", user(a))])
+
+    def op_bulk(a):
+        # 16 subjects x 4 pods, grouped by subject as phase 6's items: the
+        # pull hop at B=16
+        e.check_bulk([CheckItem("pod", pod(a, 97 * j + i), "view", "user",
+                                f"u{(a.key + 613 * j) % N_USERS}")
+                      for j in range(16) for i in range(4)])
+
+    def op_list(a):
+        e.lookup_resources_mask("pod", "view", "user", user(a))
+
+    def op_table(a):
+        allowed = AllowedSet()
+        for pid in e.lookup_resources("pod", "view", "user", user(a)):
+            ns, _, name = pid.partition("/")
+            allowed.add(ns, name)
+        st, out = filterer.filter_body(table, allowed, ResolveInput.create(
+            t_info, UserInfo(name=user(a))))
+        check(st == 200, f"C.a: the Table filter answered {st}")
+        table_kept.append(len(json.loads(out)["rows"]))
+
+    def op_subjects(a):
+        e.lookup_subjects("pod", pod(a), "view", "user")
+
+    def op_write(a):
+        with wlock:
+            k = a.key
+            while True:
+                pair = (f"ns/p{k % N_PODS}",
+                        writers[(k // 7 + a.ns_key) % C_WRITERS])
+                if pair not in written:
+                    break
+                k += 1
+            written.add(pair)
+            touched.add(pair[1])
+        e.write_relationships([WriteOp("touch", Relationship(
+            "pod", pair[0], "viewer", "user", pair[1]))])
+
+    ops = {ls.OP_CHECK: op_check, ls.OP_BULK_CHECK: op_bulk,
+           ls.OP_LIST_PREFILTER: op_list, ls.OP_TABLE: op_table,
+           ls.OP_LOOKUP_SUBJECTS: op_subjects, ls.OP_WRITE: op_write,
+           # as bench.py's probe maps it
+           ls.OP_WATCH_OPEN: op_check,
+           # the headline schema has no user:* grant to probe
+           ls.OP_WILDCARD: op_check}
+    # ops the driver abandoned at a point's drain deadline run on: the
+    # answers are read only once none is left
+    busy = threading.Condition()
+    inflight = [0]
+
+    def tracked(fn):
+        def run(a):
+            with busy:
+                inflight[0] += 1
+            try:
+                fn(a)
+            finally:
+                with busy:
+                    inflight[0] -= 1
+                    busy.notify_all()
+        return run
+
+    ops = {name: tracked(fn) for name, fn in ops.items()}
+    e.enable_compaction()
+    launches = Launches(bitprop)
+    try:
+        probe_ops = [ops[name] for name, w in ls.DEFAULT_MIX.items()
+                     for _ in range(max(1, round(w * 100)))]
+
+        def closed_probe(dur_s: float, nthreads: int = 8) -> float:
+            stop = time.perf_counter() + dur_s
+            done = [0] * nthreads
+
+            def w(i):
+                k = i
+                while time.perf_counter() < stop:
+                    a = types.SimpleNamespace(key=k, ns_key=k)
+                    probe_ops[(k * 131) % len(probe_ops)](a)
+                    done[i] += 1
+                    k += nthreads
+
+            ts = [threading.Thread(target=w, args=(i,))
+                  for i in range(nthreads)]
+            for t in ts:
+                t.start()
+            for t in ts:
+                t.join()
+            return sum(done) / dur_s
+
+        closed_probe(0.3)  # every op's path warm
+        cap_rps = closed_probe(C_PROBE_S)
+        base = max(5.0, 0.25 * cap_rps)
+        span = {}  # multiplier -> the point's schedule, seconds
+
+        def point_config(m: float):
+            want = C_POINT_ARRIVALS * min(m, 1.0)
+            d = max(C_DURATION, want / (2.0 * base * m))
+            while True:
+                cfg = trace_shaped_config(d, base * m, tenants=8,
+                                          seed=seed)
+                if len(build_schedule(cfg)) >= want:
+                    span[m] = d
+                    return cfg
+                d *= 1.05
+
+        log(f"phase C.a open-loop sweep (loadgen/) on the headline engine "
+            f"after K.g: closed-loop capacity of the mix {cap_rps:.1f} op/s "
+            f"from 8 threads over {C_PROBE_S} s; base offered rate "
+            f"{base:.1f}/s (0.25x), trace-shaped schedules (watch storm, "
+            f"get wave, reconcile) of at least {C_POINT_ARRIVALS} arrivals "
+            f"from 1x up (0.5x as long as 1x) and {C_DURATION} s at "
+            f"{C_MULTIPLIERS}, 32 workers, seed "
+            f"{seed}; watch-open and wildcard-check run as checks (the "
+            f"headline schema has no user:* grant)")
+        folds0 = metrics.counter("engine_compactions_total").value
+        t0 = time.perf_counter()
+        with launches:
+            res = run_sweep(point_config, ops, C_MULTIPLIERS, C_SLO,
+                            max_workers=32, drain_timeout=30.0)
+            sweep_s = time.perf_counter() - t0
+            with busy:
+                check(busy.wait_for(lambda: inflight[0] == 0, 300),
+                      f"C.a: {inflight[0]} ops still running 300 s after "
+                      f"the sweep")
+            settle_s = time.perf_counter() - t0 - sweep_s
+    finally:
+        e.close_compaction()
+    d = res.to_dict()
+
+    def class_line(lats: list) -> str:
+        # exact quantiles of the completions, each only over enough of them
+        a = np.asarray(lats) * 1e3
+        out = f"{len(a)}: p50 {np.percentile(a, 50):.3f}"
+        if len(a) >= C_MIN_P99:
+            out += f", p99 {np.percentile(a, 99):.3f}"
+        if len(a) >= C_MIN_P999:
+            out += f", p99.9 {np.percentile(a, 99.9):.3f}"
+        return out + f", max {a.max():.3f}"
+
+    fracs = []
+    for p in res.points:
+        check(p.error_n == 0, f"C.a: {p.error_n} errors at "
+              f"{p.multiplier}x: {p.report.error_samples}")
+        fracs.append(p.goodput_rps / p.offered_rps)
+        log(f"  C.a {p.multiplier}x over {span[p.multiplier]:.1f} s: offered "
+            f"{p.offered_rps:.1f}/s ({p.fired_n} fired, {p.late_n} late), "
+            f"completed {p.completed_rps:.1f}/s, goodput "
+            f"{p.goodput_rps:.1f}/s ({fracs[-1]:.3f} of offered), shed "
+            f"{p.shed_n}, errors 0, abandoned {p.report.abandoned_n}")
+        log(f"    ms, each class's completions (p99 over >= {C_MIN_P99}, "
+            f"p99.9 over >= {C_MIN_P999}): " + "; ".join(
+                f"{op} {class_line(p.report.latencies(op))}"
+                for op in sorted(p.report.per_class())
+                if p.report.latencies(op)))
+    if fracs[0] < 0.85:
+        knee = (f"at or below the lowest point's offered "
+                f"{res.points[0].offered_rps:.1f} op/s (every point's goodput "
+                f"under 0.85 of offered)" if max(fracs) < 0.85 else
+                f"at or below the lowest point's offered "
+                f"{res.points[0].offered_rps:.1f} op/s (its goodput under "
+                f"0.85 of offered)")
+    else:
+        knee = (f"{d['knee_rps']} op/s offered ("
+                f"{'saturated' if d['knee_saturated'] else 'not reached: a lower bound'})")
+    log(f"  C.a knee {knee}; SLO attainment at {C_MULTIPLIERS[-1]}x: "
+        f"{d['slo_attainment']}")
+    top = res.points[-1].report
+    for name, b in d["bursts"].items():
+        w0, w1 = b["window_rel"]
+        by_op: dict = {}
+        for r in top.records:
+            if w0 <= r.arrival.t < w1 and r.outcome == "ok":
+                by_op.setdefault(r.arrival.op, []).append(r.latency_s)
+        worst = max(by_op.items(), key=lambda kv: max(kv[1]),
+                    default=(None, [0.0]))
+        log(f"  C.a burst {name} at {C_MULTIPLIERS[-1]}x: {b['n']} arrivals, "
+            f"shed {b['shed']}, errors {b['errors']}, the slowest class "
+            f"{worst[0]}: max {max(worst[1]) * 1e3:.3f} ms over "
+            f"{len(worst[1])} completions")
+    ta = d["tail_attribution"]
+    log(f"  C.a worst burst {ta.get('burst')}: {ta.get('traces')} kept "
+        f"traces, stage shares {ta.get('stage_share')}")
+    # the answers: every subject the sweep's writes granted, exact
+    now = time.time()
+    users = sorted(touched)
+    n_type = e.compiled().type_sizes["pod"]
+    got = {u: e.lookup_resources_mask("pod", "view", "user", u,
+                                      now=now)[0] for u in users}
+    same_masks(got, uncaveated_view_masks(e.store, users, now, n_type),
+               "C.a: a written subject's list after the sweep")
+    log(f"  C.a the sweep took {sweep_s:.1f} s (and {settle_s:.1f} s more "
+        f"for the ops it abandoned): {len(written)} distinct "
+        f"pod#viewer grants to {len(users)} subjects, each subject's mask "
+        f"after it equal to the columnar reference; Table filters kept "
+        f"{min(table_kept, default=0)}-{max(table_kept, default=0)} of "
+        f"{C_TABLE_ROWS} rows; compactor folds "
+        f"{metrics.counter('engine_compactions_total').value - folds0:.0f}; "
+        f"loadgen-path launches {launches.n}")
+    for kname, nl in launches.n.items():
+        check(nl > 0, f"C.a: {kname} was not launched by the sweep")
+    # unloaded: a lookup_subjects's candidate walk against its bulk checks
+    walk, whole, ncand, nans = [], [], [], []
+    for j in range(C_SPLIT_PODS):
+        rid = pod(types.SimpleNamespace(key=int(rng.integers(1 << 16)),
+                                        ns_key=j))
+        t1 = time.perf_counter()
+        cands = subject_candidates(e.schema, e.store, "pod", rid, "view",
+                                   "user")
+        t2 = time.perf_counter()
+        got = e.lookup_subjects("pod", rid, "view", "user")
+        t3 = time.perf_counter()
+        check(set(got) <= cands, f"C.a: lookup_subjects on {rid} answered "
+              f"a subject its candidate walk did not find")
+        walk.append((t2 - t1) * 1e3)
+        whole.append((t3 - t2) * 1e3)
+        ncand.append(len(cands))
+        nans.append(len(got))
+    log(f"  C.a lookup_subjects on {C_SPLIT_PODS} pods, unloaded: "
+        f"{[round(x, 3) for x in whole]} ms each, of which the candidate "
+        f"walk over the store's columns {[round(x, 3) for x in walk]} ms "
+        f"and the rest its bulk checks over {ncand} candidates "
+        f"({nans} subjects hold pod#view); the walk's share of the whole "
+        f"{sum(walk) / sum(whole):.3f}")
+    return dict(launches.n)
+
+
+def chaos_phase(torch, here: str, seed: int) -> dict:
+    """Phase C.b (see the module docstring): one seed of the port's chaos
+    campaign over engine-host CLIs sharing the card. Returns the kernel
+    launches the surviving hosts logged at their shutdown."""
+    from spicedb_kubeapi_proxy_tpu_torch.chaos import campaign as cc
+    from spicedb_kubeapi_proxy_tpu_torch.chaos.invariants import \
+        retry_amplification_bound
+    from spicedb_kubeapi_proxy_tpu_torch.chaos.schedule import \
+        brownout_schedule
+
+    work = os.path.join(here, "build", "chaos")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    spawn, ready, kills, mem, walls, budget = {}, {}, [], [], [], {}
+    lock = threading.Lock()
+
+    def smi_used() -> str:
+        return subprocess.run(
+            ["nvidia-smi", "--query-gpu=memory.used",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60).stdout.strip()
+
+    class Topology(cc.SubprocessTopology):
+        def _boot(self, g, p):
+            key = (g, p, sum(1 for k in spawn if k[:2] == (g, p)))
+            t0 = time.perf_counter()
+            proc = super()._boot(g, p)
+            spawn[key] = t0
+            port = self.ports[g][p]
+
+            def await_ready():
+                while time.perf_counter() - t0 < 180 and proc.poll() is None:
+                    probe = self._probe(port)
+                    try:
+                        probe.failover_state()
+                        with lock:
+                            ready[key] = time.perf_counter() - t0
+                        return
+                    except Exception:  # noqa: BLE001 - not up yet
+                        time.sleep(0.05)
+                    finally:
+                        probe.close()
+
+            threading.Thread(target=await_ready, daemon=True).start()
+            return proc
+
+        def kill_group_leader(self, g):
+            gp = super().kill_group_leader(g)
+            t0 = time.perf_counter()
+            rec = {"group": g, "peer": gp[1], "promoted_s": None}
+            kills.append(rec)
+
+            def await_promotion():
+                while time.perf_counter() - t0 < 60:
+                    if self.group_leader(g) not in (None, gp[1]):
+                        rec["promoted_s"] = time.perf_counter() - t0
+                        return
+                    time.sleep(0.02)
+
+            threading.Thread(target=await_promotion, daemon=True).start()
+            return gp
+
+        def make_planner(self):
+            mem.append(("4 hosts up", smi_used()))
+            return super().make_planner()
+
+        def add_group(self):
+            out = super().add_group()
+            mem.append((f"{len(self.ports)} groups booted", smi_used()))
+            return out
+
+    class Campaign(cc.Campaign):
+        def run_seed(self, s):
+            walls.append(("seed start", time.perf_counter()))
+            return super().run_seed(s)
+
+        def _finish_episode(self, ev, extra):
+            walls.append((ev.name, time.perf_counter()))
+            if ev.attempts is not None:
+                budget.update(retries=ev.retries_observed,
+                              bound=retry_amplification_bound(
+                                  ev.budget_ratio, ev.budget_burst,
+                                  ev.attempts), attempts=ev.attempts)
+            return super()._finish_episode(ev, extra)
+
+    orig = cc.SubprocessTopology
+    cc.SubprocessTopology = Topology
+    try:
+        t0 = time.perf_counter()
+        camp = Campaign(cc.CampaignConfig(seeds=(seed,), episodes="short",
+                                          workdir=work))
+    finally:
+        cc.SubprocessTopology = orig
+    check(camp.cfg.device == "cuda", "C.b: the campaign is not on the card")
+
+    def host_logs() -> dict:
+        out = {}
+        for f in sorted(os.listdir(work)):
+            if f.startswith("host-") and f.endswith(".log"):
+                with open(os.path.join(work, f), errors="replace") as fh:
+                    out[f] = fh.read()
+        return out
+
+    try:
+        result = camp.run()
+    except BaseException:
+        # the hosts' own account of the failure, ahead of the traceback
+        for f, text in host_logs().items():
+            print(f"--- C.b {f}, its last 1500 bytes:\n{text[-1500:]}",
+                  file=sys.stderr, flush=True)
+        raise
+    wall_s = time.perf_counter() - t0
+    logs = host_logs()
+    check(result["ok"] and result["violations"] == [],
+          f"C.b: the campaign found violations: {result['violations']}")
+    names = [ev["episode"] for ev in result["episodes"]]
+    check(names == [f"seed{seed}/{n}" for n in CHAOS_EPISODES],
+          f"C.b: the episodes were {names}")
+    by = {n.split("/", 1)[1]: ev for n, ev in zip(names, result["episodes"])}
+    check(by["crash"]["killed"] is not None, "C.b: no leader was killed")
+    check(by["elastic"]["killed"] is not None
+          and [(t["phase"], t["converged"])
+               for t in by["elastic"]["transitions"]]
+          == [("grow", True), ("shrink", True), ("regrow", True)],
+          f"C.b: the elastic episode {by['elastic'].get('transitions')}")
+    check(by["migration"]["migration_phase"] == "done",
+          f"C.b: the migration ended {by['migration']['migration_phase']}")
+    digest = result["seeds"][str(seed)]["fault_digest"]
+    want = CHAOS_SEED0_DIGEST if seed == 0 else \
+        brownout_schedule(seed).digest()
+    check(digest == want, f"C.b: the fault digest {digest} is not {want}")
+    for f, text in logs.items():
+        check("engine on cuda" in text, f"C.b: {f} did not run on the "
+              f"card:\n{text[-2000:]}")
+    check(budget and budget["retries"] <= budget["bound"],
+          f"C.b: retries at the faulted group {budget}")
+    counts = {"bit_or_matmul": 0, "dense_or_matmul": 0}
+    for text in logs.values():
+        for part in text.split("kernel launches in this process:")[1:]:
+            got = launch_line("kernel launches in this process:"
+                              + part.split("\n", 1)[0])
+            for k in counts:
+                counts[k] += got.get(k, 0)
+    log(f"phase C.b one chaos campaign seed (chaos/) over engine-host CLIs "
+        f"sharing the card (2 groups x 2 peers, --wal-fsync always, "
+        f"--min-sync-replicas 1, --enable-chaos-ops, no --device): ok, 0 "
+        f"violations, {len(names)} episodes {list(by)} in {wall_s:.1f} s "
+        f"(the campaign's own clock {result['wall_s']} s); fault digest "
+        f"{digest[:16]}... (the pinned seed-0 one: {digest == CHAOS_SEED0_DIGEST})")
+    log(f"  C.b brownout: retries at the faulted group "
+        f"{budget['retries']:.0f} against the budget's bound "
+        f"{budget['bound']:.0f} ({budget['attempts']} attempts); "
+        f"healthy-goodput ratio {by['brownout']['healthy_goodput_ratio']}")
+    prev = None
+    for name, t in walls:
+        if prev is not None:
+            log(f"  C.b episode {name}: {t - prev:.2f} s wall")
+        prev = t
+    for key in sorted(spawn):
+        r = ready.get(key)
+        log(f"  C.b host g{key[0]}p{key[1]} (boot {key[2]}): spawn -> ready "
+            + (f"{r:.2f} s" if r is not None else "not seen"))
+    for k in kills:
+        ps = k["promoted_s"]
+        log(f"  C.b SIGKILL of group {k['group']}'s leader (peer "
+            f"{k['peer']}) -> its survivor promoted "
+            + (f"{ps:.2f} s" if ps is not None else "not seen"))
+    log(f"  C.b device memory (nvidia-smi): {mem}; elastic "
+        f"{[(t['phase'], t['groups']) for t in by['elastic']['transitions']]}; "
+        f"migration attempts {by['migration']['migration_attempts']}; "
+        f"chaos-path launches (the hosts' own logged counts) {counts}")
+    shutil.rmtree(work, ignore_errors=True)
+    return counts
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6145,11 +6732,12 @@ def main(argv=None) -> int:
     log(f"phase R took {time.perf_counter() - t0:.1f} s (the run at "
         f"{time.perf_counter() - t_run:.0f} s)")
 
-    # -- phase M: live schema migration, on the headline engine and the CLI
+    # -- phase M: live schema migration at a reduced depth and the CLI; the
+    # headline engine then takes M's final schema (M.d)
     t0 = time.perf_counter()
-    migration_launches = migration_phase(
+    migration_launches = migration_cell(
         torch, e, here, subjects, items, bulk_users, r_dir, p_users, p_want,
-        p50, args.seed)
+        args.n_rels, args.seed)
     log(f"phase M took {time.perf_counter() - t0:.1f} s (the run at "
         f"{time.perf_counter() - t_run:.0f} s)")
 
@@ -6160,6 +6748,12 @@ def main(argv=None) -> int:
     oidc_launches = oidc_phase(torch, e, here, subjects, MEASURED["k_a"],
                                args.seed)
     log(f"phase K took {time.perf_counter() - t0:.1f} s (the run at "
+        f"{time.perf_counter() - t_run:.0f} s)")
+
+    # -- phase C.a: the open-loop sweep on the headline engine --
+    t0 = time.perf_counter()
+    loadgen_launches = loadgen_phase(torch, e, subjects, args.seed)
+    log(f"phase C.a took {time.perf_counter() - t0:.1f} s (the run at "
         f"{time.perf_counter() - t_run:.0f} s)")
     t0 = time.perf_counter()
     demo_launches = demo_phase(torch)
@@ -6197,6 +6791,14 @@ def main(argv=None) -> int:
                                        x_base, x_ref)
     del x_base
 
+    # -- phase C.b: one chaos campaign seed over host CLIs on the card --
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    chaos_launches = chaos_phase(torch, here, args.seed)
+    log(f"phase C.b took {time.perf_counter() - t0:.1f} s (the run at "
+        f"{time.perf_counter() - t_run:.0f} s)")
+
     out = []
     for kname in ("bit_or_matmul", "dense_or_matmul"):
         r = krows[kname]
@@ -6215,6 +6817,8 @@ def main(argv=None) -> int:
                     "failover_path_launches": failover_launches[kname],
                     "demo_path_launches": demo_launches[kname],
                     "scaleout_path_launches": scaleout_launches[kname],
+                    "loadgen_path_launches": loadgen_launches[kname],
+                    "chaos_path_launches": chaos_launches[kname],
                     "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                     "bound_by": r["bound_by"], "library_ms": r["library_ms"],

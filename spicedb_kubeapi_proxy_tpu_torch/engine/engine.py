@@ -41,7 +41,16 @@ from ..caveats.ast import (
 )
 from ..device import resolve_device
 from ..models.bootstrap import DEFAULT_BOOTSTRAP, parse_bootstrap
-from ..models.schema import Schema, watch_relevance
+from ..models.schema import (
+    Arrow,
+    Exclude,
+    Intersect,
+    Nil,
+    RelationRef,
+    Schema,
+    Union,
+    watch_relevance,
+)
 from ..models.tuples import Relationship, canonical_context
 from ..obs.profile import install_kernel_build_hook
 from ..ops import semiring
@@ -243,12 +252,93 @@ class EngineFuture:
         return 0 if self._fut is None else self._fut.iterations()
 
 
+def subject_candidates(schema: Schema, store, resource_type: str,
+                       resource_id: str, permission: str,
+                       subject_type: str,
+                       subject_relation: Optional[str] = None
+                       ) -> Optional[set]:
+    """The ids of ``subject_type`` (``#subject_relation``) subjects whose
+    tuples the schema can lead from ``resource_type:resource_id`` to
+    ``permission``: relations, arrows and usersets walked over the live
+    tuples, expired and caveated ones included, every operand of an
+    intersection or an exclusion taken. A superset of the subjects that
+    hold the permission, found one layer of the walk at a time
+    (``Store.rows_of``, one pass over the columns a type). None when a
+    ``subject_type:*`` tuple is on the way, or when a permission holds an
+    expression this walk does not know: every known subject may hold it
+    then. With a ``subject_relation``, an object the walk reaches through
+    that relation is itself a candidate, whether or not any tuple names
+    it as a subject."""
+    want_rel = subject_relation or ""
+    out: set = set()
+    seen: set = set()
+    todo = [(resource_type, resource_id, permission)]
+    while todo:
+        rels: dict = {}  # type -> {relation: {object ids}}
+        for t, oid, name in todo:
+            if (t, oid, name) in seen:
+                continue
+            seen.add((t, oid, name))
+            if want_rel and t == subject_type and name == want_rel:
+                out.add(oid)  # the userset itself is on the way
+            d = schema.definitions.get(t)
+            if d is None:
+                continue
+            if name in d.relations:
+                rels.setdefault(t, {}).setdefault(name, set()).add(oid)
+                continue
+            perm = d.permissions.get(name)
+            stack = [perm.expr] if perm is not None else []
+            while stack:
+                e = stack.pop()
+                if isinstance(e, RelationRef):
+                    todo.append((t, oid, e.name))
+                elif isinstance(e, Arrow):
+                    rels.setdefault(t, {}).setdefault(
+                        ("->", e.tupleset, e.target), set()).add(oid)
+                elif isinstance(e, (Union, Intersect)):
+                    stack.extend(e.operands)
+                elif isinstance(e, Exclude):
+                    stack.extend((e.base, e.subtract))
+                elif not isinstance(e, Nil):
+                    return None
+        todo = []
+        for t, by_rel in rels.items():
+            plain = {r for r in by_rel if isinstance(r, str)}
+            arrows = {r[1] for r in by_rel if not isinstance(r, str)}
+            ids = set().union(*by_rel.values())
+            for rid, rl, st, sid, srl in store.rows_of(t, ids,
+                                                      plain | arrows):
+                if rl in plain and rid in by_rel[rl]:
+                    if sid == "*":
+                        if st == subject_type and not want_rel:
+                            return None
+                    elif st == subject_type and srl == want_rel:
+                        out.add(sid)
+                    if srl and sid != "*":
+                        todo.append((st, sid, srl))
+                if rl in arrows and sid != "*":
+                    for key, objs in by_rel.items():
+                        if not isinstance(key, str) and key[1] == rl \
+                                and rid in objs:
+                            todo.append((st, sid, key[2]))
+                            if srl:
+                                todo.append((st, sid, srl))
+    return out
+
+
 class Engine:
     """In-process relationship-graph engine on one device: ``cuda`` by
     default, the CPU only when ``device="cpu"`` is passed."""
 
     # bulk checks dispatch in chunks of this many items
     CHECK_PIPELINE_CHUNK = 16384
+    # the fixpoint's state holds a row of M slots for every distinct
+    # subject of a dispatch: a chunk whose subjects need more row-slots
+    # than this is split by subject (one lookup_subjects of 4,096
+    # candidates over the 10M headline asked for 40 GiB at once; this
+    # bound is ~1 GiB there); the JAX package dispatches the whole chunk
+    CHECK_MAX_ROW_SLOTS = 1 << 26
 
     def __init__(self, bootstrap: Optional[str] = None,
                  schema: Optional[Schema] = None,
@@ -999,23 +1089,38 @@ class Engine:
         cavs = cg.caveats
         if cavs is not None and cavs.metas:
             cav_req, _ = cavs.encode_request(context, now)
-        futs = []
+        futs, where = [], []
+        rows_max = max(1, self.CHECK_MAX_ROW_SLOTS // max(1, cg.M))
         # every chunk runs against one device state: a write waits for the
         # whole call, so one bulk check never spans two revisions
         with cg.shared_state():
             for s in range(0, n, chunk):
                 seeds, q_slots, q_batch = self._encode_checks(
                     cg, objs, items[s:s + chunk])
-                futs.append(backend.query_async(seeds, q_slots, q_batch,
-                                                now=now, context=context,
-                                                cav_req=cav_req))
+                if len(seeds) <= rows_max:
+                    where.append(slice(s, s + len(q_slots)))
+                    futs.append(backend.query_async(
+                        seeds, q_slots, q_batch, now=now, context=context,
+                        cav_req=cav_req))
+                    continue
+                for r0 in range(0, len(seeds), rows_max):
+                    sel = np.flatnonzero((q_batch >= r0)
+                                         & (q_batch < r0 + rows_max))
+                    where.append(s + sel)
+                    futs.append(backend.query_async(
+                        seeds[r0:r0 + rows_max], q_slots[sel],
+                        q_batch[sel] - r0, now=now, context=context,
+                        cav_req=cav_req))
         metrics.counter("engine_checks_total").inc(n)
 
         def iters():
             return max(f.iterations() for f in futs)
 
         def fin(_):
-            out = [bool(x) for f in futs for x in f.result()]
+            got = np.empty(n, dtype=bool)
+            for w, f in zip(where, futs):
+                got[w] = f.result()
+            out = got.tolist()
             metrics.histogram("engine_check_seconds").observe(
                 time.perf_counter() - t0)
             metrics.histogram("engine_fixpoint_iterations").observe(iters())
@@ -1050,13 +1155,23 @@ class Engine:
         ``permission`` on one resource, as bulk checks over the store's
         known subjects of that type (every distinct subject id in any
         relationship). A wildcard grant passes every known subject; the
-        literal ``'*'`` is never reported. Sorted."""
-        cands = sorted({
-            rel.subject_id
-            for rel in self.read_relationships(
-                RelationshipFilter(subject_type=subject_type))
-            if rel.subject_id != "*"
-        })
+        literal ``'*'`` is never reported. Sorted. The JAX package checks
+        every known subject; the port checks only those the schema can
+        lead from the resource to (``subject_candidates``, every subject
+        with a verdict of True among them), and every known subject
+        (``Store.subject_ids``) when a wildcard is on the way. With a
+        ``subject_relation`` it keeps only the candidates some tuple
+        names as a subject, as the JAX package's are: the same answer, at
+        the cost of the resource's neighbourhood instead of the whole
+        store."""
+        cands = subject_candidates(self.schema, self.store, resource_type,
+                                   resource_id, permission, subject_type,
+                                   subject_relation)
+        if cands is None or subject_relation:
+            # the JAX package's candidates: every subject some tuple names
+            known = self.store.subject_ids(subject_type)
+            cands = known if cands is None else cands.intersection(known)
+        cands = sorted(sid for sid in cands if sid != "*")
         out: list[str] = []
         for i in range(0, len(cands), chunk):
             part = cands[i:i + chunk]

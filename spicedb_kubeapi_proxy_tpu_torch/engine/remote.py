@@ -39,10 +39,10 @@ migration ops (``migrate_begin/status/cut/abort``), and the CLI resolves
 a data dir's migration record at boot. A leader serves the mirror stream
 (``mirror_subscribe``, parallel/multihost.py), and ``--peers`` runs the
 host as one member of a replicated set with automatic leader failover
-(parallel/failover.py): a follower answers only ``failover_state``. Ops
-whose engine half the port does not have yet (the chaos plane) answer
-``kind: "store"`` with a message that names the ROADMAP item that brings
-them. ``python -m
+(parallel/failover.py): a follower answers only ``failover_state``. The
+flag-gated chaos plane (``chaos_arm/reset/status``, ``--enable-chaos-ops``)
+installs seeded fault schedules (chaos/schedule.py) into this process's
+failpoint registry. ``python -m
 spicedb_kubeapi_proxy_tpu_torch.engine.remote`` runs a standalone host
 (``main``) on ``--device`` (``cuda`` by default).
 """
@@ -50,6 +50,7 @@ spicedb_kubeapi_proxy_tpu_torch.engine.remote`` runs a standalone host
 from __future__ import annotations
 
 import asyncio
+import errno
 import hmac
 import json
 import logging
@@ -429,10 +430,18 @@ class EngineServer:
     def __init__(self, engine: Engine, host: str = "127.0.0.1",
                  port: int = 0, token: Optional[str] = None,
                  ssl_context=None, max_workers: int = 64,
-                 failover_status=None, admission=None):
+                 failover_status=None, admission=None,
+                 allow_chaos: bool = False):
         from concurrent.futures import ThreadPoolExecutor
 
         self.engine = engine
+        # test-only fault plane (--enable-chaos-ops): when on, the
+        # chaos_arm/chaos_reset/chaos_status wire ops let a campaign
+        # runner install seeded fault schedules into THIS process's
+        # failpoint registry — the only way to drive deterministic
+        # multi-process chaos against subprocess engine hosts. Off by
+        # default and meant to stay off outside test topologies.
+        self.allow_chaos = allow_chaos
         self.host = host
         self.port = port
         self.token = token
@@ -472,9 +481,28 @@ class EngineServer:
         return await asyncio.get_running_loop().run_in_executor(
             self._executor, partial(fn, *args))
 
+    # a host restarted on its fixed port can find the port held for a
+    # moment: clients that kept dialing it while it was down can be handed
+    # it as their own source port (a loopback self-connect in the
+    # ephemeral range), a socket they drop on their next read
+    BIND_RETRY_SECONDS = 30.0
+
     async def start(self) -> int:
-        self._server = await asyncio.start_server(
-            self._serve, self.host, self.port, ssl=self.ssl_context)
+        deadline = time.monotonic() + (self.BIND_RETRY_SECONDS
+                                       if self.port else 0.0)
+        while True:
+            try:
+                self._server = await asyncio.start_server(
+                    self._serve, self.host, self.port,
+                    ssl=self.ssl_context)
+                break
+            except OSError as e:
+                if e.errno != errno.EADDRINUSE \
+                        or time.monotonic() >= deadline:
+                    raise
+                log.warning("port %s:%d in use; retrying the bind",
+                            self.host, self.port)
+                await asyncio.sleep(0.25)
         self.port = self._server.sockets[0].getsockname()[1]
         log.info("engine listening on %s:%d%s", self.host, self.port,
                  " (TLS)" if self.ssl_context else "")
@@ -1130,21 +1158,39 @@ class EngineServer:
         into its own traces by trace_id."""
         return tracer.recent(int(req.get("limit", 64)))
 
-    # -- chaos control plane -------------------------------------------------
+    # -- chaos control plane (flag-gated, test-only) -------------------------
 
     def _chaos_gate(self) -> None:
-        raise StoreError(
-            "chaos ops are disabled on this host (the chaos plane lands in "
-            "the PyTorch port with ROADMAP A.7)")
+        if not self.allow_chaos:
+            raise StoreError(
+                "chaos ops are disabled on this host (boot with "
+                "--enable-chaos-ops to accept fault schedules)")
 
     def _op_chaos_arm(self, req: dict):
+        """Install a seeded fault schedule (chaos/schedule.py wire form)
+        into this process's failpoint registry. Returns the schedule's
+        digest so the campaign can pin that every process armed the
+        byte-identical decision tables."""
         self._chaos_gate()
+        from ..chaos.schedule import FaultSchedule
+
+        sched = FaultSchedule.parse(req["schedule"])
+        sched.arm()
+        return {"armed": [s.site for s in sched.specs],
+                "digest": sched.digest()}
 
     def _op_chaos_reset(self, req: dict):
         self._chaos_gate()
+        failpoints.disable_all()
+        return {"reset": True}
 
     def _op_chaos_status(self, req: dict):
+        """Armed sites + trigger counts + this process's fault-history
+        digest (deterministic for a given seed and request sequence)."""
         self._chaos_gate()
+        return {"sites": failpoints.status(),
+                "history": failpoints.history(),
+                "history_digest": failpoints.history_digest()}
 
     # -- live schema migration control plane (migration/migrator.py) ---------
     # Admission-classed `rebalance` (admission/classes.py): a migration is
@@ -1784,6 +1830,20 @@ class RemoteEngine:
         not burn a retry budget against them)."""
         return self._call("failover_state")
 
+    # chaos control plane (single-attempt like failover_state: arming a
+    # fault must not itself burn the retry budget it is about to test)
+
+    def chaos_arm(self, schedule_doc: dict) -> dict:
+        """Arm a fault schedule on the host (requires the host's
+        --enable-chaos-ops); returns {armed, digest}."""
+        return self._call("chaos_arm", schedule=schedule_doc)
+
+    def chaos_reset(self) -> dict:
+        return self._call("chaos_reset")
+
+    def chaos_status(self) -> dict:
+        return self._call("chaos_status")
+
     def fetch_traces(self, limit: int = 64) -> list:
         """The engine host's recent kept-trace ring (trace fragments
         sharing the proxy's trace_ids); [] against hosts predating the
@@ -2161,6 +2221,27 @@ class FailoverEngine:
     def migrate_abort(self) -> dict:
         return self._invoke(lambda c: c.migrate_abort())
 
+    def chaos_arm(self, schedule_doc: dict) -> dict:
+        """Arm a fault schedule on EVERY reachable endpoint of the set
+        (a campaign targets the whole replication group — the fault must
+        survive a failover). Returns {endpoint: result-or-error}."""
+        out: dict = {}
+        for c in self._clients:
+            try:
+                out[c.dependency] = c.chaos_arm(schedule_doc)
+            except Exception as e:  # noqa: BLE001 - report per endpoint
+                out[c.dependency] = {"error": repr(e)}
+        return out
+
+    def chaos_reset(self) -> dict:
+        out: dict = {}
+        for c in self._clients:
+            try:
+                out[c.dependency] = c.chaos_reset()
+            except Exception as e:  # noqa: BLE001 - report per endpoint
+                out[c.dependency] = {"error": repr(e)}
+        return out
+
     def fetch_traces(self, limit: int = 64) -> list:
         """Trace fragments from EVERY reachable endpoint (a re-aimed
         request leaves spans on more than one host); per-endpoint
@@ -2239,7 +2320,6 @@ _REFUSED_FLAGS = (
     # the lockstep follower of a --distributed set (a --peers follower
     # dials its leader by itself)
     ("--mirror-leader", "A.5", "multi-host serving"),
-    ("--enable-chaos-ops", "A.7", "the chaos plane"),
 )
 
 
@@ -2388,16 +2468,21 @@ def main(argv=None) -> int:
     ap.add_argument("--trace-slow-ms", type=float, default=250.0,
                     help="ops at or above this duration are always kept "
                          "by tail sampling")
+    ap.add_argument("--enable-chaos-ops", action="store_true",
+                    help="TEST ONLY: accept chaos_arm/chaos_reset/"
+                         "chaos_status wire ops that install seeded "
+                         "fault schedules (error/drop/delay/crash) into "
+                         "this process's failpoint registry — how the "
+                         "chaos campaign drives deterministic faults on "
+                         "subprocess engine hosts. Never enable in "
+                         "production")
     for flag, item, what in _REFUSED_FLAGS:
-        switch = flag == "--enable-chaos-ops"
-        ap.add_argument(flag, action="store_true" if switch else "store",
-                        default=False if switch else None,
-                        help=f"not in the PyTorch port yet: {what} lands "
-                             f"with ROADMAP {item} (refused)")
+        ap.add_argument(flag, help=f"not in the PyTorch port yet: {what} "
+                                   f"lands with ROADMAP {item} (refused)")
     args = ap.parse_args(argv)
     for flag, item, what in _REFUSED_FLAGS:
         v = getattr(args, flag[2:].replace("-", "_"))
-        if v not in (None, False):
+        if v is not None:
             ap.error(f"{flag} is not supported by the PyTorch engine host: "
                      f"{what} lands in the port with ROADMAP {item}")
     logging.basicConfig(level=logging.INFO)
@@ -2549,9 +2634,13 @@ def main(argv=None) -> int:
                  args.admission_tenant_queue_depth,
                  args.admission_queue_depth,
                  args.admission_queue_timeout)
+    if args.enable_chaos_ops:
+        log.warning("chaos ops ENABLED: this host accepts wire-armed "
+                    "fault schedules (test topologies only)")
     server = EngineServer(engine, args.bind_host, args.bind_port,
                           token=args.token, ssl_context=server_ssl,
-                          admission=admission)
+                          admission=admission,
+                          allow_chaos=args.enable_chaos_ops)
     coordinator = None
     if peers is not None:
         from ..parallel.failover import FailoverCoordinator

@@ -676,6 +676,65 @@ class Store:
                                                 int(cols.cav[ri])))
             return out
 
+    def subject_ids(self, subject_type: str,
+                    now: Optional[float] = None) -> list[str]:
+        """The distinct ids of ``subject_type`` subjects over live,
+        unexpired tuples, sorted: the ids ``read(RelationshipFilter(
+        subject_type=...))`` yields, found with numpy over the columns
+        instead of one ``Relationship`` a row (at 10M rows the rows take
+        seconds)."""
+        f = RelationshipFilter(subject_type=subject_type)
+        with self._lock:
+            objs = self.objects.get(self.types.lookup(subject_type))
+            if objs is None:
+                return []
+            if now is None:
+                now = time.time()
+            seen = np.zeros(len(objs), dtype=bool)
+            for cols, alive in zip(self._chunks, self._alive):
+                seen[cols.sid[self._filter_mask(cols, f, now=now)
+                              & alive]] = True
+        return sorted(objs.string(int(i)) for i in np.flatnonzero(seen))
+
+    def rows_of(self, resource_type: str, resource_ids,
+                relations) -> list[tuple]:
+        """``(resource_id, relation, subject_type, subject_id,
+        subject_relation)`` of every live tuple, expired ones included, of
+        the ``resource_type`` objects ``resource_ids`` whose relation is
+        one of ``relations`` ("" for no subject relation): one pass of
+        numpy over the columns, whatever the number of objects asked."""
+        with self._lock:
+            t = self.types.lookup(resource_type)
+            objs = self.objects.get(t)
+            if objs is None:
+                return []
+            want = np.zeros(len(objs) + 1, dtype=bool)
+            for rid in resource_ids:
+                i = objs.lookup(rid)
+                if i is not None:
+                    want[i] = True
+            rls = [r for r in map(self.relations.lookup, relations)
+                   if r is not None]
+            if not rls or not want.any():
+                return []
+            hits = []
+            for cols, alive in zip(self._chunks, self._alive):
+                m = alive & (cols.rt == t) & np.isin(cols.rl, rls)
+                m[m] = want[np.minimum(cols.rid[m], len(objs))]
+                ri = np.flatnonzero(m)
+                hits.append((cols.rid[ri], cols.rl[ri], cols.st[ri],
+                             cols.sid[ri], cols.srl[ri]))
+        out = []
+        for rid, rl, st, sid, srl in hits:
+            for k in range(len(rid)):
+                st_k = int(st[k])
+                out.append((str(objs.string(int(rid[k]))),
+                            str(self.relations.string(int(rl[k]))),
+                            str(self.types.string(st_k)),
+                            str(self.objects[st_k].string(int(sid[k]))),
+                            str(self.relations.string(int(srl[k])))))
+        return out
+
     def exists(self, f: RelationshipFilter, _now: Optional[float] = None) -> bool:
         with self._lock:
             now = _now if _now is not None else time.time()

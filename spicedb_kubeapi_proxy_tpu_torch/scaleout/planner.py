@@ -1036,7 +1036,6 @@ class ShardedEngine:
             m["phase"] = "cutting"
             for c in self.groups:
                 self._mig_cut(c)
-            m["phase"] = "done"
             # the fleet now serves a NEW schema: re-derive the frontier
             # reference pairs on next use (config-pinned pairs stand)
             self._frontier_pairs = (None if self.frontier is None
@@ -1045,16 +1044,53 @@ class ShardedEngine:
                 self.journal.clear_migration()
             metrics.counter("scaleout_schema_migrations_total",
                             outcome="done").inc()
+            # a terminal phase admits the next begin: published only
+            # once this attempt's journal record is gone
+            m["phase"] = "done"
         except BaseException as e:  # noqa: BLE001 - worker boundary
-            m["phase"] = "failed"
             m["error"] = str(e)
-            for c in self.groups:
-                self._mig_abort(c)
-            if self.journal is not None:
-                self.journal.clear_migration()
+            try:
+                self._roll_back_groups()
+                if self.journal is not None:
+                    self.journal.clear_migration()
+            finally:
+                # published only after the rollback: a re-begin issued
+                # the moment "failed" shows must not meet this attempt's
+                # migration still running on a slow-to-abort group
+                m["phase"] = "failed"
             metrics.counter("scaleout_schema_migrations_total",
                             outcome="failed").inc()
             log.error("coordinated schema migration failed: %s", e)
+
+    def _roll_back_groups(self, budget: float = 30.0) -> None:
+        """Abort every group and poll until none still runs a migration
+        (bounded by ``budget``), re-issuing the abort to any group that
+        does: an abort lost to a failover or a client timeout would
+        otherwise leave that group held at dual, refusing every later
+        begin."""
+        deadline = time.monotonic() + budget
+        pending = list(self.groups)
+        while True:
+            for c in pending:
+                self._mig_abort(c)
+            still = []
+            for c in pending:
+                try:
+                    st = self._mig_status(c)
+                except Exception:  # noqa: BLE001 - unreachable: retry
+                    still.append(c)
+                    continue
+                if st is not None and st.get("phase") not in (
+                        "done", "aborted", "failed"):
+                    still.append(c)
+            pending = still
+            if not pending or time.monotonic() >= deadline:
+                if pending:
+                    log.warning("coordinated migration rollback: %d "
+                                "group(s) still migrating after %.0f s",
+                                len(pending), budget)
+                return
+            time.sleep(self.MIGRATION_POLL)
 
     def _recover_migration(self) -> None:
         """Boot-time crash matrix for the COORDINATED record: "cutting"

@@ -62,7 +62,7 @@ from dataclasses import dataclass, field
 from typing import Optional
 
 from ..admission import AdmissionRejected
-from ..engine.store import OP_DELETE, WriteOp
+from ..engine.store import OP_DELETE, StoreError, WriteOp
 from ..utils.metrics import metrics
 from .shardmap import (
     HASH_SPACE,
@@ -90,6 +90,12 @@ _STATE_ORDER = (PLANNED, COPYING, CATCHUP, DUAL, CUT)
 
 class RebalanceError(ShardMapError):
     pass
+
+
+# the text of a replicated host's refusal to ack a write it could not
+# replicate (parallel/multihost.py), whether raised in process or carried
+# over the wire as a "store" error
+_SYNC_FLOOR_REFUSAL = "below the min-sync-replicas floor"
 
 
 @dataclass
@@ -626,6 +632,24 @@ class RebalanceCoordinator:
             self._sleep(self.pace_seconds)
         return n
 
+    def _drop_retiring(self, sl) -> None:
+        """GC a shrink's slice on the group the commit retires. No read
+        routes to that group after the commit, so a drop it cannot take
+        at all (its leader killed mid-drain and the survivor below its
+        --min-sync-replicas floor, or nothing listening at its address)
+        leaves copies nobody reads: log it and go on to the commit. Any
+        other failure parks the shrink, as every failure does in the JAX
+        package."""
+        try:
+            self._slice_drop(sl.src, sl.ranges)
+        except (StoreError, ConnectionRefusedError) as e:
+            if isinstance(e, StoreError) \
+                    and _SYNC_FLOOR_REFUSAL not in str(e):
+                raise
+            log.warning("rebalance to map v%d: GC of slice %s on retiring "
+                        "group %d skipped (%s)", self.t.new_map.version,
+                        sl.sid, sl.src, e)
+
     def _slice_drop(self, gi: int, ranges) -> int:
         """GC: delete the moved rows from the source through its
         ordinary journaled/replicated write path (the merged watch
@@ -863,7 +887,10 @@ class RebalanceCoordinator:
 
     def _gc(self) -> None:
         for sl in self.t.slices:
-            self._slice_drop(sl.src, sl.ranges)
+            if self.t.retire is not None and sl.src == self.t.retire:
+                self._drop_retiring(sl)
+            else:
+                self._slice_drop(sl.src, sl.ranges)
             # GC is pure cleanup — pace it like the copy so the
             # post-cutover deletes don't burst the source host
             self._sleep(self.pace_seconds)

@@ -14,9 +14,12 @@ for the families the port registers plus the port-owned rows of
 port, and a port family without a row is one. Nothing under tools/ or
 docs/ changes.
 
-Not yet linted: the lock-discipline pass knows JAX's device syncs under a
-lock, not torch's (``.item()``, ``.cpu()``, ``.tolist()``,
-``torch.cuda.synchronize``).
+The lock-discipline and loop-blocking passes know JAX's device syncs
+only. The last cases add torch's (``.item()``, ``.cpu()``, ``.tolist()``
+and ``torch.cuda.synchronize``) to their tables inside the test and run
+them over the port, loadgen/ and chaos/ included, with ``lint/
+torch_syncs.txt``: each entry there says what its receiver is, and the
+test checks that against the module.
 """
 
 from __future__ import annotations
@@ -148,3 +151,122 @@ def test_an_undocumented_port_family_is_a_finding(port_root, tmp_path):
     rc, out = _run(str(root), "--select", "metrics-contract")
     assert rc == 1
     assert "`engine_kernel_builds_total` is registered but missing" in out
+
+
+# -- torch device syncs under a lock or on the event loop -------------------
+
+TORCH_SYNCS = os.path.join(LINT, "torch_syncs.txt")
+SYNC_METHODS = ("item", "cpu", "tolist")
+
+
+@pytest.fixture
+def torch_sync_tables(monkeypatch):
+    """The two passes' tables with torch's device syncs added (patched
+    here: tools/analysis/ stays as it is)."""
+    from tools.analysis import lock_discipline, loop_blocking
+
+    for m in SYNC_METHODS:
+        monkeypatch.setitem(lock_discipline.BLOCKING_METHODS, m,
+                            "torch device sync")
+        monkeypatch.setitem(loop_blocking.BLOCKING_METHODS, m,
+                            "torch device sync")
+    monkeypatch.setitem(lock_discipline.BLOCKING_UNDER_LOCK,
+                        "torch.cuda.synchronize", "torch device sync")
+    monkeypatch.setitem(loop_blocking.BLOCKING_CALLS,
+                        "torch.cuda.synchronize", "torch device sync")
+
+
+def _merged_allowlist(tmp_path, extra: bool = True) -> str:
+    path = tmp_path / "allowlist.txt"
+    text = open(ALLOWLIST).read()
+    if extra:
+        text += open(TORCH_SYNCS).read()
+    path.write_text(text)
+    return str(path)
+
+
+@pytest.mark.parametrize("rule", ["lock-discipline", "loop-blocking"])
+def test_torch_syncs_are_clean_on_the_port(port_root, tmp_path, rule,
+                                           torch_sync_tables):
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = run_main(["--root", port_root, "--allowlist",
+                       _merged_allowlist(tmp_path), "--strict",
+                       "--select", rule, PKG])
+    assert rc == 0, out.getvalue()
+    assert " 0 new / " in out.getvalue(), out.getvalue()
+
+
+def test_torch_syncs_gate_bites_and_covers_loadgen_and_chaos(
+        port_root, tmp_path, torch_sync_tables):
+    """Without its entries the patched run finds exactly the syncs the
+    entries name; a torch sync under a lock and on the loop is a finding
+    (the tables are live); and the passes read loadgen/ and chaos/."""
+    from tools.analysis import lock_discipline, loop_blocking
+
+    mods = core.load_modules(REPO, [PKG])
+    paths = {m.path for m in mods}
+    for sub in ("loadgen/driver.py", "loadgen/sweep.py",
+                "chaos/campaign.py", "chaos/schedule.py"):
+        assert f"{PKG}/{sub}" in paths
+    found = {(f.rule, f.path, f.scope, f.token)
+             for f in lock_discipline.run(mods) + loop_blocking.run(mods)
+             if f.token.split("-under-")[0] in SYNC_METHODS
+             or "synchronize" in f.token}
+    listed = {tuple(fp.split("|")) for fp in
+              core.Allowlist.load(TORCH_SYNCS).entries}
+    assert found == listed and len(listed) == 2
+    src = (
+        "import threading, torch\n"
+        "class K:\n"
+        "    def __init__(self):\n"
+        "        self._lock = threading.Lock()\n"
+        "    def f(self, t):\n"
+        "        with self._lock:\n"
+        "            t.item()\n"
+        "            torch.cuda.synchronize()\n"
+        "    async def g(self, t):\n"
+        "        return t.cpu()\n")
+    root = tmp_path / "bite"
+    (root / "pkg").mkdir(parents=True)
+    (root / "pkg" / "__init__.py").write_text("")
+    (root / "pkg" / "k.py").write_text(src)
+    got = sorted(f.token for f in
+                 lock_discipline.run(core.load_modules(str(root), ["pkg"]))
+                 + loop_blocking.run(core.load_modules(str(root), ["pkg"])))
+    assert got == ["cpu", "item-under-_lock",
+                   "torch.cuda.synchronize-under-_lock"]
+
+
+def test_every_torch_sync_entry_states_its_receiver_truly():
+    """A "numpy" entry's module imports no torch, so its receiver cannot
+    be a tensor; every entry carries its own reason."""
+    import ast
+
+    lines = [ln for ln in open(TORCH_SYNCS)
+             if ln.strip() and not ln.startswith("#")]
+    entries = core.Allowlist.load(TORCH_SYNCS)
+    assert not entries.malformed and len(lines) == len(entries.entries)
+    for ln in lines:
+        fp, reason = (x.strip() for x in ln.split("#", 1))
+        rule, path, scope, token = fp.split("|")
+        assert reason.startswith("numpy:"), ln
+        tree = ast.parse(open(os.path.join(REPO, path)).read())
+        imported = {a.name.split(".")[0] for n in ast.walk(tree)
+                    if isinstance(n, ast.Import) for a in n.names}
+        imported |= {(n.module or "").split(".")[0] for n in ast.walk(tree)
+                     if isinstance(n, ast.ImportFrom) and n.level == 0}
+        assert "torch" not in imported, path
+        assert "np.flatnonzero" in _scope_source(tree, scope), ln
+
+
+def _scope_source(tree, scope: str) -> str:
+    import ast
+
+    cls, fn = scope.split(".")
+    for node in ast.walk(tree):
+        if isinstance(node, ast.ClassDef) and node.name == cls:
+            for item in node.body:
+                if isinstance(item, ast.FunctionDef) and item.name == fn:
+                    return ast.unparse(item)
+    raise AssertionError(f"no {scope}")

@@ -434,6 +434,32 @@ assert jose.b64url_encode(b"ok") == "b2s"
 assert sanitizer.enforced_violations() == []
 cfg = demo.build(port=0, device="cpu")
 cfg.engine.close_compaction()
+from spicedb_kubeapi_proxy_tpu_torch.loadgen import (
+    run_sweep, trace_shaped_config)
+from spicedb_kubeapi_proxy_tpu_torch.loadgen.schedule import DEFAULT_MIX
+sw = run_sweep(lambda m: trace_shaped_config(0.3, 40.0 * m, seed=1),
+               {op: (lambda a: None) for op in DEFAULT_MIX}, (1.0,),
+               {op: 5.0 for op in DEFAULT_MIX}, max_workers=4)
+assert sw.points[0].fired_n > 0 and sw.knee_rps
+from spicedb_kubeapi_proxy_tpu_torch.chaos import brownout_schedule
+from spicedb_kubeapi_proxy_tpu_torch.chaos.campaign import (
+    Campaign, CampaignConfig)
+from spicedb_kubeapi_proxy_tpu_torch.engine.remote import RemoteEngine
+chaos_srv = EngineServer(Engine(device="cpu"), allow_chaos=True)
+loop = asyncio.new_event_loop()
+th = threading.Thread(target=loop.run_forever, daemon=True)
+th.start()
+asyncio.run_coroutine_threadsafe(chaos_srv.start(), loop).result(30)
+rc = RemoteEngine("127.0.0.1", chaos_srv.port, retries=0)
+sched = brownout_schedule(0)
+assert rc.chaos_arm(sched.encode())["digest"] == sched.digest()
+rc.chaos_reset()
+rc.close()
+asyncio.run_coroutine_threadsafe(chaos_srv.stop(), loop).result(60)
+loop.call_soon_threadsafe(loop.stop)
+th.join(30)
+res = Campaign(CampaignConfig(seeds=(0,), inproc=True, device="cpu")).run()
+assert res["ok"] and len(res["episodes"]) == 4, res["violations"]
 bad = [m for m in sys.modules if m.split(".")[0] in
        ("jax", "jaxlib", "spicedb_kubeapi_proxy_tpu")]
 assert not bad, bad

@@ -406,16 +406,59 @@ def test_engine_host_cli_data_dir_flags():
         ("--engine-mesh", "auto", "A.5"),
         ("--distributed", "127.0.0.1:1,2,0", "A.5"),
         ("--mirror-leader", "127.0.0.1:1", "A.5"),
-        ("--enable-chaos-ops", None, "A.7"))])
-def test_engine_host_cli_refuses_unported_flags(capsys, flag, value, item):
+        # served: the host boots with it and answers chaos_status
+        ("--enable-chaos-ops", None, None))])
+def test_engine_host_cli_refuses_unported_flags(capsys, tmp_path, flag,
+                                                value, item):
     argv = ["--engine-insecure", "--device", "cpu", flag]
     if value is not None:
         argv.append(value)
+    if item is None:
+        _serve_chaos_status(tmp_path, argv)
+        return
     with pytest.raises(SystemExit) as exc:
         remote.main(argv)
     assert exc.value.code == 2
     err = capsys.readouterr().err
     assert flag in err and f"ROADMAP {item}" in err
+
+
+def _serve_chaos_status(tmp_path, argv):
+    """Boot the port's host CLI with ``argv`` in a subprocess and read its
+    ``chaos_status`` over the wire: nothing armed, an empty history."""
+    import socket
+    import subprocess
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    logf = open(tmp_path / "host.log", "wb")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "spicedb_kubeapi_proxy_tpu_torch.engine.remote",
+         *argv, "--bind-port", str(port)],
+        stdout=logf, stderr=subprocess.STDOUT, cwd=REPO)
+    logf.close()
+    try:
+        deadline = time.monotonic() + 60
+        while True:
+            c = remote.RemoteEngine("127.0.0.1", port, retries=0,
+                                    timeout=2.0, connect_timeout=1.0)
+            try:
+                st = c.chaos_status()
+                break
+            except Exception:
+                assert proc.poll() is None, \
+                    (tmp_path / "host.log").read_text()
+                assert time.monotonic() < deadline, "host never answered"
+                time.sleep(0.2)
+            finally:
+                c.close()
+        assert st["sites"] == [] and st["history"] == []
+        assert st["history_digest"]
+    finally:
+        proc.terminate()
+        proc.wait(timeout=30)
 
 
 def test_engine_host_cli_refuses_a_migrating_data_dir(tmp_path):

@@ -28,6 +28,7 @@ form. Every server runs on a loop thread of its own
 """
 
 import dataclasses
+import errno
 import json
 import os
 import socket
@@ -958,13 +959,13 @@ def test_metrics_exposition_and_snapshots_match_the_reference():
 
 
 # ---------------------------------------------------------------------------
-# (e) ops whose engine half is not ported, and the scale-out ops that are
+# (e) the flag-gated chaos ops on a host without the flag, and the
+# scale-out ops
 # ---------------------------------------------------------------------------
 
-# mirror_subscribe is served since the mirror landed (test_torch_mirror.py)
-REFUSED = {
-    "chaos_arm": "A.7", "chaos_reset": "A.7", "chaos_status": "A.7",
-}
+# served behind --enable-chaos-ops (test_torch_chaos.py); a host without
+# the flag refuses them as a JAX host without it does
+REFUSED = ("chaos_arm", "chaos_reset", "chaos_status")
 
 _ROW = {"resource_type": "pod", "resource_id": "b/q", "relation": "viewer",
         "subject_type": "user", "subject_id": "v", "subject_relation": None,
@@ -1033,23 +1034,38 @@ def refusing_host():
         yield s
 
 
-@pytest.mark.parametrize("op", sorted(REFUSED))
-def test_unported_op_answers_store_kind(refusing_host, op):
-    raw = socket.create_connection(("127.0.0.1", refusing_host.port),
-                                   timeout=10)
-    try:
-        raw.sendall(remote._pack({"op": op, "revision": 0, "ranges": [],
-                                  "from_revision": 0}))
-        frame = remote._read_frame_sync(raw)
-    finally:
-        raw.close()
+@pytest.fixture(scope="module")
+def refusing_jax_host():
+    with serving(jremote.EngineServer, JEngine()) as s:
+        yield s
+
+
+@pytest.mark.parametrize("op", REFUSED)
+def test_unported_op_answers_store_kind(refusing_host, refusing_jax_host,
+                                        op):
+    """A port host booted without --enable-chaos-ops answers each chaos op
+    with the JAX host's frame: the same kind and the same text."""
+    def raw_frame(port):
+        raw = socket.create_connection(("127.0.0.1", port), timeout=10)
+        try:
+            raw.sendall(remote._pack({"op": op, "schedule": {
+                "seed": 0, "faults": []}}))
+            return remote._read_frame_sync(raw)
+        finally:
+            raw.close()
+
+    frame = raw_frame(refusing_host.port)
+    want = raw_frame(refusing_jax_host.port)
     assert frame["ok"] is False and frame["kind"] == "store", frame
-    assert f"ROADMAP {REFUSED[op]}" in frame["error"]
+    assert "--enable-chaos-ops" in frame["error"]
+    assert {k: frame[k] for k in ("ok", "kind", "error")} == \
+        {k: want[k] for k in ("ok", "kind", "error")}
     # and a JAX client raises its StoreError for it
     jc = jremote.RemoteEngine("127.0.0.1", refusing_host.port)
     try:
-        with pytest.raises(JStoreError, match=f"ROADMAP {REFUSED[op]}"):
-            jc._call(op)
+        with pytest.raises(JStoreError, match="chaos ops are disabled"):
+            getattr(jc, op)(*([{"seed": 0, "faults": []}]
+                              if op == "chaos_arm" else []))
     finally:
         jc.close()
 
@@ -1136,3 +1152,47 @@ def test_restore_during_wire_lookups_never_aliases_ids(tmp_path):
     assert sum(seen.values()) >= 60, (seen, len(refused))
     assert sorted(e.lookup_resources("namespace", "view", "user",
                                      "alice")) == want["A"]
+
+
+# -- a host restarted on its fixed port ---------------------------------------
+
+
+def _start_and_stop(srv) -> int:
+    import asyncio
+
+    async def go():
+        got = await srv.start()
+        await srv.stop()
+        return got
+
+    return asyncio.run(go())
+
+
+def test_a_host_on_a_held_fixed_port_binds_once_the_port_frees():
+    """A restarted host's fixed port can be held for a moment (a client
+    that kept dialing the dead port handed it as its own source port):
+    the bind waits for it instead of the host exiting."""
+    holder = socket.socket()
+    holder.bind(("127.0.0.1", 0))
+    port = holder.getsockname()[1]
+    threading.Timer(0.6, holder.close).start()
+    srv = remote.EngineServer(Engine(device="cpu"), port=port)
+    t0 = time.monotonic()
+    assert _start_and_stop(srv) == port
+    assert time.monotonic() - t0 >= 0.5
+
+
+def test_a_port_held_past_the_bind_window_still_fails(monkeypatch):
+    monkeypatch.setattr(remote.EngineServer, "BIND_RETRY_SECONDS", 0.5)
+    holder = socket.socket()
+    holder.bind(("127.0.0.1", 0))
+    try:
+        srv = remote.EngineServer(Engine(device="cpu"),
+                                  port=holder.getsockname()[1])
+        t0 = time.monotonic()
+        with pytest.raises(OSError) as exc:
+            _start_and_stop(srv)
+        assert exc.value.errno == errno.EADDRINUSE
+        assert 0.5 <= time.monotonic() - t0 < 5.0
+    finally:
+        holder.close()
