@@ -25,6 +25,27 @@ rows generated from ``--seed``. Phases:
    each kernel's device time a call, and the kernels that take the most
    device time);
 8. random checks and full masks against the host OracleEvaluator;
+G. the device mesh (parallel/mesh.py, parallel/sharded.py): (a) right
+   after 8, the headline engine's compiled graph at phase 5-6's state
+   served through ``Engine(mesh=...)``'s ``ShardedGraph`` at three meshes
+   of cells on this card, (data=1, graph=1), (1, 2) and (2, 1) (the last
+   two put two cells on the one card): each build's seconds and device
+   bytes, phase 5's 31 lists (p50/p99, iterations, convergence windows)
+   and phase 6's 64 x 1,024 bulk check (checks/s), every mask and
+   verdict byte-equal to phase 5-6's single-device answers, the
+   ``dense_or_matmul`` launches (every block hop on the mesh is a pull;
+   the bit kernel must not run), and the dense kernel at one cell's shard
+   input (the pod#viewer shard [131,072 x 8,192] at the bulk check's
+   B=16) byte-equal to its plain version with its times, bounds and
+   ``torch._int_mm > 0`` beside it; (b) after R, the engine-host CLI
+   with ``--distributed 127.0.0.1:<port>,1,0 --engine-mesh auto`` (a
+   real NCCL world of 1 on the card, serving through
+   ``Engine._backend``) on a copy of phase P's data dir: spawn -> first
+   list, 10 lists over tcp:// exact against the writer's masks, 20
+   write -> read-after-write pairs (``ShardedGraph.updated``), each list
+   exact against the writer's mask plus the grants written, the host's
+   mesh counters (one sharded build, updates, no fallback) and kernel
+   launches from its log, and a clean SIGTERM shutdown;
 9. the write path: (a) the first write after the bulk load and the list
    after it; (b) one warm write->read pair, then ``--writes`` pairs, each
    a write folded into the delta overlay (new pod#viewer grants,
@@ -247,8 +268,8 @@ F. the ``--peers`` failover set (parallel/failover.py, parallel/
     caveated mesh configuration (MESH_SCHEMA, 30% of the flat
     pod#viewer grants carrying an IP allowlist in one of two stored
     contexts, a nested chain of 6 groups, seed 2) at the same widths and
-    half the relationships (reduced, so the run keeps room for phase F
-    within its 1,200 s). (a) bulk load, compile and device build, with the
+    a quarter of the relationships (reduced: PRs 4-10 ran all of them,
+    PRs 11-12 half, so the run keeps room for phases F and G). (a) bulk load, compile and device build, with the
     residual, the caveat rows and the tape length; (b) phase 5's list
     filters under three request contexts (one both stored contexts
     allow, one only the first allows, none): p50/p99, the caveat VM's
@@ -284,7 +305,7 @@ X. scale-out (scaleout/, autoscale/), after phase 10's engine is released:
    ``reduced`` from 1,024, ~14 s over G=2 and G=4) and
    phase 6's 64 x 1,024 bulk check scatter-gathered (its verdicts),
    device bytes a group; (b) on the reference bench's 10x shard point
-   with an eighth of its namespaces (2,500 x 12 pods, 512 users; the
+   with a sixteenth of its namespaces (1,250 x 12 pods, 512 users; the
    compactor and the 4,096-slot overlay of the engine host's defaults on
    each group), a live 2 -> 4 rebalance under a lister
    (every list exact) and a writer every 10 ms (pod grants and
@@ -339,7 +360,9 @@ own counts; the killed leader's die with it); ``scaleout_path_launches``: every 
 X.a-X.e; ``loadgen_path_launches``: C.a's sweep alone;
 ``chaos_path_launches``: what C.b's surviving hosts logged at their
 shutdown, which may be 0, as the demo's: the campaign's graph of 8
-namespaces may form no dense block). Both kernels must have run on
+namespaces may form no dense block; ``mesh_path_launches``: G.a's mesh
+calls and what G.b's host logged, 0 for the bit kernel, since mesh
+blocks carry no bit dual). Both kernels must have run on
 every other path (the persistence path runs lists only, and a check of the proxy path
 takes the engine's push or pull choice: their bit kernel). The bit kernel's row also carries its readings at the fused
 batch's inputs (``fused_inputs``). Any
@@ -4450,11 +4473,11 @@ def caveat_phase(torch, dev, n_rels: int, subjects: list, items: list,
 
 # X.b and X.d's store: the reference bench's 10x shard point
 # (bench.py:2428-2433: 20,000 namespaces x 12 pods, 512 users, generated
-# as _shard_phase_at_scale does) with an eighth of its namespaces: moving
-# the whole point took X.b and X.d 195-238 s on the H100 (700 W), past
-# the ~150 s phase X is given in all, and a quarter still left the run
-# too little room for phase F under the 1,200 s the script is given
-X10_NS, X10_PODS_PER_NS, X10_USERS = 2_500, 12, 512
+# as _shard_phase_at_scale does) with a sixteenth of its namespaces:
+# moving the whole point took X.b and X.d 195-238 s on the H100 (700 W),
+# past the ~150 s phase X is given in all; a quarter left the run too
+# little room for phase F, an eighth (PRs 11-12) for phase G
+X10_NS, X10_PODS_PER_NS, X10_USERS = 1_250, 12, 512
 X_VNODES = 64
 X_SUBJECTS = 64  # X.a and X.c's list subjects (phase 5's 31 and 33 more)
 X_ROUTED = 256  # X.a's routed single checks, phase 6's first items
@@ -6453,6 +6476,284 @@ def chaos_phase(torch, here: str, seed: int) -> dict:
     return counts
 
 
+# the meshes of phase G.a: (data, graph); the last two put two cells on
+# the one card
+G_MESHES = ((1, 1), (1, 2), (2, 1))
+G_BULK_TRIALS = 2  # G.a's 64 x 1,024 bulk checks a mesh
+G_HOST_LISTS = 10  # G.b's lists over tcp://
+G_HOST_WRITES = 20  # G.b's write -> read-after-write pairs
+
+
+def mesh_phase(torch, e, dev, subjects: list, masks: dict, items: list,
+               verdicts: list, now: float) -> tuple:
+    """Phase G.a: the headline engine's compiled graph at phase 5-6's
+    state served through a ``ShardedGraph`` (``Engine.mesh``) at each of
+    ``G_MESHES``, its cells all on this card: build seconds and device
+    bytes, phase 5's lists (p50/p99, iterations and convergence windows)
+    and phase 6's bulk check (checks/s), every mask and verdict byte-equal
+    to phase 5-6's single-device answers; the dense kernel held against
+    its plain version at one cell's shard input and timed there. Returns
+    (both kernels' launches over the mesh calls, the kernel's times at
+    the shard input)."""
+    from spicedb_kubeapi_proxy_tpu_torch.ops import bitprop
+    from spicedb_kubeapi_proxy_tpu_torch.parallel import make_mesh
+    from spicedb_kubeapi_proxy_tpu_torch.parallel.mesh import mesh_topology
+    from spicedb_kubeapi_proxy_tpu_torch.utils.metrics import metrics
+
+    launches = Launches(bitprop)
+    cg = e.compiled()
+    pv_off = cg.offset_of("pod", "viewer")
+    krow = None
+    builds0 = metrics.counter("engine_sharded_builds_total").value
+    t_all = time.perf_counter()
+    try:
+        for data, graph in G_MESHES:
+            n = data * graph
+            e.mesh = make_mesh(n, data=data, graph=graph, devices=[dev] * n)
+            e._sharded = None
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.synchronize()
+            alloc0 = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            sg = e._backend(cg)
+            torch.cuda.synchronize()
+            build_s = time.perf_counter() - t0
+            check(type(sg).__name__ == "ShardedGraph",
+                  f"G.a: the mesh engine did not build a ShardedGraph "
+                  f"({type(sg).__name__})")
+            nbytes = sg.device_bytes()
+            alloc = torch.cuda.memory_allocated() - alloc0
+            pv = [i for i, b in enumerate(sg._block_meta)
+                  if b.dst_off == pv_off]
+            check(len(pv) == 1, "G.a: the pod#viewer block is not kept")
+            e.lookup_resources_mask("pod", "view", "user", subjects[0])
+            lat, iters, windows = [], [], []
+            before = dict(launches.n)
+            with launches:
+                for u in subjects:
+                    t0 = time.perf_counter()
+                    fut = e.lookup_resources_mask_async("pod", "view",
+                                                        "user", u)
+                    mask, _ = fut.result()
+                    lat.append((time.perf_counter() - t0) * 1e3)
+                    check(np.array_equal(mask, masks[u]),
+                          f"G.a {data}x{graph}: {u}'s mask differs from "
+                          "phase 5's")
+                    iters.append(fut.iterations())
+                    windows.append(fut._fut.conv_checks())
+                rates = []
+                for _ in range(G_BULK_TRIALS):
+                    t0 = time.perf_counter()
+                    got = e.check_bulk(items, now=now)
+                    rates.append(len(items) / (time.perf_counter() - t0))
+                    check(got == verdicts, f"G.a {data}x{graph}: "
+                          f"{sum(a != b for a, b in zip(got, verdicts))} "
+                          "verdicts differ from phase 6's")
+            dense = launches.n["dense_or_matmul"] - before["dense_or_matmul"]
+            bit = launches.n["bit_or_matmul"] - before["bit_or_matmul"]
+            check(dense > 0, f"G.a {data}x{graph}: dense_or_matmul was "
+                  "not launched on the mesh path")
+            check(bit == 0, f"G.a {data}x{graph}: the bit kernel ran on "
+                  "the mesh (mesh blocks carry no bit dual)")
+            log(f"phase G.a mesh {mesh_topology(e.mesh)} (data={data}, "
+                f"graph={graph}, {n} cell(s) on {dev}): build "
+                f"{build_s:.2f} s, {nbytes} device bytes held "
+                f"({alloc} allocated), {len(sg._block_meta)} kept block(s), "
+                f"pod#viewer shard [{sg._block_meta[pv[0]].n_dst} x "
+                f"{sg._block_meta[pv[0]].n_src // graph}]; {len(subjects)} "
+                f"lists p50 {np.percentile(lat, 50):.3f} ms, p99 "
+                f"{np.percentile(lat, 99):.3f} ms, iterations "
+                f"{sorted(set(iters))}, convergence windows "
+                f"{sorted(set(windows))} (K={sg.k_steps}); bulk "
+                f"{len(items)} checks p50 {np.median(rates):,.0f} checks/s "
+                f"over {G_BULK_TRIALS} trials; every mask and verdict "
+                f"byte-equal to phase 5-6's; dense_or_matmul launches "
+                f"{dense}, bit_or_matmul {bit}")
+            if graph == 2:
+                shard = next(A for bm, g, A in sg.block_shards()
+                             if g == 0 and bm.dst_off == pv_off)
+                got_in = {}
+                real = bitprop.dense_or_matmul
+
+                def spy(A, f):
+                    if A is shard and "f" not in got_in:
+                        buf = strided_like(f)
+                        buf.copy_(f)
+                        got_in["f"] = buf
+                    return real(A, f)
+
+                spy.launches = 0
+                bitprop.dense_or_matmul = spy
+                try:
+                    e.check_bulk(items[:16384], now=now)
+                finally:
+                    bitprop.dense_or_matmul = real
+                check("f" in got_in, "G.a: no shard input captured")
+                krow = time_dense(torch, bitprop, shard, got_in["f"], dev,
+                                  "G.a one cell's shard (1x2)")
+                krow["max_abs_err"] = 0
+                krow["shape"] = [int(x) for x in shard.shape]
+                krow["batch"] = int(got_in["f"].shape[0])
+                del got_in, shard
+            del sg
+    finally:
+        e.mesh, e._sharded = None, None
+        gc.collect()
+        torch.cuda.empty_cache()
+    builds = metrics.counter("engine_sharded_builds_total").value - builds0
+    check(builds == len(G_MESHES), f"G.a: {builds} sharded builds for "
+          f"{len(G_MESHES)} meshes")
+    log(f"phase G.a took {time.perf_counter() - t_all:.1f} s; mesh path "
+        f"launches {launches.n}")
+    return launches.n, krow
+
+
+def mesh_host_phase(torch, here: str, users: list, want: dict) -> dict:
+    """Phase G.b: the engine-host CLI as a multi-host set of one process,
+    ``--distributed 127.0.0.1:<port>,1,0 --engine-mesh auto`` (a real
+    NCCL world of 1 on the card) on a copy of phase P's data dir: spawn
+    -> first list, ``G_HOST_LISTS`` lists over tcp:// exact against the
+    writer's masks, ``G_HOST_WRITES`` write -> read-after-write pairs
+    (``ShardedGraph.updated`` syncing the mesh state) each exact against
+    the writer's mask plus the grants written, the host's mesh counters
+    and kernel launches from its log, and a clean SIGTERM shutdown.
+    Returns the host's kernel launches."""
+    import signal
+    import socket
+
+    from spicedb_kubeapi_proxy_tpu_torch.engine import remote
+    from spicedb_kubeapi_proxy_tpu_torch.engine.store import WriteOp
+    from spicedb_kubeapi_proxy_tpu_torch.models.tuples import Relationship
+
+    root = os.path.join(here, "build", "persist")
+    d = os.path.join(root, "g_host")
+    shutil.rmtree(d, ignore_errors=True)
+    shutil.copytree(os.path.join(root, "data"), d)
+    boot = os.path.join(root, "r_host_bootstrap.yaml")
+    ports = []
+    for _ in range(2):
+        s = socket.socket()
+        s.bind(("127.0.0.1", 0))
+        ports.append(s)
+    port, coord = (s.getsockname()[1] for s in ports)
+    for s in ports:
+        s.close()
+    log_path = os.path.join(root, "g_host.log")
+
+    def tail() -> str:
+        with open(log_path, errors="replace") as fh:
+            return fh.read()
+
+    t_all = time.perf_counter()
+    with open(log_path, "w") as logf:
+        t0 = time.perf_counter()
+        p = subprocess.Popen(
+            [sys.executable, "-m",
+             "spicedb_kubeapi_proxy_tpu_torch.engine.remote",
+             "--engine-insecure", "--bind-port", str(port),
+             "--bootstrap", boot, "--data-dir", d,
+             "--distributed", f"127.0.0.1:{coord},1,0",
+             "--engine-mesh", "auto"], cwd=here, stdout=logf,
+            stderr=subprocess.STDOUT)
+    c = None
+    try:
+        while True:
+            check(p.poll() is None, f"G.b: the host exited during boot "
+                  f"({p.returncode}):\n{tail()[-3000:]}")
+            check(time.perf_counter() - t0 < 300, "G.b: no bind in 300 s")
+            try:
+                socket.create_connection(("127.0.0.1", port),
+                                         timeout=1).close()
+                break
+            except OSError:
+                time.sleep(0.05)
+        bind_s = time.perf_counter() - t0
+        c = remote.RemoteEngine("127.0.0.1", port)
+        m, it = c.lookup_resources_mask("pod", "view", "user", users[0])
+        first_s = time.perf_counter() - t0
+        check(np.array_equal(m, want[users[0]]),
+              f"G.b: {users[0]}'s first mask differs from the writer's")
+        lat = []
+        for u in (users * G_HOST_LISTS)[:G_HOST_LISTS]:
+            t1 = time.perf_counter()
+            m, it = c.lookup_resources_mask("pod", "view", "user", u)
+            lat.append((time.perf_counter() - t1) * 1e3)
+            check(np.array_equal(m, want[u]),
+                  f"G.b: {u}'s mask over tcp:// differs from the writer's")
+        names = {u: {it.string(i) for i in np.flatnonzero(want[u]).tolist()}
+                 for u in users}
+        w_ms, r_ms = [], []
+        for i in range(G_HOST_WRITES):
+            u = users[i % len(users)]
+            pod = f"ns/p-g{i}"
+            t1 = time.perf_counter()
+            c.write_relationships([WriteOp("touch", Relationship(
+                "pod", pod, "viewer", "user", u))])
+            t2 = time.perf_counter()
+            got = set(c.lookup_resources("pod", "view", "user", u))
+            t3 = time.perf_counter()
+            w_ms.append((t2 - t1) * 1e3)
+            r_ms.append((t3 - t2) * 1e3)
+            names[u].add(pod)
+            check(got == names[u], f"G.b: after write {i}, {u}'s list "
+                  f"differs from the writer's plus the grants written "
+                  f"({len(got ^ names[u])} names)")
+        c.close()
+        c = None
+        t1 = time.perf_counter()
+        p.send_signal(signal.SIGTERM)
+        rc = p.wait(timeout=120)
+        shut_s = time.perf_counter() - t1
+        text = tail()
+        check(rc == 0, f"G.b: the host exited {rc} on SIGTERM:\n"
+              f"{text[-3000:]}")
+        check("distributed: process 0 of 1 (nccl)" in text,
+              f"G.b: no NCCL world of 1 in the host's log:\n{text[-3000:]}")
+        check("engine mesh: {'devices': 1, 'data': 1, 'graph': 1, "
+              "'platform': 'cuda'}" in text and "engine on cuda" in text,
+              f"G.b: the host's mesh is not on the card:\n{text[-3000:]}")
+        counters = {}
+        for ln in text.splitlines():
+            if "mesh counters:" in ln:
+                for part in ln.split("mesh counters:", 1)[1].split():
+                    k, _, v = part.partition("=")
+                    counters[k] = int(v)
+        check(counters.get("engine_sharded_builds_total") == 1
+              and counters.get("engine_sharded_updates_total", 0) >= 1
+              and counters.get("engine_tier_mesh_fallback_total") == 0
+              and counters.get("engine_caveat_mesh_fallback_total") == 0,
+              f"G.b: the host's mesh counters {counters}")
+        kl = launch_line(text)
+        check(kl.get("dense_or_matmul", 0) > 0 and
+              kl.get("bit_or_matmul", -1) == 0,
+              f"G.b: the host's kernel launches {kl}")
+        log(f"phase G.b the engine-host CLI with --distributed "
+            f"127.0.0.1:{coord},1,0 --engine-mesh auto on a copy of phase "
+            f"P's data dir: bound {bind_s:.2f} s after spawn, first list "
+            f"{first_s:.2f} s after spawn; {G_HOST_LISTS} lists over "
+            f"tcp:// p50 {np.percentile(lat, 50):.3f} ms, p99 "
+            f"{np.percentile(lat, 99):.3f} ms, exact against the writer's "
+            f"masks; {G_HOST_WRITES} write -> read-after-write pairs: "
+            f"write p50 {np.percentile(w_ms, 50):.3f} ms, read-after-write "
+            f"p50 {np.percentile(r_ms, 50):.3f} ms, p99 "
+            f"{np.percentile(r_ms, 99):.3f} ms, each list exact; host "
+            f"counters {counters}, kernel launches {kl}; SIGTERM -> exit "
+            f"{rc} in {shut_s:.2f} s; G.b took "
+            f"{time.perf_counter() - t_all:.1f} s")
+        log("  the host's log: " + " | ".join(
+            ln.strip() for ln in text.splitlines()
+            if "distributed:" in ln or "engine mesh" in ln
+            or "mesh counters" in ln))
+        return kl
+    finally:
+        if c is not None:
+            c.close()
+        if p.poll() is None:
+            p.kill()
+            p.wait(30)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6689,6 +6990,13 @@ def main(argv=None) -> int:
         f"{oracle_s:.1f} s)")
     del oracle
 
+    # -- phase G.a: the device mesh (parallel/) at phase 5-6's state --
+    t0 = time.perf_counter()
+    mesh_launches, mesh_krow = mesh_phase(torch, e, dev, subjects, masks,
+                                          items, verdicts, now)
+    log(f"phase G.a took {time.perf_counter() - t0:.1f} s (the run at "
+        f"{time.perf_counter() - t_run:.0f} s)")
+
     # -- phase 9: the write path --
     t0 = time.perf_counter()
     write_launches = write_phase(torch, e, samples, subjects, args.writes,
@@ -6730,6 +7038,12 @@ def main(argv=None) -> int:
     r_dir = host_cli_phase(torch, here, os.path.join(
         here, "build", "persist", "data"), BENCH_SCHEMA, p_users, p_want)
     log(f"phase R took {time.perf_counter() - t0:.1f} s (the run at "
+        f"{time.perf_counter() - t_run:.0f} s)")
+
+    # -- phase G.b: the host CLI as a --distributed world of 1 over a mesh
+    t0 = time.perf_counter()
+    mesh_host_launches = mesh_host_phase(torch, here, p_users, p_want)
+    log(f"phase G.b took {time.perf_counter() - t0:.1f} s (the run at "
         f"{time.perf_counter() - t_run:.0f} s)")
 
     # -- phase M: live schema migration at a reduced depth and the CLI; the
@@ -6777,10 +7091,10 @@ def main(argv=None) -> int:
     log(f"  phase 3-9's engine released: {torch.cuda.memory_allocated()} "
         "device bytes still allocated")
     t0 = time.perf_counter()
-    # reduced: half the relationships (the run's 1,200 s had no room for
-    # phase F with the whole caveated store)
+    # reduced: a quarter of the relationships (the run's 1,000 s has no
+    # room for phases F and G with the whole caveated store)
     caveat_launches, proxy_cav_launches = caveat_phase(
-        torch, dev, args.n_rels // 2, subjects, items, bulk_users, here)
+        torch, dev, args.n_rels // 4, subjects, items, bulk_users, here)
     log(f"phase 10 took {time.perf_counter() - t0:.1f} s (the run at "
         f"{time.perf_counter() - t_run:.0f} s)")
 
@@ -6819,12 +7133,22 @@ def main(argv=None) -> int:
                     "scaleout_path_launches": scaleout_launches[kname],
                     "loadgen_path_launches": loadgen_launches[kname],
                     "chaos_path_launches": chaos_launches[kname],
+                    # G.a's in-process meshes and G.b's host; 0 for the
+                    # bit kernel: mesh blocks carry no bit dual, every
+                    # block hop on the mesh is a pull
+                    "mesh_path_launches": mesh_launches[kname]
+                    + mesh_host_launches.get(kname, 0),
                     "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                     "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                     "device_ms": r["device_ms"], "host_ms": r["host_ms"],
                     "library_device_ms": r.get("library_device_ms"),
                     "sector_bound_ms": r["sector_bound_ms"],
+                    "mesh_shard_input": {k: mesh_krow[k] for k in (
+                        "shape", "batch", "ms", "device_ms", "host_ms",
+                        "plain_ms", "bound_ms", "sector_bound_ms",
+                        "library_ms", "library_device_ms", "max_abs_err")}
+                    if kname == "dense_or_matmul" else None,
                     "fused_inputs": {
                         f"n_b{nb}": {k: fr[k] for k in (
                             "ms", "device_ms", "host_ms", "plain_ms",

@@ -15,8 +15,8 @@ write-ahead log and checkpoints of persistence/, and the snapshot
 save/load of the store), tiered block residency under a device byte
 budget (``device_graph_budget_bytes``: storage/ and the tiered dispatch
 of ops/reachability.py), and live schema migration
-(``begin_schema_migration``: migration/). The mesh comes with a later
-slice.
+(``begin_schema_migration``: migration/), and the device mesh
+(``mesh=``: every query through a parallel/sharded.py ``ShardedGraph``).
 """
 
 from __future__ import annotations
@@ -329,7 +329,9 @@ def subject_candidates(schema: Schema, store, resource_type: str,
 
 class Engine:
     """In-process relationship-graph engine on one device: ``cuda`` by
-    default, the CPU only when ``device="cpu"`` is passed."""
+    default, the CPU only when ``device="cpu"`` is passed; with ``mesh``
+    (parallel/mesh.py ``make_mesh``) its queries run over the mesh's
+    cells instead."""
 
     # bulk checks dispatch in chunks of this many items
     CHECK_PIPELINE_CHUNK = 16384
@@ -345,7 +347,7 @@ class Engine:
                  validate_writes: bool = True, device=None,
                  delta_capacity: int = DELTA_CAPACITY,
                  device_graph_budget_bytes: Optional[int] = None,
-                 tier_spill_dir: Optional[str] = None):
+                 tier_spill_dir: Optional[str] = None, mesh=None):
         self.device = resolve_device(device)
         validate_overlay_config(delta_capacity)
         if schema is None:
@@ -376,6 +378,10 @@ class Engine:
         self._q_host: dict[tuple, tuple] = {}
         # frontier-occupancy EWMA feeding the push/pull crossover
         self._occ_ewma: Optional[float] = None
+        # optional ("data", "graph") mesh of cells: queries route through
+        # a ShardedGraph pinned across it instead of one device
+        self.mesh = mesh
+        self._sharded = None
         # the serving front, both off until enabled: the lookup batcher
         # and the decision cache in front of it
         self._batcher = None
@@ -570,6 +576,9 @@ class Engine:
         self._lineage += 1
         if old is not None:
             release_resident(old)
+        sg, self._sharded = self._sharded, None
+        if sg is not None:
+            sg.release()
         cache = self._decision_cache
         if cache is not None:
             cache.clear()
@@ -892,10 +901,44 @@ class Engine:
                 time.perf_counter() - t0)
         return new
 
-    def _backend(self, cg: CompiledGraph) -> CompiledGraph:
+    def _backend(self, cg: CompiledGraph):
         """The query executor for a compiled graph: the graph itself (one
-        device; the mesh backend comes with a later slice)."""
-        return cg
+        device) or a ShardedGraph pinned across the mesh, brought to the
+        graph's revision whenever it changes. Both expose the same
+        ``query_async`` and ``shared_state`` surface."""
+        if self.mesh is None:
+            return cg
+        t = cg.tier
+        if t is not None and t.total_bytes() > t.budget_bytes:
+            # beyond-budget tiered graph: the mesh pins every block
+            # resident, so a graph that cannot fit takes the
+            # single-device demand-streaming path, counted so a mesh
+            # deployment sees why its mesh idles
+            metrics.counter("engine_tier_mesh_fallback_total").inc()
+            return cg
+        from ..parallel.sharded import ShardedGraph
+
+        if ShardedGraph.unsupported_reason(cg) is not None:
+            # caveated graphs without per-edge caveat rows (hand-built
+            # layouts) stay on the single-device path, counted
+            metrics.counter("engine_caveat_mesh_fallback_total").inc()
+            return cg
+        with self._lock:
+            sg = self._sharded
+            if sg is None or sg.cg is not cg:
+                t0 = time.perf_counter()
+                if sg is None:
+                    sg = ShardedGraph(cg, self.mesh)
+                    metrics.counter("engine_sharded_builds_total").inc()
+                else:
+                    # another revision: the shared mesh state syncs in
+                    # O(write), or rebuilds when the layout changed
+                    sg = sg.updated(cg)
+                    metrics.counter("engine_sharded_updates_total").inc()
+                metrics.histogram("engine_sharded_build_seconds").observe(
+                    time.perf_counter() - t0)
+                self._sharded = sg
+            return sg
 
     def _encode_checks(self, cg, objs, items):
         """Single-pass check-batch encode with per-(type, permission) and
@@ -1093,7 +1136,7 @@ class Engine:
         rows_max = max(1, self.CHECK_MAX_ROW_SLOTS // max(1, cg.M))
         # every chunk runs against one device state: a write waits for the
         # whole call, so one bulk check never spans two revisions
-        with cg.shared_state():
+        with backend.shared_state():
             for s in range(0, n, chunk):
                 seeds, q_slots, q_batch = self._encode_checks(
                     cg, objs, items[s:s + chunk])

@@ -44,7 +44,10 @@ flag-gated chaos plane (``chaos_arm/reset/status``, ``--enable-chaos-ops``)
 installs seeded fault schedules (chaos/schedule.py) into this process's
 failpoint registry. ``python -m
 spicedb_kubeapi_proxy_tpu_torch.engine.remote`` runs a standalone host
-(``main``) on ``--device`` (``cuda`` by default).
+(``main``) on ``--device`` (``cuda`` by default), over a device mesh with
+``--engine-mesh``; ``--distributed`` makes it one process of a
+multi-host set (process 0 serves, the others follow its mirror stream in
+lockstep with ``--mirror-leader``).
 """
 
 from __future__ import annotations
@@ -2312,17 +2315,6 @@ def parse_bool_flag(v) -> bool:
     raise argparse.ArgumentTypeError(f"expected a boolean, got {v!r}")
 
 
-# flags of the JAX engine host that need a module the port does not have
-# yet: (flag, ROADMAP item, what brings it)
-_REFUSED_FLAGS = (
-    ("--engine-mesh", "A.5", "device meshes"),
-    ("--distributed", "A.5", "multi-host serving"),
-    # the lockstep follower of a --distributed set (a --peers follower
-    # dials its leader by itself)
-    ("--mirror-leader", "A.5", "multi-host serving"),
-)
-
-
 def main(argv=None) -> int:
     """Standalone engine host: ``python -m
     spicedb_kubeapi_proxy_tpu_torch.engine.remote --bootstrap schema.yaml
@@ -2476,15 +2468,22 @@ def main(argv=None) -> int:
                          "chaos campaign drives deterministic faults on "
                          "subprocess engine hosts. Never enable in "
                          "production")
-    for flag, item, what in _REFUSED_FLAGS:
-        ap.add_argument(flag, help=f"not in the PyTorch port yet: {what} "
-                                   f"lands with ROADMAP {item} (refused)")
+    ap.add_argument("--engine-mesh",
+                    help="device mesh for this host's cards: 'auto' or "
+                         "'data=D,graph=G' (the engine host owns the mesh; "
+                         "proxies connect with tcp://). With --device cpu, "
+                         "that many CPU cells (auto: one a process)")
+    ap.add_argument("--distributed",
+                    help="multi-host: coordinator_host:port,"
+                         "num_processes,process_id — joins the "
+                         "torch.distributed world (nccl on cuda, gloo on "
+                         "the CPU); with --engine-mesh auto the mesh spans "
+                         "every process's cards. Process 0 serves; others "
+                         "follow its mirror stream")
+    ap.add_argument("--mirror-leader",
+                    help="(follower processes) host:port of process 0's "
+                         "engine endpoint to subscribe to")
     args = ap.parse_args(argv)
-    for flag, item, what in _REFUSED_FLAGS:
-        v = getattr(args, flag[2:].replace("-", "_"))
-        if v is not None:
-            ap.error(f"{flag} is not supported by the PyTorch engine host: "
-                     f"{what} lands in the port with ROADMAP {item}")
     logging.basicConfig(level=logging.INFO)
     log.info("engine host starting (pid %d)", os.getpid())
     if not 0.0 <= args.trace_sample <= 1.0:
@@ -2532,6 +2531,10 @@ def main(argv=None) -> int:
     if args.peers:
         from ..parallel.failover import FailoverError, parse_peers
 
+        if args.distributed:
+            ap.error("--peers (automatic failover) and --distributed "
+                     "(SPMD lockstep) are mutually exclusive deployment "
+                     "shapes")
         try:
             peers = parse_peers(args.peers)
         except FailoverError as e:
@@ -2541,6 +2544,22 @@ def main(argv=None) -> int:
                      f"{len(peers)} peers")
         if args.mirror_heartbeat_seconds <= 0:
             ap.error("--mirror-heartbeat-seconds must be > 0")
+    # a mirror FOLLOWER never serves — it only dials the leader — so the
+    # refuse-plaintext-serving check must not force cert/key on it
+    is_follower = False
+    if args.distributed:
+        from ..parallel.multihost import (
+            MultiHostError,
+            parse_distributed_spec,
+        )
+
+        try:
+            _, _, spec_pid = parse_distributed_spec(args.distributed)
+        except MultiHostError as e:
+            ap.error(str(e))
+        if spec_pid > 0 and not args.mirror_leader:
+            ap.error("follower processes need --mirror-leader host:port")
+        is_follower = spec_pid > 0
     server_ssl = None
     if args.tls_cert_file:
         try:
@@ -2549,7 +2568,7 @@ def main(argv=None) -> int:
                                             args.tls_client_ca_file)
         except TLSConfigError as e:
             ap.error(str(e))
-    elif not args.engine_insecure:
+    elif not args.engine_insecure and not is_follower:
         ap.error("refusing to serve plaintext TCP: pass --tls-cert-file/"
                  "--tls-key-file, or --engine-insecure to opt out "
                  "explicitly (the token and every relationship would "
@@ -2577,9 +2596,32 @@ def main(argv=None) -> int:
         device = resolve_device(args.device)
     except (RuntimeError, ValueError) as e:
         ap.error(str(e))
+    process_id, world = 0, 1
+    if args.distributed:
+        import torch.distributed as dist
+
+        from ..parallel.multihost import MultiHostError, init_distributed
+
+        try:
+            init_distributed(args.distributed, device)
+        except MultiHostError as e:
+            log.error("%s", e)
+            return 1
+        process_id, world = dist.get_rank(), dist.get_world_size()
+        log.info("distributed: process %d of %d (%s)", process_id, world,
+                 dist.get_backend())
+    mesh = None
+    if args.engine_mesh:
+        from ..parallel.mesh import mesh_from_spec, mesh_topology
+
+        try:
+            mesh = mesh_from_spec(args.engine_mesh, device)
+        except ValueError as e:  # MeshSpecError or axis/device mismatch
+            ap.error(str(e))
+        log.info("engine mesh: %s", mesh_topology(mesh))
     bootstrap = "\n---\n".join(open(f).read() for f in args.bootstrap) or None
     engine = Engine(bootstrap=bootstrap, device=device,
-                    delta_capacity=args.delta_capacity)
+                    delta_capacity=args.delta_capacity, mesh=mesh)
     log.info("engine on %s", device)
     if args.compact_threshold > 0:
         engine.enable_compaction(args.compact_threshold)
@@ -2612,6 +2654,31 @@ def main(argv=None) -> int:
     if engine.load_snapshot_if_exists(args.snapshot_path):
         log.info("loaded snapshot %s (revision %d)", args.snapshot_path,
                  engine.revision)
+    if process_id > 0:
+        # follower: replay the leader's mirror stream in lockstep until it
+        # ends, entering the same collectives; a persistent follower
+        # resumes from its own recovered revision
+        from ..parallel.multihost import follower_loop
+
+        host, _, port = args.mirror_leader.rpartition(":")
+        log.info("following leader %s:%s%s", host, port,
+                 " (TLS)" if mirror_ssl else "")
+        try:
+            follower_loop(engine, host, int(port), token=args.token,
+                          ssl_context=mirror_ssl,
+                          from_revision=(engine.revision
+                                         if persistence is not None
+                                         else None))
+        finally:
+            engine.close_persistence()
+            _leave_distributed()
+        return 0
+    if args.distributed:
+        from ..parallel.multihost import MirroredEngine
+
+        # the join barrier: nothing executes until every follower (world
+        # - 1 of them) has subscribed; queries are mirrored (lockstep)
+        engine = MirroredEngine(engine, min_subscribers=world - 1)
     admission = None
     if args.admission:
         from ..admission import AdmissionController
@@ -2677,6 +2744,16 @@ def main(argv=None) -> int:
         log.info("kernel launches in this process: bit_or_matmul=%d "
                  "dense_or_matmul=%d", bitprop.bit_or_matmul.launches,
                  bitprop.dense_or_matmul.launches)
+        if mesh is not None:
+            log.info(
+                "mesh counters: engine_sharded_builds_total=%d "
+                "engine_sharded_updates_total=%d "
+                "engine_tier_mesh_fallback_total=%d "
+                "engine_caveat_mesh_fallback_total=%d",
+                metrics.counter("engine_sharded_builds_total").value,
+                metrics.counter("engine_sharded_updates_total").value,
+                metrics.counter("engine_tier_mesh_fallback_total").value,
+                metrics.counter("engine_caveat_mesh_fallback_total").value)
         if args.compact_threshold > 0:
             # stop the compactor before the final snapshot/checkpoint so
             # no fold races the state capture below
@@ -2690,8 +2767,20 @@ def main(argv=None) -> int:
             await loop.run_in_executor(None, engine.close_persistence)
             log.info("persistence closed (checkpointed %s)", args.data_dir)
 
-    asyncio.run(serve())
+    try:
+        asyncio.run(serve())
+    finally:
+        _leave_distributed()
     return 0
+
+
+def _leave_distributed() -> None:
+    """Destroy this process's torch.distributed group, if it joined one,
+    so the host exits."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

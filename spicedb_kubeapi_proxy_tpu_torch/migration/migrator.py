@@ -543,6 +543,8 @@ class SchemaMigrator:
             with e._lock:
                 e._install_schema(self._new_schema, self._new_cg,
                                   self._affected)
+                # the mesh view of the old schema's graph goes with it
+                e._sharded = None
             split["swap"] = time.perf_counter() - t2
         finally:
             gate.thaw()
@@ -692,6 +694,7 @@ def recover(engine, record_path: Optional[str]) -> Optional[dict]:
     with engine._lock:
         # no graph handed over: the next read compiles under S'
         engine._install_schema(new_schema, None)
+        engine._sharded = None
     if phase != DONE:
         doc["phase"] = DONE
         doc["updated"] = time.time()

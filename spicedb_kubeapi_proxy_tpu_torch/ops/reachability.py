@@ -412,6 +412,15 @@ class RunMeta:
     spmm_mode: str = "auto"
 
 
+def convergence_fuse_steps(meta: RunMeta) -> int:
+    """Propagation steps the mesh backend (parallel/sharded.py) runs per
+    convergence check, the reference's K: a stratified graph iterates only
+    its small cyclic core, so K=2 halves the checks without wasting hops;
+    an unstratified one (hand-built, unknown diameter) fuses deeper. The
+    fixpoint is monotone, so steps past convergence are no-ops."""
+    return 2 if meta.n_levels else 4
+
+
 @dataclass
 class CompiledGraph:
     """A compilation of (schema, snapshot): host arrays plus, built on
@@ -550,8 +559,9 @@ class CompiledGraph:
         plain propagation values, which is safe because the demand closure
         guarantees an excluded range cannot reach a queried slot."""
         bounds = self.res_level_bounds
-        if bounds is None:
-            bounds = (0, len(self.res_src))  # unstratified: all core
+        if bounds is None:  # unstratified: all core
+            bounds = (0, len(self.res_src) if self.res_src is not None
+                      else len(self.src))
         level_ranges = []
         if self.n_levels and self.range_levels is not None:
             offs = self.range_offs
@@ -578,6 +588,55 @@ class CompiledGraph:
             cav_rows=cav.n_rows if cav is not None else 1,
             spmm_mode=semiring.resolved_mode(),
         )
+
+    def signature(self) -> tuple:
+        """The layout a mesh build bakes in (the reference's jit cache
+        key): slot count, permission programs, block shapes, overlay
+        capacity, stratification, range offsets and caveat table shapes.
+        Views of one base share it; a recompile may too (bucket padding),
+        so equality alone does not prove incremental descent."""
+
+        def expr_sig(e: Expr, leaf_off: dict) -> tuple:
+            if isinstance(e, Nil):
+                return ("nil",)
+            if isinstance(e, (RelationRef, Arrow)):
+                return ("leaf", leaf_off[e])
+            if isinstance(e, Union):
+                return ("or",) + tuple(expr_sig(o, leaf_off)
+                                       for o in e.operands)
+            if isinstance(e, Intersect):
+                return ("and",) + tuple(expr_sig(o, leaf_off)
+                                        for o in e.operands)
+            if isinstance(e, Exclude):
+                return ("sub", expr_sig(e.base, leaf_off),
+                        expr_sig(e.subtract, leaf_off))
+            raise TypeError(e)
+
+        return (
+            self.M,
+            tuple((p.dst_off, p.size, p.level, expr_sig(p.expr, p.leaf_off))
+                  for p in self.programs),
+            tuple((b.dst_off, b.n_dst, b.src_off, b.n_src, b.level,
+                   b.closured) for b in self.blocks),
+            len(self._delta_host()[0]),
+            self.n_levels,
+            self.res_level_bounds if self.res_level_bounds is not None
+            else ("unstratified", len(self.res_src)
+                  if self.res_src is not None else len(self.src)),
+            None if self.range_levels is None
+            else tuple(self.range_levels.tolist()),
+            None if self.range_offs is None
+            else tuple(self.range_offs.tolist()),
+            None if self.caveats is None else self.caveats.signature(),
+        )
+
+    def _host_guard(self):
+        """The lock a reader of the shared host state holds: the overlay
+        arrays, ``res_exp``, the dead ledger (``dead_buf[:n_dead]``), the
+        newest block metadata and the caveat instance tables, all written
+        in place by an incremental commit under ``host_lock``."""
+        return self.host_lock if self.host_lock is not None \
+            else nullcontext()
 
     # -- device state ------------------------------------------------------
 

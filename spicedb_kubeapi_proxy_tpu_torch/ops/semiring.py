@@ -111,14 +111,21 @@ def _scatter_or(prop: torch.Tensor, V: torch.Tensor, src: torch.Tensor,
 
 def propagate(block_meta, blocks, blocks_bits, src, dst, act,
               dsrc, ddst, dact, Vflat: torch.Tensor, use_push: bool, *,
-              level: Optional[int] = None, mode: str = "auto"):
+              level: Optional[int] = None, mode: str = "auto",
+              shard: Optional[tuple] = None):
     """One masked-semiring hop: ``(prop [B, Mp] uint8, is_push 0|1)``.
 
     ``src``/``dst``/``act`` are this level's residual edge slice (padding
     edges point at the trash slot M with act 0); ``dsrc``/``ddst``/``dact``
     the fixed-capacity delta overlay. Blocks are filtered by ``level``
     (None = all). ``use_push`` is the host-side auto-mode choice (the
-    reference's ``occ <= crossover``); ``mode`` forces one branch."""
+    reference's ``occ <= crossover``); ``mode`` forces one branch.
+
+    ``shard``: ``(g_idx, ng)`` when the caller is one cell of a mesh
+    (parallel/sharded.py) whose blocks hold only their src-axis chunk
+    ``A[:, g_idx*w:(g_idx+1)*w]``, ``w = n_src // ng``: the frontier is
+    then that chunk's columns of the state. The join of the cells'
+    partial products stays with the caller."""
     B, Mp = Vflat.shape
     prop = torch.zeros((B, Mp), dtype=torch.uint8, device=Vflat.device)
     if src.shape[0]:
@@ -138,7 +145,13 @@ def propagate(block_meta, blocks, blocks_bits, src, dst, act,
     else:
         push = bool(use_push)
     for bm, A, Ab in sel:
-        f = Vflat[:, bm.src_off:bm.src_off + bm.n_src]
+        if shard is None:
+            f = Vflat[:, bm.src_off:bm.src_off + bm.n_src]
+        else:
+            g_idx, ng = shard
+            w = bm.n_src // ng
+            lo = bm.src_off + g_idx * w
+            f = Vflat[:, lo:lo + w]
         if push and Ab is not None:
             vb = bitprop.pack_frontier(f, bm.n_src)
             contrib = bitprop.bit_or_matmul(Ab, vb, B)

@@ -1,11 +1,11 @@
 """The engine mirror: one leader's actions replayed on follower hosts.
 
 The PyTorch port's counterpart of the JAX package's
-``parallel/multihost.py``, without its ``jax.distributed`` half
-(``parse_distributed_spec``/``init_distributed``, which wait for device
-meshes, ROADMAP A.5). It imports no ``torch.distributed``: the mirror is
-the ordinary engine protocol (engine/remote.py) between engine-host
-processes.
+``parallel/multihost.py``. The mirror is the ordinary engine protocol
+(engine/remote.py) between engine-host processes; the device collectives
+of a mesh spanning processes (parallel/sharded.py) ride the
+``torch.distributed`` world that :func:`init_distributed` joins (``nccl``
+on the card, ``gloo`` on the CPU).
 
 A leader wraps its engine in :class:`MirroredEngine`, which SERIALIZES
 every state mutation (and, in lockstep mode, every device dispatch),
@@ -20,10 +20,12 @@ restore path).
 
 Two modes:
 
-- **lockstep** (``mirror_queries=True``): queries are mirrored too, so
-  every process runs the same dispatch sequence (the JAX package's SPMD
-  deployment; the port's hosts run no collectives, so here it only keeps
-  the followers' device work in step);
+- **lockstep** (``mirror_queries=True``, ``--distributed``): queries
+  are mirrored too, so every process runs the same dispatch sequence and
+  so enters the same collectives of a mesh that spans the processes. The
+  set is all-or-nothing: with a dead follower the leader's next
+  collective fails (gloo) or blocks (nccl) and never answers; the
+  process set restarts as a unit;
 - **failover** (``mirror_queries=False``, ``sync_replication=True``, the
   ``--peers`` primary/replica set of parallel/failover.py): queries serve
   leader-locally, a write's ack waits for every live follower to apply
@@ -76,6 +78,61 @@ def fence_term(frame_term, current_term: int) -> int:
             f"rejecting mirror frame from deposed term {frame_term} "
             f"(current term {current_term})")
     return frame_term
+
+
+def parse_distributed_spec(spec: str) -> tuple[str, int, int]:
+    """``coordinator_host:port,num_processes,process_id`` -> parsed
+    triple. The ONE owner of this format — the engine-host CLI also
+    consults it (follower detection) before initializing anything."""
+    parts = spec.split(",")
+    if len(parts) != 3:
+        raise MultiHostError(
+            f"--distributed {spec!r}: expected "
+            "coordinator_host:port,num_processes,process_id")
+    coordinator, num, pid = parts
+    try:
+        n, p = int(num), int(pid)
+    except ValueError:
+        raise MultiHostError(
+            f"--distributed {spec!r}: num_processes and process_id "
+            "must be integers") from None
+    if not (0 <= p < n):
+        raise MultiHostError(
+            f"--distributed {spec!r}: process_id must be in [0, {n})")
+    return coordinator, n, p
+
+
+# how long a rank waits for the others at init and in a collective
+DISTRIBUTED_TIMEOUT_S = 300.0
+
+
+def init_distributed(spec: str, device=None) -> None:
+    """Join the ``torch.distributed`` world named by ``spec`` (format:
+    :func:`parse_distributed_spec`; the engine-host CLI's
+    ``--distributed``): ``init_method`` ``tcp://coordinator``, the world
+    size and this process's rank from the spec. The backend follows the
+    engine's device: ``nccl`` on ``cuda`` (the default; one rank a card),
+    ``gloo`` when the caller asked for the CPU. A failed init raises
+    :class:`MultiHostError`; nothing carries on without the group."""
+    from datetime import timedelta
+
+    import torch
+    import torch.distributed as dist
+
+    from ..device import resolve_device
+
+    coordinator, n, p = parse_distributed_spec(spec)
+    dev = resolve_device(device)
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    try:
+        dist.init_process_group(
+            backend, init_method=f"tcp://{coordinator}", world_size=n,
+            rank=p, timeout=timedelta(seconds=DISTRIBUTED_TIMEOUT_S))
+    except (RuntimeError, ValueError, OSError) as e:
+        raise MultiHostError(
+            f"--distributed {spec!r}: {backend} init failed: {e}") from e
 
 
 class MirroredEngine:

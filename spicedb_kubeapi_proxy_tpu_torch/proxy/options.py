@@ -21,9 +21,9 @@ Bearer tokens authenticate through a static token file and OIDC
 (``--oidc-*``, proxy/oidc.py: the issuer's JWKS verifies the token's
 signature), chained when both are set.
 
-Options whose half of the system the port does not have yet are refused
-with an :class:`OptionsError` that names the ROADMAP item bringing it
-(``_REFUSED``): device meshes (A.5).
+``--engine-mesh`` spreads the in-process engine over a device mesh
+(parallel/mesh.py): the cards of this host, or with ``device="cpu"`` CPU
+cells, ``data=D,graph=G`` of them (``auto``: one).
 """
 
 from __future__ import annotations
@@ -68,10 +68,14 @@ def parse_bool_flag(v) -> bool:
     raise argparse.ArgumentTypeError(f"expected a boolean, got {v!r}")
 
 
-# (field, default, flag, ROADMAP item, what brings it)
-_REFUSED = (
-    ("engine_mesh", None, "--engine-mesh", "A.5", "device meshes"),
-)
+def _parse_mesh_spec(spec: str) -> dict:
+    """Mesh spec parsing (parallel/mesh.py), re-raised as OptionsError."""
+    from ..parallel.mesh import MeshSpecError, parse_mesh_spec
+
+    try:
+        return parse_mesh_spec(spec)
+    except MeshSpecError as e:
+        raise OptionsError(str(e)) from None
 
 
 @dataclass
@@ -84,6 +88,10 @@ class Options:
     # torch device of the in-process engine: None = cuda (a missing card
     # fails validation); "cpu" only when asked for
     device: Optional[str] = None
+    # device mesh of the in-process engine: "auto" (every card; with
+    # device="cpu", one CPU cell) or "data=D,graph=G"; None = one device.
+    # A tcp:// engine host owns its own mesh.
+    engine_mesh: Optional[str] = None
     engine_token: Optional[str] = None  # bearer token for tcp:// endpoints
     # tcp:// transport security (reference remote-endpoint flag shape:
     # --spicedb-insecure / --spicedb-skip-verify-ca / --spicedb-ca-path,
@@ -332,10 +340,6 @@ class Options:
     # replicating tuples; fail-closed after frontier_max_rounds
     frontier_exchange: bool = False
     frontier_max_rounds: int = 8
-    # -- refused: options whose half of the system the port does not have
-    # yet; any value but the default is an OptionsError that names the
-    # ROADMAP item bringing it (_REFUSED)
-    engine_mesh: Optional[str] = None
 
     def _parse_remote(self) -> Optional[list[tuple[str, int]]]:
         """[(host, port), ...] for tcp:// endpoints, None otherwise;
@@ -357,11 +361,6 @@ class Options:
                 "(expected tcp://host:port[,host2:port2,...])") from None
 
     def validate(self) -> None:
-        for name, default, flag, item, what in _REFUSED:
-            if getattr(self, name) != default:
-                raise OptionsError(
-                    f"{flag} is not supported by the PyTorch port's "
-                    f"proxy: {what} lands in the port with ROADMAP {item}")
         remote = self._parse_remote()
         if self.shard_map:
             if remote is not None:
@@ -375,7 +374,8 @@ class Options:
                     (self.snapshot_path, "snapshot-path"),
                     (self.data_dir, "data-dir"),
                     (self.lookup_batch_window > 0, "lookup-batch-window"),
-                    (self.device is not None, "device")):
+                    (self.device is not None, "device"),
+                    (self.engine_mesh, "engine-mesh")):
                 if bad:
                     raise OptionsError(
                         f"{why} applies to in-process engines; with "
@@ -498,6 +498,10 @@ class Options:
             raise OptionsError(
                 "device applies to in-process engines; pass it to the "
                 "tcp:// engine host instead")
+        if remote and self.engine_mesh:
+            raise OptionsError(
+                "engine-mesh applies to in-process engines; configure the "
+                "mesh on the tcp:// engine host instead")
         if remote is None and not self.shard_map and (
                 self.engine_insecure or self.engine_ca_file or
                 self.engine_skip_verify_ca or self.engine_client_cert_file
@@ -517,6 +521,8 @@ class Options:
             raise OptionsError(
                 "engine-client-cert-file and engine-client-key-file "
                 "must be set together")
+        if self.engine_mesh:
+            _parse_mesh_spec(self.engine_mesh)  # raises OptionsError
         if self.feature_gates:
             from ..utils.features import FeatureGateError, features
 
@@ -821,10 +827,21 @@ class Options:
             bootstrap = "\n---\n".join(
                 [open(f).read() for f in self.bootstrap_files]
                 + ([self.bootstrap_content] if self.bootstrap_content else []))
+            mesh = None
+            if self.engine_mesh:
+                from ..parallel.mesh import mesh_from_spec
+
+                try:
+                    mesh = mesh_from_spec(self.engine_mesh,
+                                          resolve_device(self.device))
+                except ValueError as e:  # the axes vs the cards at hand
+                    raise OptionsError(
+                        f"engine-mesh {self.engine_mesh!r}: {e}") from None
             engine = Engine(bootstrap=bootstrap or None, device=self.device,
                             delta_capacity=self.delta_capacity,
                             device_graph_budget_bytes=(
-                                self.device_graph_budget_bytes or None))
+                                self.device_graph_budget_bytes or None),
+                            mesh=mesh)
             logging.getLogger("sdbkp.options").info(
                 "engine on %s", engine.device)
             if self.compact_threshold > 0:
@@ -1378,6 +1395,10 @@ def add_flags(parser: argparse.ArgumentParser) -> None:
                              "(default cuda; a missing card is an error, "
                              "never a fallback — pass cpu to run on the "
                              "CPU explicitly)")
+    parser.add_argument("--engine-mesh",
+                        help="device mesh for the in-process engine: "
+                             "'auto' or 'data=D,graph=G' (with --device "
+                             "cpu, that many CPU cells; auto: one)")
     parser.add_argument("--feature-gates",
                         help="comma-separated Name=true|false overrides "
                              "(see utils/features.py for known gates)")
@@ -1543,23 +1564,14 @@ def add_flags(parser: argparse.ArgumentParser) -> None:
                              "exchange (exhaustion under-approximates "
                              "the closure: deny/under-list, never "
                              "over-grant)")
-    for _name, _default, flag, item, what in _REFUSED:
-        parser.add_argument(flag, nargs="?", const=True, default=None,
-                            dest=f"refused_{flag[2:]}",
-                            help=f"not in the PyTorch port yet: {what} "
-                                 f"lands with ROADMAP {item} (refused)")
 
 
 def options_from_args(args: argparse.Namespace) -> Options:
-    """Options from parsed flags; a refused flag raises OptionsError."""
-    for _name, _default, flag, item, what in _REFUSED:
-        if getattr(args, f"refused_{flag[2:]}") is not None:
-            raise OptionsError(
-                f"{flag} is not supported by the PyTorch port's proxy: "
-                f"{what} lands in the port with ROADMAP {item}")
+    """Options from parsed flags."""
     return Options(
         engine_endpoint=args.engine_endpoint,
         device=args.device,
+        engine_mesh=args.engine_mesh,
         engine_token=args.engine_token,
         engine_insecure=args.engine_insecure,
         engine_ca_file=args.engine_ca_file,

@@ -135,6 +135,11 @@ def test_every_port_family_has_exactly_one_row(port_root):
     assert {"engine_kernel_builds_total", "engine_kernel_build_seconds",
             "proxy_filter_python_path_total",
             "scaleout_read_route_retries_total"} <= set(own)
+    # the mesh backend's families (Engine._backend), the JAX package's rows
+    assert {"engine_tier_mesh_fallback_total",
+            "engine_caveat_mesh_fallback_total",
+            "engine_sharded_builds_total", "engine_sharded_updates_total",
+            "engine_sharded_build_seconds"} <= set(fam) & set(rows)
 
 
 def test_an_undocumented_port_family_is_a_finding(port_root, tmp_path):
@@ -201,13 +206,15 @@ def test_torch_syncs_gate_bites_and_covers_loadgen_and_chaos(
         port_root, tmp_path, torch_sync_tables):
     """Without its entries the patched run finds exactly the syncs the
     entries name; a torch sync under a lock and on the loop is a finding
-    (the tables are live); and the passes read loadgen/ and chaos/."""
+    (the tables are live); and the passes read loadgen/, chaos/ and the
+    mesh (parallel/mesh.py, parallel/sharded.py)."""
     from tools.analysis import lock_discipline, loop_blocking
 
     mods = core.load_modules(REPO, [PKG])
     paths = {m.path for m in mods}
     for sub in ("loadgen/driver.py", "loadgen/sweep.py",
-                "chaos/campaign.py", "chaos/schedule.py"):
+                "chaos/campaign.py", "chaos/schedule.py",
+                "parallel/mesh.py", "parallel/sharded.py"):
         assert f"{PKG}/{sub}" in paths
     found = {(f.rule, f.path, f.scope, f.token)
              for f in lock_discipline.run(mods) + loop_blocking.run(mods)

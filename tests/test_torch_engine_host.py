@@ -7,8 +7,8 @@ mutual TLS, the push watch; the JAX client over TLS to a port host; the
 tlsconf errors. The CLI (``python -m
 spicedb_kubeapi_proxy_tpu_torch.engine.remote``): serving TLS, refusing
 plaintext without the opt-out, half TLS, the data-dir flags
-(test_persistence.py's CLI test), the flags it refuses until their
-ROADMAP items land, a data dir's migration record resolved at boot (an
+(test_persistence.py's CLI test), ``--engine-mesh`` over CPU cells
+answering as the JAX engine, the ``--distributed`` flag rules, a data dir's migration record resolved at boot (an
 abort before the cut, the cut finished after it), ``--device`` (cuda unless asked, never a
 silent fallback), and a boot with ``--device cpu --data-dir`` that
 recovers a store the JAX engine wrote, answers a JAX client as the JAX
@@ -400,27 +400,83 @@ def test_engine_host_cli_data_dir_flags():
                      "--wal-fsync", "never"])
 
 
-@pytest.mark.parametrize("flag,value,item", [
-    (f, v, i) for f, v, i in (
-        # the --peers failover flags are served (test_torch_mirror.py)
-        ("--engine-mesh", "auto", "A.5"),
-        ("--distributed", "127.0.0.1:1,2,0", "A.5"),
-        ("--mirror-leader", "127.0.0.1:1", "A.5"),
-        # served: the host boots with it and answers chaos_status
-        ("--enable-chaos-ops", None, None))])
-def test_engine_host_cli_refuses_unported_flags(capsys, tmp_path, flag,
-                                                value, item):
-    argv = ["--engine-insecure", "--device", "cpu", flag]
-    if value is not None:
-        argv.append(value)
-    if item is None:
-        _serve_chaos_status(tmp_path, argv)
-        return
-    with pytest.raises(SystemExit) as exc:
-        remote.main(argv)
-    assert exc.value.code == 2
-    err = capsys.readouterr().err
-    assert flag in err and f"ROADMAP {item}" in err
+def test_engine_host_cli_serves_the_chaos_ops_flag(tmp_path):
+    # the host boots with it and answers chaos_status
+    _serve_chaos_status(tmp_path, ["--engine-insecure", "--device", "cpu",
+                                   "--enable-chaos-ops"])
+
+
+def test_engine_host_cli_serves_an_engine_mesh(tmp_path):
+    """``--engine-mesh data=1,graph=2`` with ``--device cpu``: the host
+    boots over 2 CPU cells and answers a write, a check and a list like
+    the JAX package's engine."""
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    logf = open(tmp_path / "host.log", "wb")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "spicedb_kubeapi_proxy_tpu_torch.engine.remote",
+         "--engine-insecure", "--device", "cpu", "--engine-mesh",
+         "data=1,graph=2", "--bind-port", str(port)],
+        stdout=logf, stderr=subprocess.STDOUT, cwd=REPO)
+    logf.close()
+    rels = [f"namespace:n{i}#creator@user:u{i % 5}" for i in range(20)]
+    try:
+        deadline = time.monotonic() + 60
+        while True:
+            c = remote.RemoteEngine("127.0.0.1", port, retries=0,
+                                    timeout=30.0, connect_timeout=1.0)
+            try:
+                c.write_relationships([WriteOp("touch", parse_relationship(
+                    r)) for r in rels])
+                break
+            except (OSError, remote.RemoteEngineError):
+                c.close()
+                assert proc.poll() is None, (tmp_path / "host.log"
+                                             ).read_text()[-2000:]
+                assert time.monotonic() < deadline
+                time.sleep(0.3)
+        ref = JEngine()
+        ref.write_relationships([JWriteOp("touch", jparse_rel(r))
+                                 for r in rels])
+        pairs = [(f"n{i}", f"u{i % 7}") for i in range(20)]
+        assert c.check_bulk([CheckItem("namespace", n, "view", "user", u)
+                             for n, u in pairs]) == ref.check_bulk(
+            [JCheckItem("namespace", n, "view", "user", u)
+             for n, u in pairs])
+        assert sorted(c.lookup_resources("namespace", "view", "user",
+                                         "u2")) == sorted(
+            ref.lookup_resources("namespace", "view", "user", "u2"))
+        c.close()
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+    log = (tmp_path / "host.log").read_text()
+    assert "engine mesh: {'devices': 2, 'data': 1, 'graph': 2, " \
+        "'platform': 'cpu'}" in log, log[-2000:]
+
+
+def test_engine_host_cli_distributed_flag_rules(capsys):
+    """``--distributed`` excludes ``--peers`` (two deployment shapes), and
+    a process other than 0 needs ``--mirror-leader`` — both argparse
+    errors, checked before any process group is joined."""
+    base = ["--engine-insecure", "--device", "cpu"]
+    for extra, msg in (
+            (["--distributed", "127.0.0.1:1,2,0",
+              "--peers", "127.0.0.1:1,127.0.0.1:2"], "mutually exclusive"),
+            (["--distributed", "127.0.0.1:1,2,1"],
+             "follower processes need --mirror-leader"),
+            (["--distributed", "127.0.0.1:1,2,2"],
+             "process_id must be in [0, 2)")):
+        with pytest.raises(SystemExit) as exc:
+            remote.main(base + extra)
+        assert exc.value.code == 2
+        assert msg in capsys.readouterr().err
 
 
 def _serve_chaos_status(tmp_path, argv):

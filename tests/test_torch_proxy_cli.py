@@ -4,10 +4,10 @@
 ``InMemoryKube`` reached by ``--upstream-url``; SIGTERM ends it with exit
 0. Without ``--device`` the engine asks for ``cuda``: on a machine with no
 card that is exit 2 with ``resolve_device``'s error, never a quiet CPU
-fallback. Every flag whose half of the system the port lacks (only
-``--engine-mesh`` now: the ``--oidc-*`` flags are served and held in
-test_torch_oidc.py) is refused with the ROADMAP item that brings it, from
-the CLI and from ``Options``.
+fallback. No flag is refused any more: ``--engine-mesh data=2,graph=4``
+with ``--device cpu`` serves over 8 CPU cells and lists like the JAX
+proxy over its 8-device mesh, and a malformed mesh spec exits 2 with the
+JAX package's ``MeshSpecError`` text.
 The scale-out flags are accepted (``--device`` beside ``--shard-map`` is
 refused), and a sharded port proxy lists byte for byte like the JAX proxy
 over the same engine hosts.
@@ -32,7 +32,6 @@ import torch
 from spicedb_kubeapi_proxy_tpu_torch.proxy import cli
 from spicedb_kubeapi_proxy_tpu_torch.proxy.inmemkube import InMemoryKube
 from spicedb_kubeapi_proxy_tpu_torch.proxy.options import (
-    _REFUSED,
     Options,
     OptionsError,
 )
@@ -157,30 +156,118 @@ def test_cli_without_device_refuses_to_run_on_the_cpu(tmp_path):
         Options(rule_files=[RULES], upstream=InMemoryKube()).complete()
 
 
-def _value(name, default):
-    if isinstance(default, bool):
-        return True
-    if isinstance(default, list):
-        return ["k=v"]
-    if isinstance(default, (int, float)):
-        return default + 1
-    return "x"
+def _mesh_script(call) -> list:
+    """alice creates two namespaces and lists; mallory lists: each
+    step's status and the listed names, through ``call``."""
+    out = []
+    for ns in ("mesh-a", "mesh-b"):
+        st, doc = call("POST", "/api/v1/namespaces", "alice",
+                       {"apiVersion": "v1", "kind": "Namespace",
+                        "metadata": {"name": ns}})
+        out.append(st)
+    for user in ("alice", "mallory"):
+        st, doc = call("GET", "/api/v1/namespaces", user, None)
+        out.append((st, sorted(i["metadata"]["name"]
+                               for i in doc["items"])))
+    st, _ = call("GET", "/api/v1/namespaces/mesh-a", "mallory", None)
+    out.append(st)
+    return out
 
 
-@pytest.mark.parametrize("name,default,flag,item,what", _REFUSED,
-                         ids=[r[2] for r in _REFUSED])
-def test_refused_flag_names_its_roadmap_item(capsys, tmp_path, name,
-                                             default, flag, item, what):
-    with pytest.raises(SystemExit) as ex:
-        cli.main(["--device", "cpu", "--rule-file", RULES,
-                  "--upstream-url", "http://127.0.0.1:1", flag, "x"])
-    assert ex.value.code == 2
-    err = capsys.readouterr().err
-    assert f"{flag} is not supported" in err
-    assert f"ROADMAP {item}" in err
-    with pytest.raises(OptionsError, match=f"ROADMAP {item}"):
+def test_cli_engine_mesh_on_cpu_cells_lists_like_the_jax_proxy(tmp_path):
+    """The CLI with ``--device cpu --engine-mesh data=2,graph=4`` (8 CPU
+    cells) serves the same answers as the JAX proxy over its 8-device
+    mesh, script for script."""
+    from spicedb_kubeapi_proxy_tpu.proxy.inmemory import \
+        InMemoryClient as JClient
+    from spicedb_kubeapi_proxy_tpu.proxy.options import Options as JOptions
+
+    up_port, stop_up = serve_upstream(InMemoryKube())
+    port = _free_port()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "spicedb_kubeapi_proxy_tpu_torch.proxy.cli",
+         "--device", "cpu", "--engine-mesh", "data=2,graph=4",
+         "--rule-file", RULES, "--bootstrap", BOOTSTRAP,
+         "--upstream-url", f"http://127.0.0.1:{up_port}",
+         "--bind-port", str(port),
+         "--workflow-database-path", str(tmp_path / "dtx.sqlite")],
+        cwd=REPO, env=_env(), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    try:
+        deadline = time.monotonic() + 60
+        while True:
+            try:
+                socket.create_connection(("127.0.0.1", port), 1).close()
+                break
+            except OSError:
+                assert proc.poll() is None, proc.communicate()[1]
+                assert time.monotonic() < deadline
+                time.sleep(0.2)
+        got = _mesh_script(lambda m, path, user, body: _call(
+            port, m, path, user, body))
+        proc.send_signal(signal.SIGTERM)
+        _, err = proc.communicate(timeout=60)
+        assert proc.returncode == 0, err
+        assert "engine on cpu" in err
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+        stop_up()
+
+    async def jax_side():
+        cfg = JOptions(rule_files=[RULES], bootstrap_files=[BOOTSTRAP],
+                       upstream=InMemoryKube(),
+                       workflow_database_path=str(tmp_path / "j.sqlite"),
+                       engine_mesh="data=2,graph=4").complete()
+        await cfg.workflow.resume_pending()
+        results = []
+        for m, path, user, body in (
+                ("POST", "/api/v1/namespaces", "alice", "mesh-a"),
+                ("POST", "/api/v1/namespaces", "alice", "mesh-b"),
+                ("GET", "/api/v1/namespaces", "alice", None),
+                ("GET", "/api/v1/namespaces", "mallory", None),
+                ("GET", "/api/v1/namespaces/mesh-a", "mallory", None)):
+            c = JClient(cfg.server.handle, user=user)
+            if m == "POST":
+                r = await c.post(path, {"apiVersion": "v1",
+                                        "kind": "Namespace",
+                                        "metadata": {"name": body}})
+                results.append(r.status)
+            elif path.endswith("mesh-a"):
+                results.append((await c.get(path)).status)
+            else:
+                r = await c.get(path)
+                results.append((r.status, sorted(
+                    i["metadata"]["name"]
+                    for i in json.loads(r.body)["items"])))
+        await cfg.workflow.shutdown()
+        return results
+
+    assert got == asyncio.run(jax_side())
+    assert got == [201, 201, (200, ["mesh-a", "mesh-b"]), (200, []), 403]
+
+
+def test_malformed_mesh_spec_exits_2_with_the_reference_text(capsys):
+    from spicedb_kubeapi_proxy_tpu.parallel.mesh import (
+        MeshSpecError,
+        parse_mesh_spec,
+    )
+    from spicedb_kubeapi_proxy_tpu_torch.engine import remote
+
+    with pytest.raises(MeshSpecError) as ref:
+        parse_mesh_spec("rows=2")
+    for main, argv in (
+            (cli.main, ["--device", "cpu", "--rule-file", RULES,
+                        "--upstream-url", "http://127.0.0.1:1"]),
+            (remote.main, ["--engine-insecure", "--device", "cpu"])):
+        with pytest.raises(SystemExit) as ex:
+            main(argv + ["--engine-mesh", "rows=2"])
+        assert ex.value.code == 2
+        assert str(ref.value) in capsys.readouterr().err
+    with pytest.raises(OptionsError, match="invalid engine mesh"):
         Options(rule_files=[RULES], upstream=InMemoryKube(), device="cpu",
-                **{name: _value(name, default)}).validate()
+                engine_mesh="rows=2").validate()
 
 
 def test_device_is_for_in_process_engines():
@@ -240,13 +327,6 @@ def test_device_is_refused_beside_a_shard_map(capsys):
                   "--shard-map", _GROUPS])
     assert ex.value.code == 2
     assert "each engine group owns its own" in capsys.readouterr().err
-
-
-def test_mesh_and_oidc_flags_still_name_their_items():
-    # OIDC (A.6) is served now; the mesh flag still names A.5
-    assert {item for *_, item, _what in _REFUSED} == {"A.5"}
-    assert [r[2] for r in _REFUSED if r[3] == "A.5"] == ["--engine-mesh"]
-    assert not any(r[2].startswith("--oidc-") for r in _REFUSED)
 
 
 def test_sharded_port_proxy_lists_byte_for_byte_like_the_jax_proxy(
