@@ -29,6 +29,8 @@ from typing import Optional
 
 import numpy as np
 
+from ..obs.trace import tracer
+
 
 class BatchedLookup:
     """One caller's pending lookup. ``result()`` blocks until the batch is
@@ -58,17 +60,22 @@ class BatchedLookup:
         self._event.set()
 
     def result(self):
-        self._event.wait()
-        if not self._done:
-            if self._error is None:
-                try:
-                    self._value = self._thunk()
-                except BaseException as e:  # noqa: BLE001
-                    self._error = e
-            self._done = True
-        if self._error is not None:
-            raise self._error
-        return self._value
+        with tracer.span("engine.result"):
+            if not self._event.is_set():
+                # the caller blocked while its batch waits out the window
+                # and another thread dispatches it
+                with tracer.span("engine.batch_wait"):
+                    self._event.wait()
+            if not self._done:
+                if self._error is None:
+                    try:
+                        self._value = self._thunk()
+                    except BaseException as e:  # noqa: BLE001
+                        self._error = e
+                self._done = True
+            if self._error is not None:
+                raise self._error
+            return self._value
 
     def iterations(self) -> int:
         return 0 if self._iters is None else self._iters()
@@ -138,7 +145,8 @@ class LookupBatcher:
 
     def _flush(self, batch: list) -> None:
         try:
-            self._dispatch(batch)
+            with tracer.span("engine.dispatch", rows=len(batch)):
+                self._dispatch(batch)
         except BaseException as e:  # noqa: BLE001 - fan the error out
             for _, fut in batch:
                 fut._reject(e)
@@ -216,6 +224,8 @@ class LookupBatcher:
                 observed.set()
                 metrics.histogram("engine_lookup_seconds").observe(
                     time.perf_counter() - t0)
+                metrics.histogram("engine_fixpoint_iterations").observe(
+                    qfut.iterations())
                 # fused dispatches deny missing-context conditional
                 # grants fail-closed like every other path — they must
                 # tick the same counter (once per dispatch, not per row)

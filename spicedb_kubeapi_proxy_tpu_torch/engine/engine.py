@@ -53,6 +53,7 @@ from ..models.schema import (
 )
 from ..models.tuples import Relationship, canonical_context
 from ..obs.profile import install_kernel_build_hook
+from ..obs.trace import tracer
 from ..ops import semiring
 from ..ops.reachability import (
     DELTA_CAPACITY,
@@ -244,7 +245,9 @@ class EngineFuture:
         self._iters = iters
 
     def result(self):
-        return self._fin(None if self._fut is None else self._fut.result())
+        with tracer.span("engine.result"):
+            return self._fin(None if self._fut is None
+                             else self._fut.result())
 
     def iterations(self) -> int:
         if self._iters is not None:
@@ -1073,38 +1076,39 @@ class Engine:
         keyed at, so the answer reflects one revision. Both polarities
         are cached at that revision (plus the context digest on a
         caveated graph) until the cache deadline."""
-        cache = self._decision_cache
-        if cache is None or now is not None or not items:
-            return self._check_bulk_dispatch(items, now, context=context)
-        # read before the graph: a schema cut in between retires the fill
-        since = cache.epoch()
-        cg = self.compiled()
-        now0 = time.time()
-        digest = self._digest(cg, context)
-        keys = [check_key(cg.revision, it, digest) for it in items]
-        out: list = [None] * len(items)
-        miss_idx: list[int] = []
-        for i, k in enumerate(keys):
-            v = cache.get(k, now0)
-            if v is MISS:
-                miss_idx.append(i)
-            else:
-                out[i] = v
-        if not miss_idx:
-            return EngineFuture(None, lambda _: list(out))
-        inner = self._check_bulk_dispatch(
-            [items[i] for i in miss_idx], now0, cg=cg, context=context)
+        with tracer.span("engine.check", items=len(items)):
+            cache = self._decision_cache
+            if cache is None or now is not None or not items:
+                return self._check_bulk_dispatch(items, now, context=context)
+            # read before the graph: a schema cut in between retires the fill
+            since = cache.epoch()
+            cg = self.compiled()
+            now0 = time.time()
+            digest = self._digest(cg, context)
+            keys = [check_key(cg.revision, it, digest) for it in items]
+            out: list = [None] * len(items)
+            miss_idx: list[int] = []
+            for i, k in enumerate(keys):
+                v = cache.get(k, now0)
+                if v is MISS:
+                    miss_idx.append(i)
+                else:
+                    out[i] = v
+            if not miss_idx:
+                return EngineFuture(None, lambda _: list(out))
+            inner = self._check_bulk_dispatch(
+                [items[i] for i in miss_idx], now0, cg=cg, context=context)
 
-        def fin(_):
-            got = inner.result()
-            deadline = self._cache_deadline(cg, now0, context)
-            for j, i in enumerate(miss_idx):
-                v = bool(got[j])
-                cache.put(keys[i], v, deadline, 0, now0, since=since)
-                out[i] = v
-            return list(out)
+            def fin(_):
+                got = inner.result()
+                deadline = self._cache_deadline(cg, now0, context)
+                for j, i in enumerate(miss_idx):
+                    v = bool(got[j])
+                    cache.put(keys[i], v, deadline, 0, now0, since=since)
+                    out[i] = v
+                return list(out)
 
-        return EngineFuture(None, fin, iters=inner.iterations)
+            return EngineFuture(None, fin, iters=inner.iterations)
 
     def _check_bulk_dispatch(self, items: list[CheckItem],
                              now: Optional[float] = None,
@@ -1138,8 +1142,10 @@ class Engine:
         # whole call, so one bulk check never spans two revisions
         with backend.shared_state():
             for s in range(0, n, chunk):
-                seeds, q_slots, q_batch = self._encode_checks(
-                    cg, objs, items[s:s + chunk])
+                part = items[s:s + chunk]
+                with tracer.span("engine.encode_checks", items=len(part)):
+                    seeds, q_slots, q_batch = self._encode_checks(
+                        cg, objs, part)
                 if len(seeds) <= rows_max:
                     where.append(slice(s, s + len(q_slots)))
                     futs.append(backend.query_async(
@@ -1155,6 +1161,8 @@ class Engine:
                         q_batch[sel] - r0, now=now, context=context,
                         cav_req=cav_req))
         metrics.counter("engine_checks_total").inc(n)
+        # the device's share of a request trace, finished by fin
+        dev_span = tracer.begin("device", kind="check", rows=n)
 
         def iters():
             return max(f.iterations() for f in futs)
@@ -1166,12 +1174,16 @@ class Engine:
             out = got.tolist()
             metrics.histogram("engine_check_seconds").observe(
                 time.perf_counter() - t0)
-            metrics.histogram("engine_fixpoint_iterations").observe(iters())
+            it = iters()
+            metrics.histogram("engine_fixpoint_iterations").observe(it)
             self._count_semiring_modes(futs)
             # caveat instances that resolved to missing context: DISTINCT
             # instances per logical call (every chunk shares one graph and
             # one context, so the chunks' counts are equal: max, not sum)
             self._count_missing(max(f.caveats_missing() for f in futs))
+            if dev_span is not None:
+                dev_span.set("fixpoint_iters", it)
+                dev_span.finish()
             return out
 
         return EngineFuture(None, fin, iters=iters)
@@ -1253,63 +1265,65 @@ class Engine:
         one flight: one caller dispatches (through the batcher when on,
         which so only sees true misses), the rest wait on its result.
         Cached masks are copied on read."""
-        cache = self._decision_cache
-        if cache is None or now is not None:
-            return self._lookup_submit(resource_type, permission,
-                                       subject_type, subject_id,
-                                       subject_relation, now, context)
-        # read before the graph: a schema cut in between retires the fill
-        since = cache.epoch()
-        cg = self.compiled()
-        key = lookup_key(cg.revision, resource_type, permission,
-                         subject_type, subject_id, subject_relation,
-                         self._digest(cg, context))
-        now0 = time.time()
-        hit = cache.get(key, now0)
-        if hit is not MISS:
-            mask, interner = hit
-            return EngineFuture(None, lambda _: (
-                None if mask is None else mask.copy(), interner))
-        leader, flight = cache.flight(key, now0)
-        if not leader:
+        with tracer.span("engine.lookup", resource_type=resource_type,
+                         permission=permission):
+            cache = self._decision_cache
+            if cache is None or now is not None:
+                return self._lookup_submit(resource_type, permission,
+                                           subject_type, subject_id,
+                                           subject_relation, now, context)
+            # read before the graph: a schema cut in between retires the fill
+            since = cache.epoch()
+            cg = self.compiled()
+            key = lookup_key(cg.revision, resource_type, permission,
+                             subject_type, subject_id, subject_relation,
+                             self._digest(cg, context))
+            now0 = time.time()
+            hit = cache.get(key, now0)
+            if hit is not MISS:
+                mask, interner = hit
+                return EngineFuture(None, lambda _: (
+                    None if mask is None else mask.copy(), interner))
+            leader, flight = cache.flight(key, now0)
+            if not leader:
 
-            def fin_follower(_):
+                def fin_follower(_):
+                    mask, interner = flight.result()
+                    return (None if mask is None else mask.copy(), interner)
+
+                return EngineFuture(None, fin_follower)
+            try:
+                inner = self._lookup_submit(resource_type, permission,
+                                            subject_type, subject_id,
+                                            subject_relation, None, context)
+            except BaseException as e:  # the dispatch died before a future
+                flight.abort(e)
+                cache.release(key, flight)
+                raise
+
+            def finish():
+                try:
+                    value = inner.result()
+                except BaseException:
+                    cache.release(key, flight)  # errors are never cached
+                    raise
+                mask, interner = value
+                deadline = self._cache_deadline(cg, now0, context)
+                flight.deadline = deadline
+                cache.put(key, (mask, interner), deadline,
+                          0 if mask is None else int(mask.nbytes), now0,
+                          since=since)
+                cache.release(key, flight)
+                return value
+
+            flight.launch(finish)
+
+            def fin_leader(_):
                 mask, interner = flight.result()
                 return (None if mask is None else mask.copy(), interner)
 
-            return EngineFuture(None, fin_follower)
-        try:
-            inner = self._lookup_submit(resource_type, permission,
-                                        subject_type, subject_id,
-                                        subject_relation, None, context)
-        except BaseException as e:  # the dispatch died before a future
-            flight.abort(e)
-            cache.release(key, flight)
-            raise
-
-        def finish():
-            try:
-                value = inner.result()
-            except BaseException:
-                cache.release(key, flight)  # errors are never cached
-                raise
-            mask, interner = value
-            deadline = self._cache_deadline(cg, now0, context)
-            flight.deadline = deadline
-            cache.put(key, (mask, interner), deadline,
-                      0 if mask is None else int(mask.nbytes), now0,
-                      since=since)
-            cache.release(key, flight)
-            return value
-
-        flight.launch(finish)
-
-        def fin_leader(_):
-            mask, interner = flight.result()
-            return (None if mask is None else mask.copy(), interner)
-
-        return EngineFuture(None, fin_leader,
-                            iters=getattr(inner, "iterations", None))
+            return EngineFuture(None, fin_leader,
+                                iters=getattr(inner, "iterations", None))
 
     def _lookup_submit(self, resource_type: str, permission: str,
                        subject_type: str, subject_id: str,
@@ -1376,37 +1390,40 @@ class Engine:
                        subject_relation: Optional[str],
                        now: Optional[float],
                        context: Optional[dict] = None) -> EngineFuture:
-        cg = self.compiled()
-        objs = self._objects_by_name()
-        off = cg.offset_of(resource_type, permission)
-        n = cg.type_sizes.get(resource_type)
-        interner = objs.get(resource_type)
-        metrics.counter("engine_lookups_total").inc()
-        if off is None or interner is None:
-            return EngineFuture(None, lambda _: (None, None))
-        seeds = np.asarray([cg.encode_subject(
-            subject_type, subject_id, subject_relation, objs)],
-            dtype=np.int32)
-        ent = self._q_host.get((off, n))
-        if ent is None:
-            if len(self._q_host) >= 64:
-                self._q_host.pop(next(iter(self._q_host)), None)
-            ent = self._q_host[(off, n)] = (
-                off + np.arange(n, dtype=np.int32),
-                np.zeros(n, dtype=np.int32))
-        q_slots, q_batch = ent
-        t0 = time.perf_counter()
-        self._apply_crossover(cg)
-        fut = self._backend(cg).query_async(
-            seeds, q_slots, q_batch, now=now,
-            q_cache_key=("lookup", off, n), q_contiguous=True,
-            context=context)
+        with tracer.span("engine.dispatch", rows=1):
+            cg = self.compiled()
+            objs = self._objects_by_name()
+            off = cg.offset_of(resource_type, permission)
+            n = cg.type_sizes.get(resource_type)
+            interner = objs.get(resource_type)
+            metrics.counter("engine_lookups_total").inc()
+            if off is None or interner is None:
+                return EngineFuture(None, lambda _: (None, None))
+            seeds = np.asarray([cg.encode_subject(
+                subject_type, subject_id, subject_relation, objs)],
+                dtype=np.int32)
+            ent = self._q_host.get((off, n))
+            if ent is None:
+                if len(self._q_host) >= 64:
+                    self._q_host.pop(next(iter(self._q_host)), None)
+                ent = self._q_host[(off, n)] = (
+                    off + np.arange(n, dtype=np.int32),
+                    np.zeros(n, dtype=np.int32))
+            q_slots, q_batch = ent
+            t0 = time.perf_counter()
+            self._apply_crossover(cg)
+            fut = self._backend(cg).query_async(
+                seeds, q_slots, q_batch, now=now,
+                q_cache_key=("lookup", off, n), q_contiguous=True,
+                context=context)
+        # the device's share of a request trace, finished by fin
+        dev_span = tracer.begin("device", kind="lookup", rows=n)
 
         def fin(out):
             metrics.histogram("engine_lookup_seconds").observe(
                 time.perf_counter() - t0)
-            metrics.histogram("engine_fixpoint_iterations").observe(
-                fut.iterations())
+            iters = fut.iterations()
+            metrics.histogram("engine_fixpoint_iterations").observe(iters)
             self._count_missing(fut.caveats_missing())
             m = mask_pseudo_objects(np.array(out, copy=True))
             # final-frontier occupancy of the queried window feeds the
@@ -1418,6 +1435,10 @@ class Engine:
             ).observe(occ)
             self._observe_occupancy(float(occ) / max(m.size, 1))
             self._count_semiring_modes((fut,))
+            if dev_span is not None:
+                dev_span.set("fixpoint_iters", iters)
+                dev_span.set("frontier_occupancy", occ)
+                dev_span.finish()
             return m, interner
 
         return EngineFuture(fut, fin)

@@ -22,12 +22,24 @@ Spans cross threads explicitly: ``contextvars`` carry the active span
 through ``asyncio`` tasks and ``asyncio.to_thread``, and executor-pool
 hops (which do NOT copy context) re-enter via ``capture()`` /
 ``activate()``.
+
+While a ``torch.profiler`` records in the process, every ``span()`` also
+opens a ``record_function`` range of its name for its extent, request
+trace or not, so the program's layers appear on the profiler's timeline
+beside the device's kernels. Spans stamp their start on the profiler's
+clock (``time.time_ns()``, as kineto stamps host events), so a
+``/debug/traces`` span lines up with a device trace of the same moment.
+With neither a request trace nor a profiler on, ``span()`` returns one
+shared no-op context. torch is never imported here: no profiler can
+record in a process that has not loaded it. The engine's span names are
+listed in ``obs/tracing.md``.
 """
 
 from __future__ import annotations
 
 import contextvars
 import random
+import sys
 import threading
 import time
 from collections import deque
@@ -95,7 +107,7 @@ class Span:
     (JSON-safe values only); ``finish()`` records it onto its trace —
     callable from any thread, exactly once (later calls are ignored)."""
 
-    __slots__ = ("trace", "span_id", "parent_id", "name", "start_epoch",
+    __slots__ = ("trace", "span_id", "parent_id", "name", "start_ns",
                  "_t0", "duration", "attrs", "_done")
 
     def __init__(self, trace: "Trace", parent_id: Optional[str], name: str,
@@ -104,7 +116,7 @@ class Span:
         self.span_id = _new_span_id()
         self.parent_id = parent_id
         self.name = name
-        self.start_epoch = time.time()
+        self.start_ns = time.time_ns()  # the profiler's clock
         self._t0 = time.perf_counter()
         self.duration = 0.0
         self.attrs = dict(attrs) if attrs else {}
@@ -132,7 +144,8 @@ class Span:
             "span_id": self.span_id,
             "parent_id": self.parent_id,
             "name": self.name,
-            "start": self.start_epoch,
+            "start": self.start_ns / 1e9,
+            "start_ns": self.start_ns,
             "duration_us": int(self.duration * 1e6),
             "attrs": self.attrs,
         }
@@ -140,11 +153,18 @@ class Span:
 
 class _NullSpan:
     """The disabled-path stand-in: every hook stays unconditional at the
-    call site while costing nothing."""
+    call site while costing nothing. It is also the shared no-op context
+    ``Tracer.span`` returns when nothing records."""
 
     __slots__ = ()
     trace_id = None
     span_id = None
+
+    def __enter__(self) -> "_NullSpan":
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        return None
 
     def set(self, key, value) -> None:
         pass
@@ -157,6 +177,47 @@ class _NullSpan:
 
 
 NULL_SPAN = _NullSpan()
+
+
+class _SpanScope:
+    """The extent of one ``Tracer.span``: a profiler range of its name
+    when ``profiler`` (torch.autograd.profiler) is given, and a child
+    span on the request trace when ``cur`` (the active (trace, parent))
+    is. Entering yields the span, or NULL_SPAN without a request trace."""
+
+    __slots__ = ("_profiler", "_cur", "_name", "_attrs", "_range", "_span",
+                 "_token")
+
+    def __init__(self, profiler, cur, name: str, attrs: dict):
+        self._profiler = profiler
+        self._cur = cur
+        self._name = name
+        self._attrs = attrs
+        self._range = self._span = None
+
+    def __enter__(self):
+        if self._profiler is not None:
+            self._range = self._profiler.record_function(self._name)
+            self._range.__enter__()
+        if self._cur is None:
+            return NULL_SPAN
+        trace, parent = self._cur
+        sp = self._span = Span(trace, parent, self._name, self._attrs)
+        self._token = _CURRENT.set((trace, sp.span_id))
+        return sp
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        sp = self._span
+        if sp is not None:
+            # an exception marks the span AND flags the trace before
+            # propagating
+            if exc is not None:
+                sp.set("error", repr(exc))
+                _flag_exception(sp.trace, exc)
+            _CURRENT.reset(self._token)
+            sp.finish()
+        if self._range is not None:
+            self._range.__exit__(exc_type, exc, tb)
 
 
 class Trace:
@@ -219,6 +280,7 @@ class Tracer:
     def __init__(self, sample: float = 0.1, slow_ms: float = 250.0,
                  ring: int = 256):
         self._rand = random.random
+        self._ap = None  # torch.autograd.profiler, bound once torch loads
         self._live_lock = threading.Lock()
         self._live: dict[str, Trace] = {}
         self.configure(sample=sample, slow_ms=slow_ms, ring=ring)
@@ -262,19 +324,9 @@ class Tracer:
         finally:
             _CURRENT.reset(token)
 
-    def current_trace(self) -> Optional[Trace]:
-        cur = _CURRENT.get()
-        return cur[0] if cur is not None else None
-
     def current_trace_id(self) -> Optional[str]:
         cur = _CURRENT.get()
         return cur[0].trace_id if cur is not None else None
-
-    def current_traceparent(self) -> Optional[str]:
-        cur = _CURRENT.get()
-        if cur is None:
-            return None
-        return format_traceparent(cur[0].trace_id, cur[1])
 
     def flag(self, key: str, value=True) -> None:
         """Set a trace-level flag (error/shed/...) on the active trace;
@@ -331,32 +383,36 @@ class Tracer:
                     del self._live[trace.trace_id]
             self._tail_decide(trace, root)
 
-    @contextmanager
     def span(self, name: str, **attrs):
-        """A child span of whatever is active; a no-op stand-in when
-        nothing is (or tracing is off). Exceptions mark the span AND flag
-        the trace as error before propagating."""
+        """A context: a child span of whatever request trace is active,
+        and a profiler range of ``name`` while a torch profiler records.
+        With neither, the shared no-op NULL_SPAN. Exceptions mark the
+        span AND flag the trace as error before propagating."""
         cur = _CURRENT.get()
-        if cur is None or not self.enabled:
-            yield NULL_SPAN
-            return
-        trace, parent = cur
-        sp = Span(trace, parent, name, attrs)
-        token = _CURRENT.set((trace, sp.span_id))
-        try:
-            yield sp
-        except BaseException as e:
-            sp.set("error", repr(e))
-            _flag_exception(trace, e)
-            raise
-        finally:
-            _CURRENT.reset(token)
-            sp.finish()
+        if cur is not None and not self.enabled:
+            cur = None
+        # torch's process-wide flag (a profiler of all threads leaves its
+        # thread-local check false); a torch without it records no range
+        ap = self._ap or self._bind_profiler()
+        prof = (ap if ap is not None
+                and getattr(ap, "_is_profiler_enabled", False) else None)
+        if cur is None and prof is None:
+            return NULL_SPAN
+        return _SpanScope(prof, cur, name, attrs)
+
+    def _bind_profiler(self):
+        """torch.autograd.profiler once torch is loaded, else None."""
+        torch = sys.modules.get("torch")
+        if torch is not None:
+            self._ap = torch.autograd.profiler
+        return self._ap
 
     def begin(self, name: str, **attrs) -> Optional[Span]:
         """Open a LEAF span without touching the context — for async
         dispatch paths whose completion callback runs elsewhere; the
-        caller owns ``finish()``. Children never nest under it."""
+        caller owns ``finish()``. Children never nest under it. Request
+        traces only: it may end on another thread, so it never becomes a
+        profiler range."""
         cur = _CURRENT.get()
         if cur is None or not self.enabled:
             return None

@@ -63,6 +63,7 @@ from . import bitprop, semiring
 from .. import native
 from ..caveats.vm import build_caveat_table, eval_caveats
 from ..device import resolve_device
+from ..obs.trace import tracer
 from ..utils.metrics import metrics
 from ..models.schema import (
     Arrow,
@@ -115,6 +116,15 @@ def _fallback(reason: str) -> None:
     without overlay state)."""
     metrics.counter("engine_graph_incremental_fallback_total",
                     reason=reason).inc()
+
+
+def host_sync(site: str):
+    """The span of one blocking device-to-host read, counted in
+    ``engine_host_syncs_total{site}``: ``iter`` (a fixpoint iteration's
+    flags), ``level`` (an occupancy-gated level's set count) or
+    ``readback`` (a future's answer)."""
+    metrics.counter("engine_host_syncs_total", site=site).inc()
+    return tracer.span("host_sync", site=site)
 
 
 class StateReleased(RuntimeError):
@@ -1120,7 +1130,8 @@ class QueryFuture:
 
     def _read(self) -> np.ndarray:
         if self._host is None:
-            self._host = self._out.cpu().numpy()
+            with host_sync("readback"):
+                self._host = self._out.cpu().numpy()
         return self._host
 
     def result(self) -> np.ndarray:
@@ -1497,70 +1508,82 @@ def _run(meta: RunMeta, d: dict, seeds: torch.Tensor, q_slots, q_batch,
     the ``changed`` flag and the new state's set count (its occupancy,
     which decides the next hop's push/pull branch in auto mode). An
     acyclic level whose branch depends on occupancy reads the count once
-    before its hop."""
-    B, Mp = seeds.shape[0], (meta.M // LANE + 1) * LANE
-    numel = B * Mp
-    mode = meta.spmm_mode
-    cav_ok = missing = None
-    if meta.cav_rows > 1:
-        with torch.profiler.record_function("caveat_vm"):
-            cav_ok, missing = eval_caveats(meta.caveats, d["cav_static"],
-                                           cav_req, meta.cav_rows)
-    act = semiring.edge_activation(d["exp"], now_rel, d["cav"], cav_ok)
-    dact = semiring.edge_activation(d["dexp"], now_rel, d["dcav"], cav_ok)
-    base = _seed_base(meta, seeds)
-    bounds = meta.res_level_bounds
-    blocks = list(zip(meta.blocks, d["blocks"], d["blocks_bits"]))
+    before its hop. Each read is a ``host_sync``; the whole runs in a
+    ``fixpoint`` span, the caveat VM in a ``caveat_vm`` one."""
+    with tracer.span("fixpoint", rows=seeds.shape[0]) as span:
+        B, Mp = seeds.shape[0], (meta.M // LANE + 1) * LANE
+        numel = B * Mp
+        mode = meta.spmm_mode
+        cav_ok = missing = None
+        if meta.cav_rows > 1:
+            with tracer.span("caveat_vm"):
+                cav_ok, missing = eval_caveats(meta.caveats, d["cav_static"],
+                                               cav_req, meta.cav_rows)
+        act = semiring.edge_activation(d["exp"], now_rel, d["cav"], cav_ok)
+        dact = semiring.edge_activation(d["dexp"], now_rel, d["dcav"], cav_ok)
+        base = _seed_base(meta, seeds)
+        bounds = meta.res_level_bounds
+        blocks = list(zip(meta.blocks, d["blocks"], d["blocks_bits"]))
 
-    def needs_occ(k: int) -> bool:
-        return mode == "auto" and semiring.push_differs(blocks, B, level=k)
+        def needs_occ(k: int) -> bool:
+            return mode == "auto" and semiring.push_differs(blocks, B, level=k)
 
-    def push_at(count: int) -> bool:
-        return semiring.frontier_occupancy(count, numel) <= crossover
+        def push_at(count: int) -> bool:
+            return semiring.frontier_occupancy(count, numel) <= crossover
 
-    def prop_level(V, k, use_push):
-        lo, hi = bounds[k], bounds[k + 1]
-        return semiring.propagate(
-            meta.blocks, d["blocks"], d["blocks_bits"],
-            d["src"][lo:hi], d["dst"][lo:hi], act[lo:hi],
-            d["dsrc"], d["ddst"], dact, V, use_push,
-            level=k, mode=mode)
+        def prop_level(V, k, use_push):
+            lo, hi = bounds[k], bounds[k + 1]
+            return semiring.propagate(
+                meta.blocks, d["blocks"], d["blocks_bits"],
+                d["src"][lo:hi], d["dst"][lo:hi], act[lo:hi],
+                d["dsrc"], d["ddst"], dact, V, use_push,
+                level=k, mode=mode)
 
-    core_progs = [p for p in meta.programs if p.level == 0]
-    V = base
-    count = int(base.sum(dtype=torch.int64)) if needs_occ(0) else 0
-    changed, iters, n_push = True, 0, 0
-    while changed and iters < max_iters:
-        prop, is_push = prop_level(V, 0, push_at(count))
-        V2 = _apply_program(prop | base, core_progs)
-        flags = torch.stack([(V2 != V).any().to(torch.int64),
-                             V2.sum(dtype=torch.int64)]).tolist()
-        changed, count = bool(flags[0]), int(flags[1])
-        V = V2
-        iters += 1
-        n_push += is_push
-    if V is base:
-        V = base.clone()  # max_iters == 0: the levels must not write base
-    for k in range(1, meta.n_levels + 1):
-        progs_k = [p for p in meta.programs if p.level == k]
-        count = int(V.sum(dtype=torch.int64)) if needs_occ(k) else 0
-        prop, is_push = prop_level(V, k, push_at(count))
-        n_push += is_push
-        propb = prop | base
-        for off, size in meta.level_ranges[k - 1]:
-            V[:, off:off + size] = propb[:, off:off + size]
-        V = _apply_program(V, progs_k)
-    if q_contig_len:
-        # a window read: q_slots / q_batch are the first slot and row, and
-        # the [rows, len] block flattens row-major, the query's own order
-        out = V[q_batch:q_batch + q_contig_rows,
-                q_slots:q_slots + q_contig_len].reshape(
-                    q_contig_rows * q_contig_len)
-    else:
-        out = V[q_batch, q_slots]
-    if missing is not None:
-        out = torch.cat([out, missing.reshape(1).view(torch.uint8)])
-    return out.contiguous(), not changed, iters, n_push
+        core_progs = [p for p in meta.programs if p.level == 0]
+        V = base
+        count = _occupancy(base) if needs_occ(0) else 0
+        changed, iters, n_push = True, 0, 0
+        while changed and iters < max_iters:
+            prop, is_push = prop_level(V, 0, push_at(count))
+            V2 = _apply_program(prop | base, core_progs)
+            flags = torch.stack([(V2 != V).any().to(torch.int64),
+                                 V2.sum(dtype=torch.int64)])
+            with host_sync("iter"):
+                flags = flags.tolist()
+            changed, count = bool(flags[0]), int(flags[1])
+            V = V2
+            iters += 1
+            n_push += is_push
+        if V is base:
+            V = base.clone()  # max_iters == 0: the levels must not write base
+        for k in range(1, meta.n_levels + 1):
+            progs_k = [p for p in meta.programs if p.level == k]
+            count = _occupancy(V) if needs_occ(k) else 0
+            prop, is_push = prop_level(V, k, push_at(count))
+            n_push += is_push
+            propb = prop | base
+            for off, size in meta.level_ranges[k - 1]:
+                V[:, off:off + size] = propb[:, off:off + size]
+            V = _apply_program(V, progs_k)
+        if q_contig_len:
+            # a window read: q_slots / q_batch are the first slot and row, and
+            # the [rows, len] block flattens row-major, the query's own order
+            out = V[q_batch:q_batch + q_contig_rows,
+                    q_slots:q_slots + q_contig_len].reshape(
+                        q_contig_rows * q_contig_len)
+        else:
+            out = V[q_batch, q_slots]
+        if missing is not None:
+            out = torch.cat([out, missing.reshape(1).view(torch.uint8)])
+        span.set("iters", iters)
+        return out.contiguous(), not changed, iters, n_push
+
+
+def _occupancy(V: torch.Tensor) -> int:
+    """The state's set count, read back for an occupancy-gated hop."""
+    n = V.sum(dtype=torch.int64)
+    with host_sync("level"):
+        return int(n)
 
 
 # ---------------------------------------------------------------------------

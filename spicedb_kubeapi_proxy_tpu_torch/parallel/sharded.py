@@ -66,6 +66,7 @@ from ..ops.reachability import (
     _RWLock,
     _seed_base,
     convergence_fuse_steps,
+    host_sync,
 )
 from .mesh import Mesh
 
@@ -117,7 +118,8 @@ class ShardedQueryFuture:
 
     def _read(self) -> np.ndarray:
         if self._host is None:
-            self._host = self._out.cpu().numpy()
+            with host_sync("readback"):
+                self._host = self._out.cpu().numpy()
         return self._host
 
     def result(self) -> np.ndarray:
@@ -700,7 +702,8 @@ class ShardedGraph:
                 fl = torch.stack(flags).reshape(K, len(rows)).amax(dim=1)
                 if mesh.multi:
                     _all_reduce_max(fl, mesh.mesh_group)
-                fl = fl.tolist()
+                with host_sync("iter"):
+                    fl = fl.tolist()
                 prev_changed = fl[-1]
                 it += sum(fl)
                 checks += 1
