@@ -14,7 +14,9 @@ the port's own gather; the bucketed ``n_b`` a fused batch gives
 package's test_decision_cache.py, ported; a differential against the
 JAX engine and the oracle with cache and batcher both on; a threaded
 read-your-writes check; the compactor's ``retire_below``; caveat-context
-digests; a cached, batched list beside a write waiting on a bulk check.
+digests, and contexted lists fused one batch a digest (which the JAX
+engine dispatches alone); a cached, batched list beside a write waiting
+on a bulk check.
 (c) ``watch_gate`` and ``lookup_subjects`` against the JAX engine.
 
 Every threaded wait is bounded (``_within``, joins with a timeout), so a
@@ -914,9 +916,10 @@ CAV_CONTEXTS = ({"ip": "10.1.2.3"}, {"ip": "192.168.1.1"}, None)
 def test_caveated_context_digests(kernels_interpreted):
     """Three request contexts give three cache entries, each byte-equal to
     the JAX engine's mask; a context that differs only in an undeclared
-    key hits the declared one's entry; a contexted list bypasses the
-    batcher, and a context-free fused batch counts its missing-context
-    denials once a dispatch, as the JAX engine does."""
+    key hits the declared one's entry; a contexted list whose digest has
+    shown no company is dispatched at once, waiting for no batch, and a
+    context-free fused batch counts its missing-context denials once a
+    dispatch, as the JAX engine does."""
     rows = build_rows(48, 16, 4, 8, 700, 2, cav_share=0.3)
     je = JEngine(schema=jparse_schema(MESH_SCHEMA))
     te = Engine(schema=parse_schema(MESH_SCHEMA), device="cpu")
@@ -927,18 +930,21 @@ def test_caveated_context_digests(kernels_interpreted):
     cache = te._decision_cache
     u = "u12"  # a user whose three masks all differ
     got = []
-    b0 = metrics.counter("engine_lookup_batches_total").value
     for ctx in CAV_CONTEXTS[:2]:
         n0 = cache.stats()["entries"]
+        b0 = metrics.counter("engine_lookup_batches_total").value
         tm, _ = _within(lambda: te.lookup_resources_mask(
             "pod", "view", "user", u, context=ctx))
         jm, _ = je.lookup_resources_mask("pod", "view", "user", u,
                                          context=ctx)
         np.testing.assert_array_equal(tm, jm)
         assert cache.stats()["entries"] == n0 + 1
+        # the first list of its digest went direct: no fused dispatch,
+        # and no batch waits out the 30 s window
+        assert metrics.counter("engine_lookup_batches_total").value == b0
+        assert not te._batcher._pending
         got.append(tm)
-    # contexted lists went direct: no fused dispatch
-    assert metrics.counter("engine_lookup_batches_total").value == b0
+    b0 = metrics.counter("engine_lookup_batches_total").value
     # the context-free one fuses: four users in one dispatch, two
     # missing-context denials (two instances) counted once
     users = ["u12", "u4", "u5", "u6"]
@@ -981,6 +987,244 @@ def test_caveated_context_digests(kernels_interpreted):
         CAV_CONTEXTS[0], verb="get")) is not None
     te.disable_lookup_batching()
     je.disable_lookup_batching()
+
+
+def _caveated_pair(batch_window=None, max_rows=8):
+    """A JAX engine without batching (it dispatches each contexted list
+    alone) and a port engine, both on the small caveated mesh rows."""
+    rows = build_rows(48, 16, 4, 8, 700, 2, cav_share=0.3)
+    je = JEngine(schema=jparse_schema(MESH_SCHEMA))
+    te = Engine(schema=parse_schema(MESH_SCHEMA), device="cpu")
+    je.bulk_load(rows)
+    te.bulk_load(rows)
+    te.compiled()
+    if batch_window is not None:
+        te.enable_lookup_batching(window=batch_window, max_rows=max_rows)
+    return je, te
+
+
+def _contexted_counts() -> tuple:
+    return (metrics.counter("engine_lookups_contexted_total").value,
+            metrics.counter("engine_lookups_contexted_fused_total").value,
+            metrics.counter("engine_lookup_batches_total").value)
+
+
+def test_contexted_lists_fuse_per_digest(kernels_interpreted):
+    """One list under each of the cell's two contexts opens its digest
+    (dispatched at once: the digest has shown no company yet). Then lists
+    under those two contexts, one that differs from the first only in an
+    undeclared key, and one with no declared key at all (its digest is
+    the context-free one), interleaved within the window: one fused
+    dispatch forms per digest, the undeclared-key context in the first
+    context's, no dispatch mixes digests, every mask equals the JAX
+    engine's direct mask under its own context, and the missing-context
+    denials move as the JAX engine's."""
+    je, te = _caveated_pair(batch_window=30.0, max_rows=4)
+    cg = te.compiled()
+    a, b = CAV_CONTEXTS[:2]
+    a2, bare = dict(a, verb="list"), {"verb": "list"}
+    users = ["u12", "u4", "u5", "u6"]
+    openers = [("u7", a), ("u7", b)]
+    lists = []
+    for i, u in enumerate(users):
+        lists += [(u, a if i % 2 == 0 else a2), (u, b), (u, bare)]
+    seen = []
+    inner = te._batcher._dispatch_rows
+
+    def spy(cg_, objs, rows):
+        seen.append([te._digest(cg_, r[1]) for r in rows])
+        return inner(cg_, objs, rows)
+
+    te._batcher._dispatch_rows = spy
+    c0, f0, b0 = _contexted_counts()
+    m0, j0 = metrics.counter(MISSING).value, jmetrics.counter(MISSING).value
+    got = [_within(lambda: te.lookup_resources_mask(
+        "pod", "view", "user", u, context=ctx))[0] for u, ctx in openers]
+    assert _contexted_counts()[1:] == (f0, b0) and not seen
+    futs = [te.lookup_resources_mask_async("pod", "view", "user", u,
+                                           context=ctx)
+            for u, ctx in lists]
+    got += _within(lambda: [f.result()[0] for f in futs])
+    want = [je.lookup_resources_mask("pod", "view", "user", u,
+                                     context=ctx)[0]
+            for u, ctx in openers + lists]
+    for (u, ctx), tm, jm in zip(openers + lists, got, want):
+        np.testing.assert_array_equal(tm, jm, err_msg=f"{u} {ctx}")
+    digests = {"a": te._digest(cg, a), "b": te._digest(cg, b)}
+    assert te._digest(cg, a2) == digests["a"] != digests["b"]
+    assert te._digest(cg, bare) is None
+    # one dispatch per digest, four rows each, none mixing two digests
+    assert sorted(map(str, (d[0] for d in seen))) == sorted(
+        map(str, [digests["a"], digests["b"], None]))
+    assert all(len(d) == 4 and len(set(d)) == 1 for d in seen)
+    c1, f1, b1 = _contexted_counts()
+    assert (c1 - c0, f1 - f0, b1 - b0) == (14, 12, 3)
+    # the bare context's four lists deny two instances each, as the
+    # JAX engine's four direct dispatches do
+    assert jmetrics.counter(MISSING).value - j0 == 8
+    assert metrics.counter(MISSING).value - m0 == 8
+    assert not te._batcher._pending and not te._batcher._timers
+    te.disable_lookup_batching()
+
+
+@pytest.mark.parametrize(
+    "case", ["cold", "explicit_now", "batching_off", "after_company"])
+def test_contexted_list_alone(kernels_interpreted, case):
+    """A contexted list whose digest has shown no company, one with an
+    explicit ``now``, and one on an engine with batching off dispatch
+    directly. After a batch of its digest held two rows, a lone list
+    waits in its digest's batch until the window's timer dispatches it
+    alone; the next lone list, past the window, goes direct again. Each
+    mask equals the JAX engine's."""
+    window = {"cold": 0.5, "explicit_now": 30.0, "batching_off": None,
+              "after_company": 0.5}[case]
+    je, te = _caveated_pair(batch_window=window, max_rows=8)
+    ctx = CAV_CONTEXTS[1]
+    kw = {"now": time.time()} if case == "explicit_now" else {}
+
+    def lists(users):
+        futs = [te.lookup_resources_mask_async("pod", "view", "user", u,
+                                               context=ctx, **kw)
+                for u in users]
+        for u, f in zip(users, futs):
+            jm, _ = je.lookup_resources_mask("pod", "view", "user", u,
+                                             context=ctx, **kw)
+            np.testing.assert_array_equal(_within(f.result)[0], jm)
+
+    c0, f0, b0 = _contexted_counts()
+    if case == "after_company":
+        # the first goes direct; the next two follow it within the
+        # window and share the timer's dispatch
+        lists(["u12", "u4", "u5"])
+        assert _contexted_counts() == (c0 + 3, f0 + 2, b0 + 1)
+        time.sleep(2 * window)
+        t0 = time.perf_counter()
+        lists(["u6"])
+        assert time.perf_counter() - t0 >= window
+        assert _contexted_counts() == (c0 + 4, f0 + 2, b0 + 2)
+        time.sleep(2 * window)
+        lists(["u7"])
+        assert _contexted_counts() == (c0 + 5, f0 + 2, b0 + 2)
+    else:
+        lists(["u12"])
+        assert _contexted_counts() == (c0 + 1, f0, b0)
+    if te._batcher is not None:
+        assert not te._batcher._pending and not te._batcher._timers
+        te.disable_lookup_batching()
+
+
+TWO_CAVEAT_SCHEMA = """
+caveat ip_allowlist(ip ipaddress, allowed list<ipaddress>) {
+  ip in allowed
+}
+caveat level_ok(level int, min int) { level >= min }
+definition user {}
+definition pod {
+  relation viewer: user | user with ip_allowlist | user with level_ok
+  permission view = viewer
+}
+"""
+SPLIT_CONTEXTS = ({"ip": "10.1.2.3", "level": 1},
+                  {"ip": "10.1.2.3", "level": 5})
+
+
+def _batch_of_two_digests():
+    """A JAX and a port engine with one open batch holding a list under
+    each of two contexts that differ only in ``level``: they share a
+    digest while no ``level_ok`` instance is compiled (a list under the
+    first, dispatched at once, opens the digest), and differ on the graph
+    of the ``level_ok`` grant written before the batch dispatches."""
+    rels = ['pod:p1#viewer@user:u0[ip_allowlist:{"allowed":["10.0.0.0/8"]}]',
+            "pod:p2#viewer@user:u0"]
+    grant = 'pod:p0#viewer@user:u0[level_ok:{"min":3}]'
+    je = JEngine(schema=jparse_schema(TWO_CAVEAT_SCHEMA))
+    te = Engine(schema=parse_schema(TWO_CAVEAT_SCHEMA), device="cpu")
+    je.write_relationships([JWriteOp("touch", jparse_rel(r)) for r in rels])
+    te.write_relationships([WriteOp("touch", parse_relationship(r))
+                            for r in rels])
+    te.enable_lookup_batching(window=30.0, max_rows=8)
+    low, high = SPLIT_CONTEXTS
+    cg = te.compiled()
+    assert te._digest(cg, low) == te._digest(cg, high)
+    tm, _ = _within(lambda: te.lookup_resources_mask(
+        "pod", "view", "user", "u0", context=low))
+    np.testing.assert_array_equal(tm, je.lookup_resources_mask(
+        "pod", "view", "user", "u0", context=low)[0])
+    futs = [te.lookup_resources_mask_async("pod", "view", "user", "u0",
+                                           context=c) for c in (low, high)]
+    assert len(te._batcher._pending) == 1
+    je.write_relationships([JWriteOp("touch", jparse_rel(grant))])
+    te.write_relationships([WriteOp("touch", parse_relationship(grant))])
+    return je, te, futs
+
+
+def test_a_batch_splits_when_a_newer_graph_reads_more_of_its_contexts(
+        kernels_interpreted):
+    """The open batch of two contexts that shared a digest at submit
+    splits on the graph it runs on into one dispatch a digest, each mask
+    equal to the JAX engine's at the same revision."""
+    je, te, futs = _batch_of_two_digests()
+    b0 = metrics.counter("engine_lookup_batches_total").value
+    te._batcher.flush()
+    got = _within(lambda: [f.result() for f in futs])
+    assert metrics.counter("engine_lookup_batches_total").value - b0 == 2
+    for c, (tm, interner) in zip(SPLIT_CONTEXTS, got):
+        jm, _ = je.lookup_resources_mask("pod", "view", "user", "u0",
+                                         context=c)
+        np.testing.assert_array_equal(tm, jm)
+        seen = {interner.string(i) for i in np.flatnonzero(tm)}
+        assert ("p0" in seen) == (c is SPLIT_CONTEXTS[1])
+    te.disable_lookup_batching()
+
+
+def test_a_failed_digest_group_leaves_the_others_answers(
+        kernels_interpreted):
+    """When the second digest group of a split batch fails to dispatch,
+    its caller gets the error and the first group's caller still gets
+    its mask."""
+    je, te, futs = _batch_of_two_digests()
+    inner = te._batcher._dispatch_rows
+    calls = []
+
+    def second_fails(cg, objs, rows):
+        calls.append(len(rows))
+        if len(calls) == 2:
+            raise RuntimeError("second group lost")
+        return inner(cg, objs, rows)
+
+    te._batcher._dispatch_rows = second_fails
+    te._batcher.flush()
+    assert calls == [1, 1]
+    tm, _ = _within(futs[0].result)
+    jm, _ = je.lookup_resources_mask("pod", "view", "user", "u0",
+                                     context=SPLIT_CONTEXTS[0])
+    np.testing.assert_array_equal(tm, jm)
+    with pytest.raises(RuntimeError, match="second group lost"):
+        _within(futs[1].result)
+    te.disable_lookup_batching()
+
+
+def test_query_array_cache_keeps_to_its_byte_cap(monkeypatch):
+    """The host query arrays of row compositions are cached, the oldest
+    evicted once their bytes would pass ``Q_HOST_BYTES``, and an entry
+    larger than the cap is built and not kept."""
+    import spicedb_kubeapi_proxy_tpu_torch.engine.engine as teng
+
+    te = Engine(schema=parse_schema(MESH_SCHEMA), device="cpu")
+    monkeypatch.setattr(teng, "Q_HOST_BYTES", 3 * 8 * 100)
+    one = ((10, 100),)
+    qs, qb = te._q_arrays(one)
+    np.testing.assert_array_equal(qs, 10 + np.arange(100))
+    assert not qb.any() and te._q_arrays(one)[0] is qs
+    two = ((10, 100), (10, 100))
+    qs2, qb2 = te._q_arrays(two)
+    np.testing.assert_array_equal(qb2, np.repeat([0, 1], 100))
+    assert te._q_host_bytes == 3 * 8 * 100
+    te._q_arrays(((500, 100),))  # past the cap: the oldest goes
+    assert list(te._q_host) == [two, ((500, 100),)]
+    assert te._q_host_bytes == 3 * 8 * 100
+    te._q_arrays(((0, 100),) * 4)  # alone past the cap: not kept
+    assert list(te._q_host) == [two, ((500, 100),)]
 
 
 def test_cached_batched_list_beside_a_write_waiting_on_a_bulk_check():
